@@ -1,0 +1,100 @@
+"""Carry state across from the JAX reference package, as numpy arrays.
+
+Every function takes or returns plain numpy arrays (a caller holding JAX
+objects passes `np.asarray(leaf)` for each leaf), so this module needs
+neither `jax` nor `repro`. uint32 arrays — the visited bitset, label
+words, program masks — are reinterpreted as int32 with
+`ndarray.view(np.int32)` on the way in and back with `view(np.uint32)` on
+the way out: the bits never change.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import SearchEngine
+from repro_torch.core.gbdt import GBDTModel
+from repro_torch.core.state import SearchState
+from repro_torch.device import resolve_device
+from repro_torch.filters.compile import FilterProgram, program_to
+
+_STATE_DTYPES = {
+    "cand_dist": torch.float32, "cand_idx": torch.int32,
+    "cand_exp": torch.bool, "cand_valid": torch.bool,
+    "res_dist": torch.float32, "res_idx": torch.int32,
+    "visited": torch.int32, "cnt": torch.int32, "n_inspected": torch.int32,
+    "n_valid_visited": torch.int32, "n_clause_valid": torch.int32,
+    "n_pop_valid": torch.int32, "q_err_sum": torch.float32,
+    "hops": torch.int32, "active": torch.bool, "d_start": torch.float32,
+    "conv_cnt": torch.int32, "res_full_cnt": torch.int32,
+}
+
+
+def _as_int32_bits(a: np.ndarray) -> np.ndarray:
+    a = np.array(a, order="C")  # a writable copy (JAX arrays are read-only)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def state_to_torch(leaves: Sequence[np.ndarray], device=None) -> SearchState:
+    """The 18 leaves of a reference SearchState, in field order → torch."""
+    dev = resolve_device(device)
+    if len(leaves) != len(SearchState._fields):
+        raise ValueError(f"expected {len(SearchState._fields)} leaves, got "
+                         f"{len(leaves)}")
+    return SearchState(*(
+        torch.from_numpy(_as_int32_bits(np.asarray(a))).to(dev, dt)
+        for a, dt in zip(leaves, (_STATE_DTYPES[f]
+                                  for f in SearchState._fields))))
+
+
+def state_to_numpy(state: SearchState) -> tuple[np.ndarray, ...]:
+    """A port SearchState → 18 numpy leaves in the reference's dtypes
+    (visited back as uint32)."""
+    out = []
+    for name, t in zip(SearchState._fields, state):
+        a = t.detach().cpu().numpy()
+        out.append(a.view(np.uint32) if name == "visited" else a)
+    return tuple(out)
+
+
+def program_to_torch(leaves: Sequence[np.ndarray], device=None,
+                     ) -> FilterProgram:
+    """The 9 leaves of a reference FilterProgram (masks uint32) → torch."""
+    return program_to(FilterProgram(*leaves), resolve_device(device))
+
+
+def engine_from_arrays(vectors: np.ndarray, labels_packed: np.ndarray,
+                       values: np.ndarray, neighbors: np.ndarray,
+                       entry_point: int, backend: str | None = None,
+                       device=None) -> SearchEngine:
+    """Dataset arrays (vectors [N,d], labels [N,W] uint32, values [N,V])
+    and graph arrays (neighbors [N,R], entry point) → SearchEngine."""
+    dev = resolve_device(device)
+    values = np.asarray(values, np.float32)
+    if values.ndim == 1:
+        values = values[:, None]
+    return SearchEngine(
+        base_vectors=torch.from_numpy(
+            np.ascontiguousarray(vectors, np.float32)).to(dev),
+        label_attrs=torch.from_numpy(_as_int32_bits(labels_packed)).to(
+            dev, torch.int32),
+        value_attrs=torch.from_numpy(np.ascontiguousarray(values)).to(dev),
+        neighbors=torch.from_numpy(
+            np.ascontiguousarray(neighbors, np.int32)).to(dev),
+        entry_point=int(entry_point),
+        backend=backend,
+    )
+
+
+def gbdt_from_arrays(feat: np.ndarray, thresh: np.ndarray, leaf: np.ndarray,
+                     base: float, depth: int,
+                     importances: np.ndarray | None = None) -> GBDTModel:
+    """A reference GBDTModel's arrays → the port's GBDTModel."""
+    feat = np.asarray(feat, np.int32)
+    return GBDTModel(
+        feat=feat, thresh=np.asarray(thresh, np.float32),
+        leaf=np.asarray(leaf, np.float32), base=float(base), depth=int(depth),
+        importances=(np.zeros(int(feat.max(initial=0)) + 1)
+                     if importances is None else np.asarray(importances)))

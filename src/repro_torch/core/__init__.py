@@ -1,0 +1,25 @@
+"""The E2E pipeline on torch: state → step → backend → search → engine,
+and the probe → estimate → resume stages on top."""
+from repro_torch.core.backends import available_backends, get_backend
+from repro_torch.core.e2e import (E2EResult, e2e_search, predict_budgets,
+                                  probe_and_features)
+from repro_torch.core.engine import BIG_BUDGET, SearchEngine
+from repro_torch.core.estimator import CostEstimator
+from repro_torch.core.features import (FEATURE_NAMES, N_FEATURES,
+                                       ablate_filter_features,
+                                       extract_features, feature_names)
+from repro_torch.core.gbdt import GBDTModel, train_gbdt
+from repro_torch.core.search import run_search
+from repro_torch.core.state import (SearchConfig, SearchState, init_state,
+                                    prepare_resume, topk_results)
+from repro_torch.core.training import TrainingData, generate_training_data
+
+__all__ = [
+    "available_backends", "get_backend", "E2EResult", "e2e_search",
+    "predict_budgets", "probe_and_features", "BIG_BUDGET", "SearchEngine",
+    "CostEstimator", "FEATURE_NAMES", "N_FEATURES", "ablate_filter_features",
+    "extract_features", "feature_names", "GBDTModel", "train_gbdt",
+    "run_search", "SearchConfig", "SearchState", "init_state",
+    "prepare_resume", "topk_results", "TrainingData",
+    "generate_training_data",
+]

@@ -1,0 +1,160 @@
+"""Search-state layer: configuration, the lockstep carry, init and resume.
+
+Counterpart of `repro/core/state.py`, with the same `SearchConfig` fields
+and the same 18 `SearchState` leaves, as torch tensors:
+
+  candidate queue   sorted ascending [B, M]  (dist, idx, expanded, valid)
+  result set        sorted ascending [B, K]  (valid nodes only)
+  visited set       packed bitset    [B, ceil(N/32)] — int32 holding the
+                    reference's uint32 bit patterns (see `word_bit`)
+  counters          cnt (NDC), n_inspected, n_valid_visited, n_pop_valid,
+                    n_clause_valid (per clause slot), hops, q_err_sum
+
+This slice is float32 only; lane and shard surgery wait for a later one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.filters.compile import clause_counts, eval_program_gathered
+from repro_torch.filters.predicates import PRED_CONTAIN
+from repro_torch.kernels.distance import sqdist_bdrd
+
+INF = float("inf")
+INT32_MIN = -(1 << 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    k: int = 10                # result set size
+    queue_size: int = 128      # M — beam width / ef analogue
+    degree: int = 32           # graph out-degree R (static)
+    pred_kind: int = PRED_CONTAIN  # legacy tag; traversal ignores it
+    mode: str = "post"         # "post" | "pre" | "widen" (post only here)
+    two_hop_stride: int = 8    # pre/widen: sample every s-th 2-hop neighbor
+    max_steps: int = 100000
+    greedy_stop: bool = False  # optional: stop when best cand > worst result
+    backend: str | None = None # TraversalBackend name; None → engine default
+    steps_per_launch: int = 8  # persistent backends (not ported yet)
+    use_pallas: bool = False   # reference's dense-backend distance kernel
+                               # switch; the port's dense backend is plain
+    precision: str | None = None  # "float32" (None inherits the engine's)
+
+
+class SearchState(NamedTuple):
+    cand_dist: torch.Tensor       # [B, M] f32 sorted ascending, inf padded
+    cand_idx: torch.Tensor        # [B, M] i32, -1 padded
+    cand_exp: torch.Tensor        # [B, M] bool — already expanded
+    cand_valid: torch.Tensor      # [B, M] bool — predicate validity
+    res_dist: torch.Tensor        # [B, K] f32 sorted ascending, inf padded
+    res_idx: torch.Tensor         # [B, K] i32, -1 padded
+    visited: torch.Tensor         # [B, NW] i32 bitset (uint32 bit patterns)
+    cnt: torch.Tensor             # [B] i32 — NDC (paper's W_q unit)
+    n_inspected: torch.Tensor     # [B] i32 — predicate evaluations
+    n_valid_visited: torch.Tensor # [B] i32 — valid among inspected
+    n_clause_valid: torch.Tensor  # [B, C] i32 — per-clause-slot hits
+    n_pop_valid: torch.Tensor     # [B] i32 — valid among popped/expanded
+    q_err_sum: torch.Tensor       # [B] f32 — 0 in float32 mode
+    hops: torch.Tensor            # [B] i32 — expansions (search hops)
+    active: torch.Tensor          # [B] bool
+    d_start: torch.Tensor         # [B] f32 — entry-point distance
+    conv_cnt: torch.Tensor        # [B] i32 — NDC at first full recall, -1
+    res_full_cnt: torch.Tensor    # [B] i32 — NDC when the k-th valid was found, -1
+
+
+def check_precision(cfg: SearchConfig) -> None:
+    if (cfg.precision or "float32") != "float32":
+        raise ValueError(
+            f"precision {cfg.precision!r} is not ported yet: the int8/PQ "
+            "codecs come with the quantized-domain slice of the port")
+
+
+def word_bit(ids: torch.Tensor) -> torch.Tensor:
+    """The visited-bitset word bit of node ids >= 0, as int32 bit patterns.
+
+    Bit 31 is INT32_MIN; shifting into the sign bit is avoided so the
+    value does not depend on signed-overflow behaviour.
+    """
+    sh = ids & 31
+    one = torch.ones_like(sh)
+    return torch.where(sh == 31, INT32_MIN, one << sh.clamp(max=30))
+
+
+def init_state(
+    cfg: SearchConfig,
+    queries: torch.Tensor,       # [B, d]
+    prog,                        # FilterProgram (leaves [B, S, ...])
+    base_vectors: torch.Tensor,  # [N, d]
+    attrs,                       # (labels [N, W] i32, values [N, V] f32)
+    entry_point: int,
+) -> SearchState:
+    check_precision(cfg)
+    dev = queries.device
+    b = queries.shape[0]
+    n = base_vectors.shape[0]
+    nw = (n + 31) // 32
+    m, k = cfg.queue_size, cfg.k
+    labels, values = attrs
+    i32 = torch.int32
+
+    ep = torch.full((b, 1), entry_point, dtype=i32, device=dev)
+    d0 = sqdist_bdrd(queries, base_vectors[entry_point][None, None, :]
+                     .expand(b, 1, -1))                         # [B,1]
+    val0, csat0 = eval_program_gathered(
+        prog, labels[entry_point][None, None, :].expand(b, 1, -1),
+        values[entry_point][None, None, :].expand(b, 1, -1))
+    cadd0 = clause_counts(csat0, torch.ones_like(val0))
+    v0 = val0[:, 0]
+
+    cand_dist = torch.full((b, m), INF, device=dev)
+    cand_dist[:, 0] = d0[:, 0]
+    cand_idx = torch.full((b, m), -1, dtype=i32, device=dev)
+    cand_idx[:, 0] = entry_point
+    cand_exp = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    cand_valid = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    cand_valid[:, 0] = v0
+
+    res_dist = torch.full((b, k), INF, device=dev)
+    res_dist[:, 0] = torch.where(v0, d0[:, 0], INF)
+    res_idx = torch.full((b, k), -1, dtype=i32, device=dev)
+    res_idx[:, 0] = torch.where(v0, ep[:, 0], -1)
+
+    visited = torch.zeros((b, nw), dtype=i32, device=dev)
+    visited[:, entry_point // 32] = word_bit(ep[:, 0])
+
+    ones = torch.ones((b,), dtype=i32, device=dev)
+    zeros = torch.zeros((b,), dtype=i32, device=dev)
+    return SearchState(
+        cand_dist=cand_dist,
+        cand_idx=cand_idx,
+        cand_exp=cand_exp,
+        cand_valid=cand_valid,
+        res_dist=res_dist,
+        res_idx=res_idx,
+        visited=visited,
+        cnt=ones,
+        n_inspected=ones.clone(),
+        n_valid_visited=v0.to(i32),
+        n_clause_valid=cadd0,
+        n_pop_valid=zeros,
+        q_err_sum=torch.zeros((b,), dtype=torch.float32, device=dev),
+        hops=zeros.clone(),
+        active=torch.ones((b,), dtype=torch.bool, device=dev),
+        d_start=d0[:, 0].contiguous(),
+        conv_cnt=torch.full((b,), -1, dtype=i32, device=dev),
+        res_full_cnt=torch.where(v0 & (k == 1), 1, -1).to(i32),
+    )
+
+
+def prepare_resume(state: SearchState) -> SearchState:
+    """Reactivate lanes that stopped purely on budget (probe → resume)."""
+    return state._replace(active=torch.ones_like(state.active))
+
+
+def topk_results(state: SearchState) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side (idx, dist) of the result set."""
+    return state.res_idx.cpu().numpy(), state.res_dist.cpu().numpy()

@@ -1,0 +1,131 @@
+"""Traversal-step layer: the backend-agnostic per-step logic.
+
+Counterpart of `repro/core/step.py::make_step`, post mode: pop → gather
+the 1-hop frontier → visited test and set → (backend: filter program +
+distances + queue/result merge) → counters, convergence and lane masking.
+
+Pre and widen modes (and the 2-hop frontier they gather) wait for the
+planning slice of the port; compressed precisions for the quantized one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.state import (INF, SearchConfig, SearchState,
+                                    check_precision, word_bit)
+
+
+def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
+              neighbors, budgets, gt_dist):
+    """Build the step function closed over static data and per-lane budgets.
+
+    The returned `step(state)` consumes `state`: its visited bitset is
+    updated in place (the reference donates the carry the same way).
+    """
+    if cfg.mode != "post":
+        raise ValueError(
+            f"mode {cfg.mode!r} is not ported yet: pre/widen traversal comes "
+            "with the planning slice of the port (post mode only here)")
+    check_precision(cfg)
+    label_attrs, value_attrs = attrs
+
+    def step(state: SearchState) -> SearchState:
+        # ---- pop best unexpanded candidate per lane ----
+        unexp = (~state.cand_exp) & (state.cand_idx >= 0)
+        pop_key = torch.where(unexp, state.cand_dist, INF)
+        p = torch.argmin(pop_key, dim=1)[:, None]            # first minimum
+        best_d = torch.gather(pop_key, 1, p)[:, 0]
+        has_cand = torch.isfinite(best_d)
+        u = torch.gather(state.cand_idx, 1, p)[:, 0]
+        u_valid = torch.gather(state.cand_valid, 1, p)[:, 0]
+
+        stop_budget = state.cnt >= budgets
+        act = state.active & has_cand & (~stop_budget)
+        if cfg.greedy_stop:
+            worst_res = state.res_dist[:, -1]
+            act = act & ~(torch.isfinite(worst_res) & (best_d > worst_res))
+
+        # ---- mark popped slot expanded (active lanes only) ----
+        cand_exp = state.cand_exp.scatter(
+            1, p, torch.gather(state.cand_exp, 1, p) | act[:, None])
+
+        # ---- gather frontier neighbor ids (post: the 1-hop list) ----
+        nb = neighbors[u.clamp(min=0).long()]                 # [B, R]
+        nb_ok = (nb >= 0) & act[:, None]
+        nb_safe = nb.clamp(min=0)
+        nb_long = nb_safe.long()
+
+        # ---- visited-set test (packed bitset) ----
+        word_idx = (nb_safe >> 5).long()
+        bit = word_bit(nb_safe)
+        words = torch.gather(state.visited, 1, word_idx)
+        seen = (words & bit) != 0
+        is_new = nb_ok & (~seen)
+
+        # ---- visited bits: wrapping int32 add, as the reference's uint32
+        # add — an id repeated within a row carries into the next bit.
+        # Not-new entries (inactive lanes included) add 0, so clamping
+        # their index is exact and the in-place update needs no lane mask.
+        visited = state.visited.scatter_add_(
+            1, word_idx, torch.where(is_new, bit, 0))
+
+        # ---- backend hot path: filter program + distances + merges ----
+        labels_g = label_attrs[nb_long]                       # [B, R, W]
+        values_g = value_attrs[nb_long]                       # [B, R, V]
+        xv = base_vectors[nb_long]                            # [B, R, d]
+        (cand_dist, cand_idx, cand_exp2, cand_valid, res_dist, res_idx,
+         valid, clause_add) = backend.merge_step(
+            cfg, queries, xv, nb, is_new, prog, labels_g, values_g,
+            state.cand_dist, state.cand_idx, cand_exp, state.cand_valid,
+            state.res_dist, state.res_idx)
+
+        # ---- counters (post: every new node gets a distance) ----
+        zero = torch.zeros_like(state.cnt)
+        ndc_add = is_new.sum(dim=1).to(torch.int32)
+        valid_add = valid.sum(dim=1).to(torch.int32)
+        cnt = state.cnt + torch.where(act, ndc_add, zero)
+        n_inspected = state.n_inspected + torch.where(act, ndc_add, zero)
+        n_valid_visited = state.n_valid_visited + torch.where(act, valid_add,
+                                                              zero)
+        n_clause_valid = state.n_clause_valid + torch.where(
+            act[:, None], clause_add, 0)
+        n_pop_valid = state.n_pop_valid + (act & u_valid).to(torch.int32)
+        hops = state.hops + act.to(torch.int32)
+
+        # ---- convergence tracking for W_q ground truth ----
+        if gt_dist is not None:
+            covered = (res_dist <= gt_dist + 1e-6).all(dim=1)
+            first = (state.conv_cnt < 0) & covered
+            conv_cnt = torch.where(first, cnt, state.conv_cnt)
+        else:
+            conv_cnt = state.conv_cnt
+
+        # ---- NDC at which the result set filled (feature) ----
+        now_full = torch.isfinite(res_dist[:, -1]) & act
+        first_full = (state.res_full_cnt < 0) & now_full
+        res_full_cnt = torch.where(first_full, cnt, state.res_full_cnt)
+
+        # ---- lane masking: inactive lanes keep their old arrays ----
+        am = act[:, None]
+        return SearchState(
+            cand_dist=torch.where(am, cand_dist, state.cand_dist),
+            cand_idx=torch.where(am, cand_idx, state.cand_idx),
+            cand_exp=torch.where(am, cand_exp2, cand_exp),
+            cand_valid=torch.where(am, cand_valid, state.cand_valid),
+            res_dist=torch.where(am, res_dist, state.res_dist),
+            res_idx=torch.where(am, res_idx, state.res_idx),
+            visited=visited,
+            cnt=cnt,
+            n_inspected=n_inspected,
+            n_valid_visited=n_valid_visited,
+            n_clause_valid=n_clause_valid,
+            n_pop_valid=n_pop_valid,
+            q_err_sum=state.q_err_sum,
+            hops=hops,
+            active=act,
+            d_start=state.d_start,
+            conv_cnt=conv_cnt,
+            res_full_cnt=res_full_cnt,
+        )
+
+    return step

@@ -1,0 +1,19 @@
+from repro_torch.data.synthetic import (
+    DATASET_PRESETS,
+    AttributedDataset,
+    QueryWorkload,
+    make_dataset,
+    make_label_workload,
+    make_preset,
+    make_range_workload,
+)
+
+__all__ = [
+    "DATASET_PRESETS",
+    "AttributedDataset",
+    "QueryWorkload",
+    "make_dataset",
+    "make_label_workload",
+    "make_preset",
+    "make_range_workload",
+]

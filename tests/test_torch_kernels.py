@@ -1,0 +1,245 @@
+"""Kernel parity of the PyTorch port against the JAX reference, on CPU.
+
+The plain PyTorch versions of K1 (`fused_step_plain`) and K2
+(`gbdt_predict_plain`) take the same numpy-made inputs as the reference's
+host path / interpret-mode kernels and `kernels/ref.py` oracles. The
+CUDA kernels themselves are held against the plain versions by the
+`cuda`-marked test (and by chip_smoke.py on the card).
+
+Tolerances: ids, payloads, masks and counts must be equal; float32
+distances agree to rtol/atol 1e-5 (the two packages sum in different
+orders); GBDT predictions to rtol 1e-5 (leaf sums in different orders).
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import gbdt_from_arrays, program_to_torch
+from repro_torch.core.gbdt import train_gbdt
+from repro_torch.filters.compile import FilterProgram
+from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
+from repro_torch.kernels.topk import pack_payload, unpack_payload
+
+# The reference (JAX) is imported inside the parity tests, so that the
+# `cuda`-marked tests also run on a machine without JAX:
+#     python -m pytest -m cuda tests/test_torch_kernels.py
+
+NAMES = ("cand_dist", "cand_pay", "res_dist", "res_idx", "valid", "clause_add")
+
+
+def _program(rng, b, n_words, n_values, max_slots=3, max_terms=2):
+    """Random multi-slot programs compiled by the reference (numpy leaves)."""
+    from repro.filters.compile import compile_filters
+    from repro.filters.expr import And, Contain, In, Not, Or, Range
+
+    def leaf():
+        c = rng.integers(0, 4)
+        if c == 0:
+            return Contain(rng.integers(0, 32 * n_words, rng.integers(1, 3)))
+        if c == 1:
+            return In(rng.integers(0, 32 * n_words, rng.integers(1, 3)))
+        lo = float(rng.random())
+        return Range(lo, lo + float(rng.random()) * 0.5,
+                     attr=int(rng.integers(0, n_values)))
+
+    def expr():
+        leaves = [leaf() for _ in range(int(rng.integers(1, max_slots + 1)))]
+        leaves = [Not(x) if rng.random() < 0.3 else x for x in leaves]
+        return And(*leaves) if rng.random() < 0.5 else Or(*leaves)
+
+    return compile_filters([expr() for _ in range(b)], n_words, n_values,
+                           n_terms=max_terms)
+
+
+def _numpy_program(rng, b, n_words, n_values, s=4, t=2):
+    """Random program arrays without the reference compiler: every slot
+    kind, negation and term assignment, one active term at least."""
+    return FilterProgram(
+        kinds=rng.integers(0, 4, (b, s)).astype(np.int32),
+        masks=rng.integers(0, 1 << 32, (b, s, n_words), dtype=np.uint32),
+        lo=(rng.random((b, s)) * 0.5).astype(np.float32),
+        hi=(0.5 + rng.random((b, s)) * 0.5).astype(np.float32),
+        vattr=rng.integers(0, n_values, (b, s)).astype(np.int32),
+        neg=rng.random((b, s)) < 0.3,
+        term=rng.integers(0, t, (b, s)).astype(np.int32),
+        active=rng.random((b, s)) < 0.8,
+        term_active=np.ones((b, t), bool))
+
+
+def _inputs(rng, b, m, r, k, d, integer=False, compiled=True):
+    """numpy inputs of one step; integer=True makes every distance an exact
+    small integer, so ties are frequent and bit-equal in both packages.
+    compiled=False draws the program without the reference compiler."""
+    w, v = 2, 2
+    if integer:
+        q = rng.integers(-2, 3, (b, d)).astype(np.float32)
+        x = rng.integers(-2, 3, (b, r, d)).astype(np.float32)
+        x[:, 1] = x[:, 0]
+    else:
+        q = rng.normal(size=(b, d)).astype(np.float32)
+        x = rng.normal(size=(b, r, d)).astype(np.float32)
+    nb = rng.integers(0, 1 << 20, (b, r)).astype(np.int32)
+    nb[:, -1] = nb[:, 0]
+    is_new = rng.random((b, r)) < 0.8
+    prog = (_program if compiled else _numpy_program)(rng, b, w, v)
+    labels = rng.integers(0, 1 << 32, (b, r, w), dtype=np.uint32)
+    values = rng.random((b, r, v)).astype(np.float32)
+    if integer:
+        cd = np.sort(rng.integers(0, 4 * d, (b, m)).astype(np.float32), axis=1)
+        rd = np.sort(rng.integers(0, 4 * d, (b, k)).astype(np.float32), axis=1)
+    else:
+        cd = np.sort(rng.random((b, m)).astype(np.float32) * 50, axis=1)
+        rd = np.sort(rng.random((b, k)).astype(np.float32) * 50, axis=1)
+    cd[:, m // 2:] = np.inf
+    rd[:, k // 2:] = np.inf
+    cp = rng.integers(0, 1 << 20, (b, m)).astype(np.int32)
+    cp[np.isinf(cd)] = -1
+    ri = rng.integers(0, 1 << 20, (b, k)).astype(np.int32)
+    ri[np.isinf(rd)] = -1
+    return q, x, nb, is_new, prog, labels, values, cd, cp, rd, ri
+
+
+def _jax_args(a):
+    import jax.numpy as jnp
+    from repro.filters.compile import FilterProgram as JProgram
+
+    q, x, nb, is_new, prog, labels, values, cd, cp, rd, ri = a
+    return (jnp.asarray(q), jnp.asarray(x), jnp.asarray(nb),
+            jnp.asarray(is_new), JProgram(*(jnp.asarray(t) for t in prog)),
+            jnp.asarray(labels), jnp.asarray(values), jnp.asarray(cd),
+            jnp.asarray(cp), jnp.asarray(rd), jnp.asarray(ri))
+
+
+def _torch_args(a, device="cpu"):
+    q, x, nb, is_new, prog, labels, values, cd, cp, rd, ri = a
+    t = lambda z: torch.from_numpy(np.ascontiguousarray(z)).to(device)  # noqa: E731
+    return (t(q), t(x), t(nb), t(is_new), program_to_torch(prog, device),
+            t(labels.view(np.int32)), t(values), t(cd), t(cp), t(rd), t(ri))
+
+
+def _assert_step_equal(got, want, exact_dist=False):
+    for g, w_, name in zip(got, want, NAMES):
+        g, w_ = np.asarray(g), np.asarray(w_)
+        if w_.dtype == np.float32:
+            finite = np.isfinite(w_)
+            assert np.array_equal(np.isinf(g), ~finite), name
+            if exact_dist:
+                np.testing.assert_array_equal(g[finite], w_[finite], name)
+            else:
+                np.testing.assert_allclose(g[finite], w_[finite], rtol=1e-5,
+                                           atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w_.astype(g.dtype), err_msg=name)
+
+
+@pytest.mark.parametrize("b,m,r,k,d", [(4, 32, 8, 5, 12), (8, 128, 32, 10, 24),
+                                       (3, 64, 17, 7, 33)])
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_plain_matches_reference(b, m, r, k, d, pre):
+    """fused_step_plain == the reference host path and its ref oracle."""
+    from repro.kernels import ref
+
+    rng = np.random.default_rng(b * 100 + m + r)
+    a = _inputs(rng, b, m, r, k, d)
+    got = [t.numpy() for t in fused_step_plain(*_torch_args(a), pre=pre)]
+    _assert_step_equal(got, _fused_step_host()(*_jax_args(a), pre=pre))
+    _assert_step_equal(got, ref.fused_step_ref(*_jax_args(a), pre=pre))
+    # the CPU wrapper is the plain version
+    got2 = [t.numpy() for t in fused_step(*_torch_args(a), pre=pre)]
+    _assert_step_equal(got2, got, exact_dist=True)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_plain_tie_order_matches_host(pre):
+    """Exact distance ties (old vs new, new vs new, repeated ids) merge in
+    the reference host path's stable order."""
+    rng = np.random.default_rng(7)
+    b, m, r, k, d = 6, 32, 16, 6, 8
+    a = _inputs(rng, b, m, r, k, d, integer=True)
+    got = [t.numpy() for t in fused_step_plain(*_torch_args(a), pre=pre)]
+    want = _fused_step_host()(*_jax_args(a), pre=pre)
+    _assert_step_equal(got, want, exact_dist=True)
+    cd = got[0]
+    assert (np.diff(cd[:, : m // 2], axis=1) == 0).any(), "no ties exercised"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_kernel_matches_plain_on_cuda(pre):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K1 has no CPU mode)")
+    rng = np.random.default_rng(11)
+    for integer in (True, False):
+        a = _torch_args(_inputs(rng, 16, 128, 32, 10, 64, integer,
+                                compiled=False), "cuda")
+        got = [t.cpu().numpy() for t in fused_step(*a, pre=pre)]
+        want = [t.cpu().numpy() for t in fused_step_plain(*a, pre=pre)]
+        _assert_step_equal(got, want, exact_dist=integer)
+
+
+def test_payload_pack_roundtrip():
+    idx = torch.tensor([-1, 0, 5, (1 << 29) - 1], dtype=torch.int32)
+    exp = torch.tensor([False, True, False, True])
+    val = torch.tensor([False, False, True, True])
+    i2, e2, v2 = unpack_payload(pack_payload(idx, exp, val))
+    assert torch.equal(i2, idx)
+    assert torch.equal(e2[1:], exp[1:]) and torch.equal(v2[1:], val[1:])
+    assert not e2[0] and not v2[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_step_host():
+    """The reference host path, jitted (eagerly it compiles every
+    primitive op on first use)."""
+    import jax
+    from repro.kernels.fused_step import fused_step_host
+
+    return jax.jit(fused_step_host, static_argnames="pre")
+
+
+def _forest(seed, n, f, trees, depth, train=train_gbdt):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    y = x[:, 0] * 2 + np.sin(x[:, min(1, f - 1)]) + 0.1 * rng.normal(size=n)
+    return x, train(x, y, n_trees=trees, depth=depth, learning_rate=0.2)
+
+
+@pytest.mark.parametrize("n,f,trees,depth", [(64, 8, 20, 3), (128, 28, 60, 5),
+                                             (33, 68, 200, 5)])
+def test_gbdt_plain_matches_reference(n, f, trees, depth):
+    import jax.numpy as jnp
+    from repro.core.gbdt import train_gbdt as j_train_gbdt
+    from repro.kernels.gbdt import gbdt_predict as jax_gbdt_predict
+
+    x, model = _forest(n + f, n, f, trees, depth, j_train_gbdt)
+    want_k = np.asarray(jax_gbdt_predict(
+        jnp.asarray(x), jnp.asarray(model.feat), jnp.asarray(model.thresh),
+        jnp.asarray(model.leaf), model.base, depth, interpret=True))
+    port = gbdt_from_arrays(model.feat, model.thresh, model.leaf, model.base,
+                            model.depth, model.importances)
+    feat, thresh, leaf, base = port.packed("cpu")
+    got = gbdt_predict_plain(torch.from_numpy(x), feat, thresh, leaf, base,
+                             depth).numpy()
+    np.testing.assert_allclose(got, want_k, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, model.predict(x), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(port.predict(x), model.predict(x))
+    got2 = gbdt_predict(torch.from_numpy(x), feat, thresh, leaf, base,
+                        depth).numpy()
+    np.testing.assert_array_equal(got2, got)
+
+
+@pytest.mark.cuda
+def test_gbdt_kernel_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K2 has no CPU mode)")
+    x, model = _forest(3, 100, 68, 200, 5)
+    port = gbdt_from_arrays(model.feat, model.thresh, model.leaf, model.base,
+                            model.depth)
+    feat, thresh, leaf, base = port.packed("cuda")
+    xt = torch.from_numpy(x).cuda()
+    got = gbdt_predict(xt, feat, thresh, leaf, base, 5)
+    want = gbdt_predict_plain(xt, feat, thresh, leaf, base, 5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
