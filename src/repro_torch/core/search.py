@@ -4,7 +4,7 @@ Counterpart of `repro/core/search.py::run_search` (single-step backends;
 the persistent driver waits for its own slice). The `lax.while_loop`
 becomes a host loop over `step`: it stops when no lane is active or at
 `cfg.max_steps`. Reading `active` costs a host sync, so the loop reads it
-every `check_every` steps; the steps in between are exact no-ops once
+every `CHECK_EVERY` steps; the steps in between are exact no-ops once
 every lane has stopped (inactive lanes keep their arrays, and the
 convergence update is idempotent), so the result is the reference's.
 """
@@ -16,6 +16,8 @@ from repro_torch.core.backends import get_backend
 from repro_torch.core.state import (SearchConfig, SearchState, init_state,
                                     prepare_resume)
 from repro_torch.core.step import make_step
+
+CHECK_EVERY = 8  # steps between host reads of `active`
 
 
 def run_search(
@@ -29,7 +31,6 @@ def run_search(
     entry_point: int,
     state: SearchState | None = None,
     gt_dist: torch.Tensor | None = None,
-    check_every: int = 8,
 ) -> SearchState:
     """Run (or resume) the lockstep search until all lanes terminate.
 
@@ -51,7 +52,7 @@ def run_search(
                      neighbors, budgets, gt_dist)
     it = 0
     while it < cfg.max_steps:
-        n = min(check_every, cfg.max_steps - it)
+        n = min(CHECK_EVERY, cfg.max_steps - it)
         for _ in range(n):
             state = step(state)
         it += n

@@ -229,6 +229,27 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   if (tid < kClauseSlots) a.out_counts[b * kClauseSlots + tid] = cnt[tid];
 }
 
+// Opt `kernel` into the device's largest dynamic shared memory, once per
+// device and process: the attribute persists, and setting it before every
+// launch would add a host call to every lockstep step.
+template <typename Kernel>
+cudaError_t opt_in_smem_once(Kernel kernel, bool* done, int n_done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < n_done && done[dev]) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && dev < n_done) done[dev] = true;
+  return err;
+}
+
+constexpr int kMaxDevices = 64;
+
 }  // namespace
 
 extern "C" {
@@ -281,8 +302,8 @@ int fused_step_f32(
   a.R = R; a.D = D; a.M = M; a.K = K; a.W = W; a.V = V; a.S = S; a.T = T;
   a.wq = wq; a.wr = wr; a.pre = pre;
   const size_t smem = fused_step_smem_bytes(R, D, wq, wr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool opted_in[kMaxDevices] = {};
+  cudaError_t err = opt_in_smem_once(fused_step_kernel, opted_in, kMaxDevices);
   if (err != cudaSuccess) return (int)err;
   fused_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

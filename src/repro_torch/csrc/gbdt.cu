@@ -61,6 +61,27 @@ __global__ void __launch_bounds__(kThreads) gbdt_kernel(
   }
 }
 
+// Opt `kernel` into the device's largest dynamic shared memory, once per
+// device and process: the attribute persists, and setting it before every
+// launch would add a host call to every lockstep step.
+template <typename Kernel>
+cudaError_t opt_in_smem_once(Kernel kernel, bool* done, int n_done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < n_done && done[dev]) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && dev < n_done) done[dev] = true;
+  return err;
+}
+
+constexpr int kMaxDevices = 64;
+
 }  // namespace
 
 extern "C" {
@@ -75,8 +96,8 @@ int gbdt_predict_f32(const void* feats, const void* feat, const void* thresh,
                      int B, int F, int T, int NI, int NL, int depth,
                      void* stream) {
   const size_t smem = gbdt_smem_bytes(F, T, NI, NL);
-  cudaError_t err = cudaFuncSetAttribute(
-      gbdt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool opted_in[kMaxDevices] = {};
+  cudaError_t err = opt_in_smem_once(gbdt_kernel, opted_in, kMaxDevices);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + kLanes - 1) / kLanes;
   gbdt_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

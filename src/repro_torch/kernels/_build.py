@@ -25,6 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("fused_step", "gbdt")
+# Dynamic shared memory one H100 thread block can opt into (227 KB); each
+# entry point opts its kernel into this much once per device.
+MAX_SMEM_BYTES = 232448
 
 _LIBS: dict[str, ctypes.CDLL] = {}  # process-wide cache of loaded libraries
 

@@ -32,12 +32,11 @@ from repro_torch.filters.compile import (
     eval_program_gathered,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import MAX_SMEM_BYTES
 from repro_torch.kernels.distance import sqdist_bdrd
 from repro_torch.kernels.topk import merge_stable
 
 INF = float("inf")
-# Shared memory one H100 thread block can opt into (227 KB).
-MAX_SMEM_BYTES = 232448
 
 
 def fused_step_plain(q, x, nb, is_new, prog: FilterProgram, labels_g,

@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_step import MAX_SMEM_BYTES
+from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 
 def gbdt_predict_plain(feats, feat, thresh, leaf, base: float,

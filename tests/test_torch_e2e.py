@@ -15,9 +15,12 @@ from repro.core import (CostEstimator as JEstimator, SearchConfig as JConfig,
 from repro.core.gbdt import train_gbdt as j_train_gbdt
 from repro.data import make_dataset, make_label_workload, make_range_workload
 from repro.index import build_graph_index
+from repro.index.bruteforce import valid_mask
 from repro_torch.convert import engine_from_arrays, gbdt_from_arrays
 from repro_torch.core import (CostEstimator, SearchConfig, e2e_search,
                               feature_names, train_gbdt)
+from repro_torch.core import generate_training_data as p_generate_training_data
+from repro_torch.data.synthetic import QueryWorkload
 from repro_torch.filters import FilterSpec
 
 
@@ -101,6 +104,46 @@ def test_e2e_repredict_matches_reference(world, backend, ref_backend):
                      wl.queries, pspec(wl.spec), probe_budget=32,
                      repredict_every=24)
     _compare(ref, got)
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused"])
+def test_training_data_matches_reference(world, backend):
+    """The W_q labels the estimator trains on: probe features, the
+    convergence NDC (the `gt_dist` branch of the step) and the exhaustion
+    fallback must equal the reference's lane for lane."""
+    ds, _, eng, *_, ref = world
+    wl = make_label_workload(ds, batch=96, kind="contain", seed=10)
+    wl.queries = on_grid(wl.queries)
+    pwl = QueryWorkload(wl.queries, pspec(wl.spec), wl.sigma_global,
+                        wl.hardness)
+    got = p_generate_training_data(
+        eng, ds, pwl, SearchConfig(k=5, queue_size=32, backend=backend),
+        probe_budget=32, chunk=48)
+    assert 0 < ref.converged.sum() < len(ref.converged)
+    np.testing.assert_array_equal(got.converged, ref.converged)
+    np.testing.assert_array_equal(got.w_q, ref.w_q)
+    np.testing.assert_allclose(got.features, ref.features, rtol=1e-5,
+                               atol=1e-5)
+    _assert_same_exact_topk(got, ref, wl, ds)
+
+
+def _assert_same_exact_topk(got, ref, wl, ds):
+    """Equal ground-truth distances, and equal ids except among equal
+    distances: the reference picks tied items through `np.argpartition`,
+    whose order on ties is arbitrary, so there each id is checked to be a
+    valid item at its stated distance (exact on the grid)."""
+    np.testing.assert_array_equal(got.gt_dist, ref.gt_dist)
+    np.testing.assert_array_equal(got.gt_idx < 0, ref.gt_idx < 0)
+    d = ref.gt_dist
+    tied = ((d[:, :, None] == d[:, None, :]).sum(-1) > 1) | (d == d[:, -1:])
+    np.testing.assert_array_equal(got.gt_idx[~tied], ref.gt_idx[~tied])
+    ok = valid_mask(wl.spec, ds.labels_packed, ds.value_matrix)
+    lane, pos = np.nonzero(got.gt_idx >= 0)
+    ids = got.gt_idx[lane, pos]
+    assert ok[lane, ids].all()
+    diff = wl.queries[lane].astype(np.float64) - ds.vectors[ids]
+    np.testing.assert_array_equal((diff * diff).sum(-1).astype(np.float32),
+                                  got.gt_dist[lane, pos])
 
 
 def test_train_gbdt_gives_identical_model(world):
