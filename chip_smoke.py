@@ -12,18 +12,32 @@ Phases, each printed as one JSON line:
      with injected ties and duplicate ids (everything must be equal), and
      float inputs (distances within rtol 1e-5);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
-  5. dataset, graph build, ground truth and estimator training, with the
+  5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
+     d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones;
+  6. K5 (persistent multi-step) against `persistent_multi_step_plain`
+     over an N=1M synthetic index, 8 steps a launch, with lanes stopping
+     mid-launch, lanes already stopped, repeated ids and convergence:
+     every field equal on exact-arithmetic inputs; on float inputs each
+     step replayed alone agrees up to near-tie moves, which must explain
+     every lane whose 8-step trajectory differs;
+  7. dataset, graph build, ground truth and estimator training, with the
      share of training lanes whose exhaustive traversal reaches recall
      10/10 beside the share whose W_q label converged;
-  6. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
+  8. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
      contain-label and a range workload of 64 lanes each: recall@10, mean
      NDC, e2e ms (median of 3 calls), per-stage ms (a separate stage-by-
-     stage run) and per-kernel launch counts of the first call (each must
-     be > 0);
-  7. the same runs with backend "dense" (plain PyTorch): recall within
-     0.01 of the fused run and ≥ 95% of lanes with identical top-10 ids
-     and NDC;
-  8. the `kernels` line (launches, ms, bound, plain ms per kernel).
+     stage run); the same runs with backend "dense" (plain PyTorch):
+     recall within 0.01 and ≥ 95% of lanes with identical top-10 ids and
+     NDC;
+  9. the same four cells with backend "persistent" (K5): every
+     SearchState field equal to the fused run's, with e2e ms and the
+     launch loop's launches, compactions and steps per batch; and contain α=1
+     with backend "dense" + `use_pallas` (K6): top-10 ids and NDC of all
+     lanes equal to fused's. Each path runs with every kernel count set
+     to 0 just before it, and each of its kernels must launch;
+ 10. a `profile` line per backend (fused, persistent) for one batch:
+     device busy ms, idle share, kernel launches per lockstep step;
+ 11. the `kernels` line (launches, ms, bound, plain ms per kernel).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -117,6 +131,34 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 # ---------------------------------------------------------------- K1 ----
+def four_slot_program(rng, b, w, v, equal_rows, device):
+    """4 slots in 2 terms, varied per lane: (contain ∧ range) ∨ (¬in ∧
+    equal); `equal_rows` [b, w] uint32 are the label words the equal slot
+    matches."""
+    import torch
+
+    from repro_torch.filters.compile import FilterProgram
+
+    s, t = 4, 2
+    kinds = np.tile(np.array([0, 2, 3, 1], np.int32), (b, 1))
+    masks = np.zeros((b, s, w), np.uint32)
+    for i in range(b):
+        masks[i, 0, rng.integers(0, w)] = np.uint32(1) << np.uint32(
+            rng.integers(0, 32))
+        masks[i, 2, :] = rng.integers(0, 1 << 32, w, dtype=np.uint64)
+        masks[i, 3, :] = equal_rows[i]
+    lo = rng.random((b, s)).astype(np.float32) * 0.5
+    hi = lo + 0.5
+    vattr = rng.integers(0, v, (b, s)).astype(np.int32)
+    neg = np.tile(np.array([False, False, True, False]), (b, 1))
+    term = np.tile(np.array([0, 0, 1, 1], np.int32), (b, 1))
+    active = np.ones((b, s), bool)
+    term_active = np.ones((b, t), bool)
+    return FilterProgram(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                           for a in (kinds, masks.view(np.int32), lo, hi,
+                                     vattr, neg, term, active, term_active)))
+
+
 def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
     """Inputs of one fused step at the main path's shapes.
 
@@ -127,7 +169,6 @@ def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
     """
     import torch
 
-    from repro_torch.filters.compile import FilterProgram
     from repro_torch.kernels.distance import sqdist_bdrd
 
     if exact:
@@ -146,25 +187,9 @@ def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
     labels = rng.integers(0, 1 << 32, (b, r, w), dtype=np.uint64)
     labels = labels.astype(np.uint32).view(np.int32)
     values = rng.random((b, r, v)).astype(np.float32)
-    # 4 slots in 2 terms: (contain ∧ range) ∨ (¬in ∧ equal), varied per lane
-    s, t = 4, 2
-    kinds = np.tile(np.array([0, 2, 3, 1], np.int32), (b, 1))
-    masks = np.zeros((b, s, w), np.uint32)
-    for i in range(b):
-        masks[i, 0, rng.integers(0, w)] = np.uint32(1) << np.uint32(
-            rng.integers(0, 32))
-        masks[i, 2, :] = rng.integers(0, 1 << 32, w, dtype=np.uint64)
-        masks[i, 3, :] = labels[i, rng.integers(0, r)].view(np.uint32)
-    lo = rng.random((b, s)).astype(np.float32) * 0.5
-    hi = lo + 0.5
-    vattr = rng.integers(0, v, (b, s)).astype(np.int32)
-    neg = np.tile(np.array([False, False, True, False]), (b, 1))
-    term = np.tile(np.array([0, 0, 1, 1], np.int32), (b, 1))
-    active = np.ones((b, s), bool)
-    term_active = np.ones((b, t), bool)
-    prog = FilterProgram(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                           for a in (kinds, masks.view(np.int32), lo, hi,
-                                     vattr, neg, term, active, term_active)))
+    prog = four_slot_program(
+        rng, b, w, v,
+        labels[np.arange(b), rng.integers(0, r, b)].view(np.uint32), device)
     qt, xt = torch.from_numpy(q).to(device), torch.from_numpy(x).to(device)
     dnew = sqdist_bdrd(qt, xt).cpu().numpy()
     if exact:
@@ -311,6 +336,254 @@ def check_k2(device):
                 bound_ms=bound * 1e3, bound_by="bytes")
 
 
+# ---------------------------------------------------------------- K6 ----
+def check_k6(device):
+    import torch
+
+    from repro_torch.kernels.distance import sqdist_masked, sqdist_masked_plain
+
+    b, r, d = 64, 32, 768
+    rng = np.random.default_rng(2)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    max_err = 0.0
+    for exact in (True, False):
+        q = rng.normal(size=(b, d))
+        x = rng.normal(size=(b, r, d))
+        if exact:  # grid 1/8 in [-2, 2]: every distance exact in float32
+            q, x = (np.clip(np.round(a * 4) / 8, -2, 2) for a in (q, x))
+        mask = rng.random((b, r)) < 0.8
+        qt, xt, mt = to(q.astype(np.float32)), to(x.astype(np.float32)), \
+            to(mask)
+        got = sqdist_masked(qt, xt, mt).cpu().numpy()
+        want = sqdist_masked_plain(qt, xt, mt).cpu().numpy()
+        require(np.array_equal(np.isinf(got), ~mask)
+                and np.array_equal(np.isinf(want), ~mask),
+                "K6: +inf pattern is not the mask's complement")
+        err = float(np.abs(got[mask] - want[mask]).max())
+        max_err = max(max_err, err)
+        if exact:
+            require(np.array_equal(got, want),
+                    "K6: exact-arithmetic distances differ")
+        else:
+            require(np.allclose(got[mask], want[mask], rtol=1e-5, atol=0.0),
+                    f"K6: distances beyond rtol 1e-5 (max abs err {err})")
+    ms = device_ms(lambda: sqdist_masked(qt, xt, mt))
+    plain_ms = device_ms(lambda: sqdist_masked_plain(qt, xt, mt))
+    call_ms = time_cuda(lambda: sqdist_masked(qt, xt, mt))
+    plain_call_ms = time_cuda(lambda: sqdist_masked_plain(qt, xt, mt))
+    rows = int(mask.sum())  # the kernel reads unmasked rows only
+    nbytes = 4 * b * d + 4 * rows * d + b * r + 4 * b * r
+    flops = 4 * rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    out = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "k6_check", "ok": True,
+          "shapes": dict(B=b, R=r, d=d, unmasked_rows=rows), **out})
+    return out
+
+
+# ---------------------------------------------------------------- K5 ----
+K5_STEPS = 8  # SearchConfig.steps_per_launch's default
+K5_N = 1_000_000  # rows of K5's synthetic index: the main path's N
+TRAJ_FIELDS = ("visited", "cnt", "n_inspected", "n_valid_visited",
+               "n_clause_valid", "n_pop_valid", "hops", "active",
+               "conv_cnt", "res_full_cnt")
+
+
+def copy_state(state):
+    return type(state)(*(a.clone() for a in state))
+
+
+def k5_world(seed, exact: bool, device):
+    """A synthetic index at the main path's shapes on the card — N=1M
+    rows of d=768, a random graph of degree 32 with a repeated id in every
+    row and some -1 padding, 2 label words, 2 value channels — 64 queries,
+    a 4-slot program, and a state advanced by 24 plain steps, with budgets
+    that stop lanes inside the next launch and some lanes already stopped.
+
+    exact=True puts vectors on the grid 1/8 in [-2, 2] (every squared
+    distance exact in float32, ties frequent); otherwise N(0, 1).
+    """
+    import torch
+
+    from repro_torch.core import SearchConfig, init_state
+    from repro_torch.kernels.persistent_step import persistent_multi_step_plain
+
+    n, d, r, b, w, v = K5_N, DIM, 32, EVAL_LANES, 2, 2
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if exact:
+        base = torch.randint(-16, 17, (n, d), generator=g, device=device,
+                             dtype=torch.int32).to(torch.float32) / 8
+        queries = torch.randint(-16, 17, (b, d), generator=g, device=device,
+                                dtype=torch.int32).to(torch.float32) / 8
+    else:
+        base = torch.randn((n, d), generator=g, device=device)
+        queries = torch.randn((b, d), generator=g, device=device)
+    nbrs = torch.randint(0, n, (n, r), generator=g, device=device,
+                         dtype=torch.int32)
+    nbrs[:, 7] = nbrs[:, 6]                     # repeated ids
+    nbrs[::5, -1] = -1                          # graph padding
+    labels = torch.randint(-(1 << 31), 1 << 31, (n, w), generator=g,
+                           device=device, dtype=torch.int64).to(torch.int32)
+    values = torch.rand((n, v), generator=g, device=device)
+    equal_rows = labels[torch.from_numpy(rng.integers(0, n, b)).to(device)]
+    prog = four_slot_program(rng, b, w, v,
+                             equal_rows.cpu().numpy().view(np.uint32), device)
+    attrs = (labels, values)
+    cfg = SearchConfig(k=10, queue_size=512, degree=r)
+    big = torch.full((b,), 1 << 30, dtype=torch.int32, device=device)
+    state = init_state(cfg, queries, prog, base, attrs, 0)
+    state = persistent_multi_step_plain(cfg, queries, prog, base, attrs, nbrs,
+                                        big, state, 1 << 30, None, steps=24)
+    cnt = state.cnt.cpu().numpy()
+    budgets = torch.from_numpy(
+        (cnt + rng.integers(0, K5_STEPS * r, b)).astype(np.int32)).to(device)
+    active = np.ones(b, bool)
+    active[::9] = False                         # stopped before the launch
+    state = state._replace(active=torch.from_numpy(active).to(device))
+    args = (cfg, queries, prog, base, attrs, nbrs, budgets)
+    return args, state
+
+
+def k5_compare(got, want, what):
+    """K5 against its plain version on float data, lane by lane.
+
+    Lanes whose trajectory fields (visited, counters, flags) are equal
+    must have distances within rtol 1e-5, and their ids and flags may
+    move only between entries whose distances are within that tolerance
+    (near-ties), as in check_k1. Returns (lanes with equal trajectories,
+    lanes where some payload moved, max abs error, moved entries).
+    """
+    g = {f: getattr(got, f).cpu().numpy() for f in got._fields}
+    w = {f: getattr(want, f).cpu().numpy() for f in want._fields}
+    b = g["cnt"].shape[0]
+    traj = np.ones(b, bool)
+    for f in TRAJ_FIELDS:
+        traj &= (g[f] == w[f]).reshape(b, -1).all(axis=1)
+    moved = np.zeros(b, bool)
+    max_err, n_near = 0.0, 0
+    for dist, lanes in (("cand_dist", ("cand_idx", "cand_exp", "cand_valid")),
+                        ("res_dist", ("res_idx",))):
+        gd, wd = g[dist][traj], w[dist][traj]
+        require(np.array_equal(np.isinf(gd), np.isinf(wd)),
+                f"K5 {what} {dist}: inf pattern differs")
+        fin = np.isfinite(wd)
+        err = np.abs(gd[fin] - wd[fin])
+        max_err = max(max_err, float(err.max(initial=0.0)))
+        require(np.allclose(gd[fin], wd[fin], rtol=1e-5, atol=0.0),
+                f"K5 {what} {dist}: distances beyond rtol 1e-5")
+        with np.errstate(invalid="ignore"):  # inf - inf pads
+            gap = np.minimum(np.abs(np.diff(wd, axis=1, prepend=-np.inf)),
+                             np.abs(np.diff(wd, axis=1, append=np.inf)))
+        near = gap <= 1e-5 * np.abs(wd)
+        same = np.ones_like(near)
+        for f in lanes:
+            same &= g[f][traj] == w[f][traj]
+        require((same | near).all(),
+                f"K5 {what} {lanes[0]} differs away from near-ties")
+        n_near += int((~same).sum())
+        moved[np.flatnonzero(traj)[(~same).any(axis=1)]] = True
+    return traj, moved, max_err, n_near
+
+
+def check_k5(device):
+    """K5 against persistent_multi_step_plain at N=1M, 8 steps a launch."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    big = 1 << 30
+    # exact arithmetic: every field equal
+    args, state = k5_world(5, True, device)
+    # even lanes converge when their results reach those of 3 more steps
+    gt = persistent_multi_step_plain(*args, copy_state(state), big, None,
+                                     steps=3).res_dist
+    gt[1::2] = 0.0
+    got = persistent_multi_step(*args, copy_state(state), big, gt,
+                                steps=K5_STEPS)
+    want = persistent_multi_step_plain(*args, copy_state(state), big, gt,
+                                       steps=K5_STEPS)
+    torch.cuda.synchronize()
+    for f, a, b_ in zip(got._fields, state_to_numpy(got),
+                        state_to_numpy(want)):
+        require(np.array_equal(a, b_), f"K5 {f} differs on exact data")
+    stopped = int((~got.active.cpu().numpy()).sum())
+    conv = int((got.conv_cnt.cpu().numpy() > 0).sum())
+    del args, state, got, want, gt
+    torch.cuda.empty_cache()
+
+    # float data: every step replayed alone explains any lane that moved
+    args, state = k5_world(6, False, device)
+    want = [copy_state(state)]
+    for _ in range(K5_STEPS):
+        want.append(persistent_multi_step_plain(*args, copy_state(want[-1]),
+                                                big, None, steps=1))
+    moved, max_err, n_near = np.zeros(EVAL_LANES, bool), 0.0, 0
+    for s in range(K5_STEPS):
+        one = persistent_multi_step(*args, copy_state(want[s]), big, None,
+                                    steps=1)
+        traj, mv, err, nn = k5_compare(one, want[s + 1], f"step {s}")
+        require(traj.all(), f"K5 step {s}: a counter or visited differs "
+                "from the plain step on the same input")
+        moved |= mv
+        max_err, n_near = max(max_err, err), n_near + nn
+    got = persistent_multi_step(*args, copy_state(state), big, None,
+                                steps=K5_STEPS)
+    traj, _, err, _ = k5_compare(got, want[-1], "8 steps")
+    require(not (~traj & ~moved).any(),
+            "K5: a lane's trajectory diverged without a near-tie move")
+    max_err = max(max_err, err)
+
+    # time one 8-step launch from the same state (state consumed: clones)
+    iters = 10
+    clones = iter([copy_state(state) for _ in range(2 * (iters + 5))])
+    run_k = lambda: persistent_multi_step(  # noqa: E731
+        *args, next(clones), big, None, steps=K5_STEPS)
+    run_p = lambda: persistent_multi_step_plain(  # noqa: E731
+        *args, next(clones), big, None, steps=K5_STEPS)
+    ms = device_ms(run_k, iters=iters)
+    call_ms = time_cuda(run_k, iters=iters, warmup=2)
+    clones = iter([copy_state(state) for _ in range(2 * (iters + 5))])
+    plain_ms = device_ms(run_p, iters=iters)
+    plain_call_ms = time_cuda(run_p, iters=iters, warmup=2)
+
+    # the least time for this launch's work: bytes it must move, flops
+    cfg, queries, prog, base, (labels, values), nbrs, budgets = args
+    b, d = queries.shape
+    m, k, r = cfg.queue_size, cfg.k, nbrs.shape[1]
+    w, v = labels.shape[1], values.shape[1]
+    new_rows = int((got.cnt - state.cnt).sum())
+    lane_steps = int((got.hops - state.hops).sum())
+    state_bytes = b * (m * 10 + k * 8 + 4 * 11 + 1)
+    nbytes = (4 * b * d + 2 * state_bytes
+              + sum(t.numel() * t.element_size() for t in (*prog, budgets))
+              + lane_steps * r * 4 * 2           # id row + visited words read
+              + new_rows * 4                     # visited words written
+              + new_rows * 4 * (d + w + v))      # new rows, labels, values
+    flops = 4 * new_rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    out = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "k5_check", "ok": True, "shapes": dict(
+        B=b, N=base.shape[0], d=d, M=m, K=k, R=r, W=w, V=v, S=4, T=2,
+        steps=K5_STEPS), "exact_case_lanes_stopped": stopped,
+        "exact_case_lanes_converged": conv,
+        "float_case_lanes_moved_at_near_ties": int(moved.sum()),
+        "float_case_payload_moves_at_near_ties": n_near,
+        "timed_launch": dict(new_rows=new_rows, lane_steps=lane_steps,
+                             bytes=nbytes), **out})
+    del args, state, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------- main path ----
 def run_pipeline(args, device):
     import torch
@@ -323,8 +596,11 @@ def run_pipeline(args, device):
                                             make_range_workload)
     from repro_torch.index.bruteforce import filtered_knn_exact, recall_at_k
     from repro_torch.index.builder import build_graph_index
+    from repro_torch.core import dispatch_counters
+    from repro_torch.kernels.distance import sqdist_masked
     from repro_torch.kernels.fused_step import fused_step
     from repro_torch.kernels.gbdt import gbdt_predict
+    from repro_torch.kernels.persistent_step import persistent_multi_step
 
     preset = dict(DATASET_PRESETS["tripclick-s"])
     preset.update(n=args.n, dim=DIM)
@@ -382,41 +658,60 @@ def run_pipeline(args, device):
           "features": int(td.features.shape[1]),
           **convergence_check(eng, wl_train, td, probe, chunk=128)})
 
-    def run(backend: str):
-        c = SearchConfig(k=10, queue_size=512, backend=backend)
+    cells = [(name, alpha) for name in evals for alpha in (1.0, 2.0)]
+
+    def run(backend: str, only=None, **kw):
+        """e2e_search on the cells (all four by default); per cell
+        (result, wall ms, persistent launch-loop dispatch deltas)."""
+        c = SearchConfig(k=10, queue_size=512, backend=backend, **kw)
         out = {}
-        for name, wl in evals.items():
-            for alpha in (1.0, 2.0):
-                out[(name, alpha)] = wall_ms(lambda: e2e_search(
-                    eng, est, c, wl.queries, wl.spec, probe_budget=probe,
-                    alpha=alpha, n_probes=2))
+        for name, alpha in only or cells:
+            wl = evals[name]
+            d0 = dispatch_counters()
+            res, ms = wall_ms(lambda: e2e_search(
+                eng, est, c, wl.queries, wl.spec, probe_budget=probe,
+                alpha=alpha, n_probes=2))
+            d1 = dispatch_counters()
+            out[(name, alpha)] = (res, ms, {k: d1[k] - d0[k] for k in d0})
         return out
 
-    def e2e_median_ms(backend: str, key, first_ms: float) -> float:
+    def e2e_median_ms(backend: str, key, first_ms: float, **kw) -> float:
         """Median of the counted call and REPEATS - 1 more of the cell."""
-        c = SearchConfig(k=10, queue_size=512, backend=backend)
+        c = SearchConfig(k=10, queue_size=512, backend=backend, **kw)
         wl = evals[key[0]]
         more = [wall_ms(lambda: e2e_search(
             eng, est, c, wl.queries, wl.spec, probe_budget=probe,
             alpha=key[1], n_probes=2))[1] for _ in range(REPEATS - 1)]
         return float(np.median([first_ms, *more]))
 
-    # ---- the main path: counts from 0 just before, read just after ----
-    fused_step.launches = 0
-    gbdt_predict.launches = 0
-    fused = run("fused")
-    launches = {"fused_step": fused_step.launches,
-                "gbdt_predict": gbdt_predict.launches}
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path was never launched: {launches}")
+    counted = (fused_step, gbdt_predict, persistent_multi_step,
+               sqdist_masked)
+
+    def drive(path: str, backend: str, only=None, **kw):
+        """One path of the main path: every kernel count set to 0 just
+        before, read just after; each kernel of the path must launch."""
+        for fn in counted:
+            fn.launches = 0
+        out = run(backend, only, **kw)
+        counts = {fn.__name__: fn.launches for fn in counted}
+        need = {"fused": ("fused_step", "gbdt_predict"),
+                "persistent": ("persistent_multi_step", "gbdt_predict"),
+                "dense_use_pallas": ("sqdist_masked", "gbdt_predict")}[path]
+        require(all(counts[n] > 0 for n in need),
+                f"{path}: a kernel of the path was never launched: {counts}")
+        return out, counts
+
+    # ---- the main path (fused), then the persistent path (K5) ----
+    fused, fused_counts = drive("fused", "fused")
     n_batches = len(fused)
+    persistent, pers_counts = drive("persistent", "persistent")
     dense = run("dense")
 
     rows = []
     for key in fused:
         name, alpha = key
-        fr, fms = fused[key]
-        dr, dms = dense[key]
+        fr, fms, _ = fused[key]
+        dr, dms, _ = dense[key]
         fms = e2e_median_ms("fused", key, fms)
         dms = e2e_median_ms("dense", key, dms)
         gi = gts[name][0]
@@ -460,10 +755,64 @@ def run_pipeline(args, device):
                 f"{name} α={alpha}: only {same:.3f} of lanes identical")
         require(0.0 < f_rec <= 1.0 and (f_cnt > 1).all(),
                 f"{name} α={alpha}: recall {f_rec}, min NDC {f_cnt.min()}")
-    emit({"phase": "main_path", "launches": launches,
-          "query_batches": n_batches, "batch": EVAL_LANES})
-    profile_e2e(eng, est, evals["contain"], probe, rows[0]["fused"]["e2e_ms"])
-    return launches
+
+    # ---- persistent rows: every SearchState field equal to fused's ----
+    pers_rows = []
+    for key in fused:
+        name, alpha = key
+        fr, fms, _ = fused[key]
+        pr, pms, disp = persistent[key]
+        pms = e2e_median_ms("persistent", key, pms)
+        differ = [f for f, a, b in zip(pr.state._fields, pr.state, fr.state)
+                  if not torch.equal(a, b)]
+        require(not differ, f"persistent {name} α={alpha}: SearchState "
+                f"fields differ from fused: {differ}")
+        require(np.array_equal(pr.predicted_budget, fr.predicted_budget),
+                f"persistent {name} α={alpha}: budgets differ from fused")
+        p_idx = pr.state.res_idx.cpu().numpy()
+        row = {"phase": "e2e_persistent", "workload": name, "alpha": alpha,
+               "recall@10": float(recall_at_k(p_idx, gts[name][0]).mean()),
+               "mean_ndc": float(pr.state.cnt.float().mean()),
+               "e2e_ms": pms, "fused_e2e_ms": next(
+                   r["fused"]["e2e_ms"] for r in rows
+                   if (r["workload"], r["alpha"]) == key),
+               "launches": disp["launches"],
+               "compactions": disp["compactions"], "steps": disp["steps"],
+               "all_fields_equal_fused": True}
+        emit(row)
+        pers_rows.append(row)
+
+    # ---- dense with use_pallas (K6), contain α=1: identical to fused ----
+    key = ("contain", 1.0)
+    k6_run, k6_counts = drive("dense_use_pallas", "dense", [key],
+                              use_pallas=True)
+    kr, kms, _ = k6_run[key]
+    fr = fused[key][0]
+    kms = e2e_median_ms("dense", key, kms, use_pallas=True)
+    same_ids = (kr.state.res_idx == fr.state.res_idx).all(dim=1)
+    same_ndc = kr.state.cnt == fr.state.cnt
+    lanes_same = int((same_ids & same_ndc).sum())
+    require(lanes_same == EVAL_LANES,
+            f"dense+use_pallas: {lanes_same} of {EVAL_LANES} lanes have "
+            "fused's top-10 ids and NDC")
+    emit({"phase": "e2e_dense_use_pallas", "workload": key[0],
+          "alpha": key[1], "e2e_ms": kms,
+          "identical_top10_and_ndc_lanes": lanes_same,
+          "all_fields_equal_fused": all(
+              torch.equal(a, b) for a, b in zip(kr.state, fr.state))})
+
+    emit({"phase": "main_path", "query_batches": n_batches,
+          "batch": EVAL_LANES, "launches": {
+              "fused": fused_counts, "persistent": pers_counts,
+              "dense_use_pallas": k6_counts}})
+    profile_e2e(eng, est, evals["contain"], probe, "fused",
+                rows[0]["fused"]["e2e_ms"])
+    profile_e2e(eng, est, evals["contain"], probe, "persistent",
+                pers_rows[0]["e2e_ms"])
+    return {"fused_step": fused_counts["fused_step"],
+            "gbdt_predict": fused_counts["gbdt_predict"],
+            "persistent_multi_step": pers_counts["persistent_multi_step"],
+            "sqdist_masked": k6_counts["sqdist_masked"]}
 
 
 def convergence_check(eng, wl, td, probe, chunk):
@@ -511,33 +860,43 @@ def convergence_check(eng, wl, td, probe, chunk):
             "gt_dist_median": float(np.median(gt_dist))}
 
 
-def profile_e2e(eng, est, wl, probe, wall_unprofiled_ms):
-    """Where one fused e2e batch spends its time: device-busy time (kernels
+def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
+    """Where one e2e batch spends its time: device-busy time (kernels
     only, from torch.profiler / CUPTI), the idle share against the same
-    batch's unprofiled wall time, and the top kernels by device time."""
+    cell's unprofiled median wall time, kernel launches per lockstep step,
+    and the top kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import SearchConfig, e2e_search
+    from repro_torch.core import SearchConfig, dispatch_counters, e2e_search
 
-    c = SearchConfig(k=10, queue_size=512, backend="fused")
+    c = SearchConfig(k=10, queue_size=512, backend=backend)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        d0 = dispatch_counters()
         t = time.perf_counter()
-        e2e_search(eng, est, c, wl.queries, wl.spec, probe_budget=probe)
+        res = e2e_search(eng, est, c, wl.queries, wl.spec, probe_budget=probe)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+        d1 = dispatch_counters()
 
     evs = _kernel_events(prof)
     busy = sum(us for _, us in evs) / 1e3
+    launches = sum(e.count for e, _ in evs)
+    # steps of the batch: the launch loop's count (persistent), or the largest
+    # lane's expansions (single-step backends step every lane in lockstep)
+    steps = (d1["steps"] - d0["steps"] if backend == "persistent"
+             else int(res.state.hops.max()))
     top = sorted(evs, key=lambda x: x[1], reverse=True)[:10]
-    emit({"phase": "profile", "workload": "contain", "alpha": 1.0,
-          "wall_ms_profiled": wall, "wall_ms": wall_unprofiled_ms,
+    emit({"phase": "profile", "backend": backend, "workload": "contain",
+          "alpha": 1.0, "wall_ms_profiled": wall,
+          "wall_ms": wall_unprofiled_ms,
           "device_busy_ms": busy if evs else "not measured",
           "device_idle_share": ((1.0 - busy / wall_unprofiled_ms) if evs
                                 else "not measured"),
-          "kernel_launches": sum(e.count for e, _ in evs),
+          "kernel_launches": launches, "lockstep_steps": steps,
+          "kernel_launches_per_step": launches / max(steps, 1),
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": us / 1e3} for e, us in top]})
 
@@ -575,6 +934,8 @@ def main(argv=None) -> int:
 
     k1 = check_k1(device)
     k2 = check_k2(device)
+    k6 = check_k6(device)
+    k5 = check_k5(device)
     launches = run_pipeline(args, device)
 
     emit({"kernels": [
@@ -584,7 +945,10 @@ def main(argv=None) -> int:
          "launches": launches["fused_step"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None, "call_ms": k1["call_ms"],
+         "library_ms": None,
+         "library_none_because": "no single PyTorch call runs a traversal "
+                                 "step",
+         "call_ms": k1["call_ms"],
          "plain_call_ms": k1["plain_call_ms"]},
         {"name": "gbdt_predict", "route": "cuda",
          "source": "src/repro_torch/csrc/gbdt.cu",
@@ -593,7 +957,30 @@ def main(argv=None) -> int:
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
+         "library_none_because": "no single PyTorch call walks a tree "
+                                 "ensemble",
          "call_ms": k2["call_ms"], "plain_call_ms": k2["plain_call_ms"]},
+        {"name": "persistent_multi_step", "route": "cuda",
+         "source": "src/repro_torch/csrc/persistent_step.cu",
+         "replaces": "src/repro/kernels/persistent_step.py:127",
+         "launches": launches["persistent_multi_step"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None,
+         "library_none_because": "no single PyTorch call runs traversal "
+                                 "steps",
+         "call_ms": k5["call_ms"], "plain_call_ms": k5["plain_call_ms"]},
+        {"name": "sqdist_masked", "route": "cuda",
+         "source": "src/repro_torch/csrc/sqdist.cu",
+         "replaces": "src/repro/kernels/distance.py:76",
+         "launches": launches["sqdist_masked"],
+         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
+         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None,
+         "library_none_because": "no single PyTorch call computes a masked "
+                                 "batched squared L2 (torch.cdist gives "
+                                 "unsquared, unmasked distances)",
+         "call_ms": k6["call_ms"], "plain_call_ms": k6["plain_call_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,11 @@ from repro_torch.core.features import (FEATURE_NAMES, N_FEATURES,
                                        ablate_filter_features,
                                        extract_features, feature_names)
 from repro_torch.core.gbdt import GBDTModel, train_gbdt
-from repro_torch.core.search import run_search
+from repro_torch.core.search import (dispatch_counters, run_search,
+                                     run_search_persistent)
 from repro_torch.core.state import (SearchConfig, SearchState, init_state,
-                                    prepare_resume, topk_results)
+                                    prepare_resume, put_lanes, take_lanes,
+                                    topk_results)
 from repro_torch.core.training import TrainingData, generate_training_data
 
 __all__ = [
@@ -19,7 +21,8 @@ __all__ = [
     "predict_budgets", "probe_and_features", "BIG_BUDGET", "SearchEngine",
     "CostEstimator", "FEATURE_NAMES", "N_FEATURES", "ablate_filter_features",
     "extract_features", "feature_names", "GBDTModel", "train_gbdt",
-    "run_search", "SearchConfig", "SearchState", "init_state",
-    "prepare_resume", "topk_results", "TrainingData",
+    "dispatch_counters", "run_search", "run_search_persistent",
+    "SearchConfig", "SearchState", "init_state", "prepare_resume",
+    "put_lanes", "take_lanes", "topk_results", "TrainingData",
     "generate_training_data",
 ]

@@ -5,11 +5,17 @@ program and the neighbor distances and merges both sorted buffers; the
 rest of the step is shared in `core.step`.
 
 Registered backends:
-  dense   plain PyTorch: shared program evaluation + `sqdist_bdrd` + two
-          stable argsort merges (`repro`'s DenseBackend).
-  fused   kernel K1 (`kernels.fused_step`) through packed payloads
-          (`repro`'s PallasBackend); also registered as "pallas" so
-          reference configurations carry over.
+  dense       plain PyTorch: shared program evaluation + `sqdist_bdrd` +
+              two stable argsort merges (`repro`'s DenseBackend); with
+              `cfg.use_pallas` its distances go through kernel K6
+              (`kernels.distance.sqdist_masked`).
+  fused       kernel K1 (`kernels.fused_step`) through packed payloads
+              (`repro`'s PallasBackend); also registered as "pallas" so
+              reference configurations carry over.
+  persistent  the fused per-step merge, with `persistent = True`: the
+              engine runs it through `core.search.run_search_persistent`,
+              whose launches are kernel K5 (`kernels.persistent_step`);
+              also registered as "pallas_persistent".
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 
 from repro_torch.core.state import INF, SearchConfig
 from repro_torch.filters.compile import clause_counts, eval_program_gathered
-from repro_torch.kernels.distance import sqdist_bdrd
+from repro_torch.kernels.distance import sqdist_bdrd, sqdist_masked
 from repro_torch.kernels.fused_step import fused_step
 from repro_torch.kernels.topk import merge_stable, pack_payload, unpack_payload
 
@@ -80,7 +86,10 @@ class DenseBackend:
         valid = pvalid & is_new
         clause_add = clause_counts(clause_sat, is_new)
         dist_mask = valid if cfg.mode == "pre" else is_new
-        dd = torch.where(dist_mask, sqdist_bdrd(queries, xv), INF)
+        if cfg.use_pallas:
+            dd = sqdist_masked(queries, xv, dist_mask)
+        else:
+            dd = torch.where(dist_mask, sqdist_bdrd(queries, xv), INF)
         fin = torch.isfinite(dd)
 
         cand_dist, (cand_idx, cand_exp, cand_valid) = merge_stable(
@@ -114,3 +123,13 @@ class FusedBackend:
         cand_idx, cand_exp, cand_valid = unpack_payload(cand_pay)
         return (cand_dist, cand_idx, cand_exp, cand_valid, res_dist, res_idx,
                 valid, clause_add)
+
+
+@register_backend("persistent", "pallas_persistent")
+class PersistentBackend(FusedBackend):
+    """Multi-step launches over the fused per-step merge (`repro`'s
+    PallasPersistentBackend): the search layer keys on `persistent` to
+    run up to `cfg.steps_per_launch` steps per launch of kernel K5, whose
+    steps equal this per-step merge's bit for bit."""
+
+    persistent = True

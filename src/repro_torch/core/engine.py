@@ -3,7 +3,8 @@
 Counterpart of `repro/core/engine.py::SearchEngine` for one device (the
 batch mesh and the quantized domain wait for later slices). It bundles
 the tensors every search needs (vectors, packed attributes, graph, entry
-point), compiles filters to programs and runs `run_search`.
+point), compiles filters to programs and runs `run_search`, or
+`run_search_persistent` for a persistent backend.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.search import run_search
+from repro_torch.core.backends import get_backend
+from repro_torch.core.search import run_search, run_search_persistent
 from repro_torch.core.state import SearchConfig, SearchState
 from repro_torch.data.synthetic import AttributedDataset
 from repro_torch.device import resolve_device
@@ -109,7 +111,9 @@ class SearchEngine:
             else budgets.contiguous()
         gt = None if gt_dist is None else torch.as_tensor(gt_dist).to(
             dev, torch.float32)
-        return run_search(cfg, q, prog, self.base_vectors,
-                          (self.label_attrs, self.value_attrs),
-                          self.neighbors, budgets, self.entry_point,
-                          state=state, gt_dist=gt)
+        search = (run_search_persistent
+                  if getattr(get_backend(cfg.backend), "persistent", False)
+                  else run_search)
+        return search(cfg, q, prog, self.base_vectors,
+                      (self.label_attrs, self.value_attrs), self.neighbors,
+                      budgets, self.entry_point, state=state, gt_dist=gt)

@@ -1,21 +1,35 @@
-"""Batched lockstep filtered beam search — the resumable search loop.
+"""Batched lockstep filtered beam search — the resumable search loops.
 
-Counterpart of `repro/core/search.py::run_search` (single-step backends;
-the persistent driver waits for its own slice). The `lax.while_loop`
-becomes a host loop over `step`: it stops when no lane is active or at
-`cfg.max_steps`. Reading `active` costs a host sync, so the loop reads it
-every `CHECK_EVERY` steps; the steps in between are exact no-ops once
-every lane has stopped (inactive lanes keep their arrays, and the
-convergence update is idempotent), so the result is the reference's.
+Counterpart of `repro/core/search.py`. Two loops over one carry:
+
+  `run_search`             single-step backends (dense, fused). The
+                           `lax.while_loop` becomes a host loop over
+                           `step`: it stops when no lane is active or at
+                           `cfg.max_steps`. Reading `active` costs a host
+                           sync, so the loop reads it every `CHECK_EVERY`
+                           steps; the steps in between are exact no-ops
+                           once every lane has stopped (inactive lanes keep
+                           their arrays, and the convergence update is
+                           idempotent), so the result is the reference's.
+  `run_search_persistent`  persistent backends. Each launch of kernel K5
+                           advances the state by up to
+                           `cfg.steps_per_launch` steps; between launches
+                           the loop reads back `hops` and `active` only,
+                           and compacts to the active lanes on the
+                           reference's power-of-two width ladder. Every
+                           launch boundary is a step boundary, so the
+                           returned state equals `run_search`'s bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.backends import get_backend
 from repro_torch.core.state import (SearchConfig, SearchState, init_state,
-                                    prepare_resume)
+                                    prepare_resume, put_lanes, take_lanes)
 from repro_torch.core.step import make_step
+from repro_torch.kernels.persistent_step import persistent_multi_step
 
 CHECK_EVERY = 8  # steps between host reads of `active`
 
@@ -58,4 +72,111 @@ def run_search(
         it += n
         if not bool(state.active.any()):
             break
+    return state
+
+
+# Dispatch accounting of the launch loop, as in the reference: `launches`
+# (K5 launches), `compactions` (launches at reduced lane width), `steps`
+# (lockstep steps advanced). Lifetime counters, read via deltas.
+_DISPATCH_COUNTERS = {"launches": 0, "compactions": 0, "steps": 0}
+
+
+def dispatch_counters() -> dict:
+    """Snapshot of the persistent launch loop's lifetime dispatch counters."""
+    return dict(_DISPATCH_COUNTERS)
+
+
+def _persistent_launch(cfg, queries, prog, base_vectors, attrs, neighbors,
+                       budgets, entry_point, state, gt_dist, rem: int, *,
+                       mode: str) -> SearchState:
+    """One dispatch: advance by up to cfg.steps_per_launch steps.
+
+    mode  "init"    no incoming state — build it (first launch of a search)
+          "resume"  incoming probe carry — reactivate budget-stopped lanes
+          "cont"    mid-search launch — lanes that stopped in an earlier
+                    launch of the same search stay stopped
+    """
+    if mode == "init":
+        state = init_state(cfg, queries, prog, base_vectors, attrs,
+                           entry_point)
+    elif mode == "resume":
+        state = prepare_resume(state)
+    return persistent_multi_step(
+        cfg, queries, prog, base_vectors, attrs, neighbors, budgets, state,
+        rem, gt_dist, steps=max(1, cfg.steps_per_launch))
+
+
+def _hops_active(state: SearchState) -> tuple[np.ndarray, np.ndarray]:
+    """Host copies of `hops` and `active`, in one transfer."""
+    both = torch.stack([state.hops, state.active.to(torch.int32)]).cpu()
+    return both[0].numpy(), both[1].numpy().astype(bool)
+
+
+def run_search_persistent(
+    cfg: SearchConfig,
+    queries: torch.Tensor,
+    prog,
+    base_vectors: torch.Tensor,
+    attrs,
+    neighbors: torch.Tensor,
+    budgets: torch.Tensor,
+    entry_point: int,
+    state: SearchState | None = None,
+    gt_dist: torch.Tensor | None = None,
+) -> SearchState:
+    """The launch loop for persistent backends (single device).
+
+    Same signature and results as `run_search`. Each trip runs one
+    `_persistent_launch` of up to cfg.steps_per_launch steps, then reads
+    back `hops` and `active`. Lanes that stopped are compacted away between
+    launches: the active lanes are gathered (`take_lanes`) into the next
+    power-of-two width (floor `min(8, B)`), advanced, and scattered back
+    (`put_lanes`); when the ladder gives no smaller width the launch runs
+    at full width. The selection pad repeats the first active lane, which
+    follows the same deterministic trajectory and scatters back the same
+    values. `it` advances by the largest `hops` delta of a launch, and a
+    launch may take `cfg.max_steps - it` steps at most — the reference's
+    launch, readback and compaction decisions, so `dispatch_counters`
+    deltas equal the reference's for the same search.
+
+    `state`, when passed, is consumed (same contract as `run_search`).
+    """
+    b = int(queries.shape[0])
+    mode = "init" if state is None else "resume"
+    hops0 = 0 if state is None else state.hops.cpu().numpy().copy()
+    state = _persistent_launch(cfg, queries, prog, base_vectors, attrs,
+                               neighbors, budgets, entry_point, state,
+                               gt_dist, cfg.max_steps, mode=mode)
+    hops, active = _hops_active(state)
+    it = int((hops - hops0).max(initial=0))
+    _DISPATCH_COUNTERS["launches"] += 1
+    _DISPATCH_COUNTERS["steps"] += it
+
+    min_w = min(8, b)  # ladder floor
+    while it < cfg.max_steps:
+        sel = np.flatnonzero(active)
+        if sel.size == 0:
+            break
+        w = min(b, max(min_w, 1 << (int(sel.size) - 1).bit_length()))
+        compact = w < b  # else no compaction win: relaunch at full width
+        if compact:  # pad by repeating the first active lane
+            sel = np.concatenate([sel, np.full(w - sel.size, sel[0])])
+            idx = torch.from_numpy(sel).to(queries.device)
+            sub = take_lanes((state, queries, prog, budgets, gt_dist), idx)
+        else:
+            sel = np.arange(b)
+            sub = (state, queries, prog, budgets, gt_dist)
+        sub_state, sub_q, sub_prog, sub_bud, sub_gt = sub
+        out = _persistent_launch(cfg, sub_q, sub_prog, base_vectors, attrs,
+                                 neighbors, sub_bud, entry_point, sub_state,
+                                 sub_gt, cfg.max_steps - it, mode="cont")
+        sub_hops, sub_active = _hops_active(out)
+        d = int((sub_hops - hops[sel]).max(initial=0))
+        it += d
+        _DISPATCH_COUNTERS["launches"] += 1
+        _DISPATCH_COUNTERS["compactions"] += int(compact)
+        _DISPATCH_COUNTERS["steps"] += d
+        state = put_lanes(state, out, idx) if compact else out
+        hops[sel] = sub_hops
+        active[sel] = sub_active
     return state

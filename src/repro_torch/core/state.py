@@ -10,7 +10,9 @@ and the same 18 `SearchState` leaves, as torch tensors:
   counters          cnt (NDC), n_inspected, n_valid_visited, n_pop_valid,
                     n_clause_valid (per clause slot), hops, q_err_sum
 
-This slice is float32 only; lane and shard surgery wait for a later one.
+Lane surgery (`take_lanes`, `put_lanes`) serves the persistent loop's
+lane compaction; `concat_lanes`, `pad_lanes` and shard surgery wait for
+the serving and scale-out slices. Float32 only.
 """
 from __future__ import annotations
 
@@ -39,9 +41,8 @@ class SearchConfig:
     max_steps: int = 100000
     greedy_stop: bool = False  # optional: stop when best cand > worst result
     backend: str | None = None # TraversalBackend name; None → engine default
-    steps_per_launch: int = 8  # persistent backends (not ported yet)
-    use_pallas: bool = False   # reference's dense-backend distance kernel
-                               # switch; the port's dense backend is plain
+    steps_per_launch: int = 8  # persistent backends: steps per K5 launch
+    use_pallas: bool = False   # dense backend: distances through kernel K6
     precision: str | None = None  # "float32" (None inherits the engine's)
 
 
@@ -153,6 +154,39 @@ def init_state(
 def prepare_resume(state: SearchState) -> SearchState:
     """Reactivate lanes that stopped purely on budget (probe → resume)."""
     return state._replace(active=torch.ones_like(state.active))
+
+
+def _lane_index(idx, device) -> torch.Tensor:
+    """`idx` as an int64 tensor on `device` (no copy when it is one)."""
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def take_lanes(tree, idx):
+    """Select lanes `idx` along axis 0 of every tensor of `tree`: a
+    tensor, a SearchState, a FilterProgram or a tuple of them (None passes
+    through). Counterpart of `repro/core/state.py::take_lanes`."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, _lane_index(idx, tree.device))
+    parts = [take_lanes(a, idx) for a in tree]
+    if hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*parts)
+    return type(tree)(parts)
+
+
+def put_lanes(tree, sub, idx):
+    """Scatter `sub`'s lanes back into `tree` at rows `idx` (the inverse of
+    `take_lanes`), in place — the reference donates `tree` — and return
+    `tree`. Duplicate rows in `idx` must carry identical values (the
+    persistent launch loop pads its selection by repeating a lane)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.index_copy_(0, _lane_index(idx, tree.device), sub)
+    for a, s in zip(tree, sub):
+        put_lanes(a, s, idx)
+    return tree
 
 
 def topk_results(state: SearchState) -> tuple[np.ndarray, np.ndarray]:

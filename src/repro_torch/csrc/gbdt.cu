@@ -18,6 +18,8 @@
 // the forest load across them.
 #include <cuda_runtime.h>
 
+#include "step_common.cuh"  // opt_in_smem_once
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -61,27 +63,6 @@ __global__ void __launch_bounds__(kThreads) gbdt_kernel(
   }
 }
 
-// Opt `kernel` into the device's largest dynamic shared memory, once per
-// device and process: the attribute persists, and setting it before every
-// launch would add a host call to every lockstep step.
-template <typename Kernel>
-cudaError_t opt_in_smem_once(Kernel kernel, bool* done, int n_done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < n_done && done[dev]) return cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess && dev < n_done) done[dev] = true;
-  return err;
-}
-
-constexpr int kMaxDevices = 64;
-
 }  // namespace
 
 extern "C" {
@@ -96,8 +77,8 @@ int gbdt_predict_f32(const void* feats, const void* feat, const void* thresh,
                      int B, int F, int T, int NI, int NL, int depth,
                      void* stream) {
   const size_t smem = gbdt_smem_bytes(F, T, NI, NL);
-  static bool opted_in[kMaxDevices] = {};
-  cudaError_t err = opt_in_smem_once(gbdt_kernel, opted_in, kMaxDevices);
+  static bool opted_in[step::kMaxDevices] = {};
+  cudaError_t err = step::opt_in_smem_once(gbdt_kernel, opted_in);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + kLanes - 1) / kLanes;
   gbdt_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

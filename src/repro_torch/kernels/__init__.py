@@ -1,2 +1,12 @@
-"""Hand-written CUDA kernels (K1 fused step, K2 GBDT) with their plain
-PyTorch versions, and the helpers around them."""
+"""Hand-written CUDA kernels with their plain PyTorch versions: K1 fused
+step (`fused_step`), K2 GBDT (`gbdt`), K5 persistent multi-step
+(`persistent_step`), K6 masked distance (`distance.sqdist_masked`)."""
+from repro_torch.kernels.distance import sqdist_masked, sqdist_masked_plain
+from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
+from repro_torch.kernels.persistent_step import (persistent_multi_step,
+                                                 persistent_multi_step_plain)
+
+__all__ = ["sqdist_masked", "sqdist_masked_plain", "fused_step",
+           "fused_step_plain", "gbdt_predict", "gbdt_predict_plain",
+           "persistent_multi_step", "persistent_multi_step_plain"]

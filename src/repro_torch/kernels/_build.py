@@ -4,12 +4,14 @@ Each source compiles with `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface, loaded with `ctypes` — no PyTorch
 headers, so a build takes seconds. The library lands in
 `build/repro_torch/` at the repository root, named by a hash of its
-source and flags: the first use in a process builds it (or finds it
-built), and an edited source rebuilds.
+source, every shared header (`csrc/*.cuh`) and the flags: the first use
+in a process builds it (or finds it built), and an edited source or
+header rebuilds.
 
-Every C entry point takes its pointers and the stream as `void*` and
-returns `cudaGetLastError()` after its launch; `check` raises on a
-non-zero code.
+Every C entry point takes its pointers (K5: an array of them) and the
+stream as `void*` and returns `cudaGetLastError()` after its launch;
+`check` raises on a non-zero code, and `check_tensors` validates what a
+wrapper hands to a kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("fused_step", "gbdt")
+SOURCES = ("fused_step", "gbdt", "persistent_step", "sqdist")
 # Dynamic shared memory one H100 thread block can opt into (227 KB); each
 # entry point opts its kernel into this much once per device.
 MAX_SMEM_BYTES = 232448
@@ -44,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -88,6 +92,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def check_tensors(kernel: str, device, specs) -> None:
+    """Raise ValueError unless every (tensor, name, dtype, shape) of
+    `specs` lies contiguous on `device` with that dtype and shape: a
+    kernel reads raw pointers and checks nothing itself."""
+    for t, name, dtype, shape in specs:
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{kernel}: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{dtype} {tuple(shape)} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def check(err: int, name: str) -> None:

@@ -63,8 +63,10 @@ def fused_step_plain(q, x, nb, is_new, prog: FilterProgram, labels_g,
     return ocd, ocp, ordd, ori, valid, cadd
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
+def merge_widths(m: int, k: int, r: int) -> tuple[int, int]:
+    """Bitonic network widths of the queue and result merges: the next
+    powers of 2 ≥ M + R and ≥ K + R."""
+    return 1 << (m + r - 1).bit_length(), 1 << (k + r - 1).bit_length()
 
 
 def _lib() -> ctypes.CDLL:
@@ -77,18 +79,6 @@ def _lib() -> ctypes.CDLL:
         sm = lib.fused_step_smem_bytes
         sm.argtypes, sm.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
@@ -118,7 +108,7 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
         raise ValueError(f"program has {s} clause slots; the kernel takes "
                          f"at most {MAX_SLOTS}")
     i32, f32, bl = torch.int32, torch.float32, torch.bool
-    for tensor, name, dtype, shape in (
+    _build.check_tensors("fused_step", dev, (
             (q, "q", f32, (b, d)), (x, "x", f32, (b, r, d)),
             (nb, "nb", i32, (b, r)), (is_new, "is_new", bl, (b, r)),
             (labels_g, "labels_g", i32, (b, r, w)),
@@ -134,9 +124,8 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
             (cand_dist, "cand_dist", f32, (b, m)),
             (cand_pay, "cand_pay", i32, (b, m)),
             (res_dist, "res_dist", f32, (b, k)),
-            (res_idx, "res_idx", i32, (b, k))):
-        _check(tensor, name, dtype, shape, dev)
-    wq, wr = _next_pow2(m + r), _next_pow2(k + r)
+            (res_idx, "res_idx", i32, (b, k))))
+    wq, wr = merge_widths(m, k, r)
     lib = _lib()
     smem = lib.fused_step_smem_bytes(r, d, wq, wr)
     if smem > MAX_SMEM_BYTES:

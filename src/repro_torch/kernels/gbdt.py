@@ -61,15 +61,11 @@ def gbdt_predict(feats, feat, thresh, leaf, base: float,
     if ni != (1 << depth) - 1 or nl != 1 << depth:
         raise ValueError(f"forest arrays [{t},{ni}]/[{t},{nl}] do not match "
                          f"depth {depth}")
-    for a, name, dtype, shape in ((feats, "feats", torch.float32, (b, f)),
-                                  (feat, "feat", torch.int32, (t, ni)),
-                                  (thresh, "thresh", torch.float32, (t, ni)),
-                                  (leaf, "leaf", torch.float32, (t, nl))):
-        if a.device != feats.device or a.dtype != dtype or \
-                tuple(a.shape) != shape or not a.is_contiguous():
-            raise ValueError(
-                f"{name}: expected contiguous {dtype} {shape} on "
-                f"{feats.device}, got {a.dtype} {tuple(a.shape)} on {a.device}")
+    _build.check_tensors("gbdt_predict", feats.device, (
+        (feats, "feats", torch.float32, (b, f)),
+        (feat, "feat", torch.int32, (t, ni)),
+        (thresh, "thresh", torch.float32, (t, ni)),
+        (leaf, "leaf", torch.float32, (t, nl))))
     lib = _lib()
     smem = lib.gbdt_smem_bytes(f, t, ni, nl)
     if smem > MAX_SMEM_BYTES:

@@ -1,14 +1,17 @@
 """Kernel parity of the PyTorch port against the JAX reference, on CPU.
 
-The plain PyTorch versions of K1 (`fused_step_plain`) and K2
-(`gbdt_predict_plain`) take the same numpy-made inputs as the reference's
-host path / interpret-mode kernels and `kernels/ref.py` oracles. The
-CUDA kernels themselves are held against the plain versions by the
-`cuda`-marked test (and by chip_smoke.py on the card).
+The plain PyTorch versions of K1 (`fused_step_plain`), K2
+(`gbdt_predict_plain`) and K6 (`sqdist_masked_plain`) take the same
+numpy-made inputs as the reference's host path / interpret-mode kernels
+and `kernels/ref.py` oracles. The CUDA kernels themselves are held
+against the plain versions by the `cuda`-marked tests (and by
+chip_smoke.py on the card). K5 has its own file,
+tests/test_torch_persistent.py.
 
 Tolerances: ids, payloads, masks and counts must be equal; float32
 distances agree to rtol/atol 1e-5 (the two packages sum in different
-orders); GBDT predictions to rtol 1e-5 (leaf sums in different orders).
+orders) and exactly on grid data, where every sum is exact; GBDT
+predictions to rtol 1e-5 (leaf sums in different orders).
 """
 import functools
 
@@ -19,6 +22,8 @@ import torch
 from repro_torch.convert import gbdt_from_arrays, program_to_torch
 from repro_torch.core.gbdt import train_gbdt
 from repro_torch.filters.compile import FilterProgram
+from repro_torch.kernels import _build
+from repro_torch.kernels.distance import sqdist_masked, sqdist_masked_plain
 from repro_torch.kernels.fused_step import fused_step, fused_step_plain
 from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
 from repro_torch.kernels.topk import pack_payload, unpack_payload
@@ -243,3 +248,121 @@ def test_gbdt_kernel_matches_plain_on_cuda():
     got = gbdt_predict(xt, feat, thresh, leaf, base, 5)
     want = gbdt_predict_plain(xt, feat, thresh, leaf, base, 5)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K6 ----
+def _sqdist_inputs(rng, b, r, d, grid):
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    x = rng.normal(size=(b, r, d)).astype(np.float32)
+    if grid:  # every squared distance exact in float32
+        q, x = (np.round(a * 64) / 64 for a in (q, x))
+    mask = rng.random((b, r)) < 0.7
+    return q.astype(np.float32), x.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("b,r,d", [(5, 17, 40), (8, 32, 96)])
+def test_sqdist_masked_plain_matches_reference(b, r, d, grid):
+    """sqdist_masked_plain (and the CPU wrapper) == the reference kernel
+    in interpret mode: exact on grid data, rtol 1e-5 otherwise."""
+    import jax.numpy as jnp
+    from repro.kernels.distance import sqdist_masked as j_sqdist_masked
+
+    rng = np.random.default_rng(b * r + d + grid)
+    q, x, mask = _sqdist_inputs(rng, b, r, d, grid)
+    want = np.asarray(j_sqdist_masked(jnp.asarray(q), jnp.asarray(x),
+                                      jnp.asarray(mask), interpret=True))
+    t = torch.from_numpy
+    got = sqdist_masked_plain(t(q), t(x), t(mask)).numpy()
+    np.testing.assert_array_equal(np.isinf(got), ~mask)
+    np.testing.assert_array_equal(np.isinf(want), ~mask)
+    if grid:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got[mask], want[mask], rtol=1e-5)
+    np.testing.assert_array_equal(sqdist_masked(t(q), t(x), t(mask)).numpy(),
+                                  got)
+
+
+@pytest.mark.cuda
+def test_sqdist_kernel_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K6 has no CPU mode)")
+    rng = np.random.default_rng(12)
+    for grid in (True, False):
+        q, x, mask = (torch.from_numpy(a).cuda()
+                      for a in _sqdist_inputs(rng, 64, 32, 768, grid))
+        got = sqdist_masked(q, x, mask).cpu()
+        want = sqdist_masked_plain(q, x, mask).cpu()
+        assert torch.equal(torch.isinf(got), ~mask.cpu())
+        if grid:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------- K5 ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [False, True])
+def test_persistent_kernel_matches_plain_on_cuda(greedy):
+    """K5 on the card == its plain version on grid data, every field:
+    lanes stop mid-launch on budget, some enter inactive, ids repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K5 has no CPU mode)")
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import SearchConfig, init_state
+    from repro_torch.filters import FilterSpec
+    from repro_torch.filters.compile import compile_spec
+    from repro_torch.filters.predicates import PRED_RANGE
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    rng = np.random.default_rng(5)
+    n, dim, r, b, m, k = 4096, 64, 16, 24, 64, 8
+    dev = "cuda"
+    vecs = np.clip(np.round(rng.normal(size=(n, dim)) * 4) / 8, -2, 2)
+    nbrs = rng.integers(0, n, size=(n, r)).astype(np.int32)
+    nbrs[::3, 2] = nbrs[::3, 1]
+    nbrs[::7, -1] = -1
+    labels = rng.integers(0, 1 << 16, size=(n, 1)).astype(np.int32)
+    values = rng.random((n, 1)).astype(np.float32)
+    queries = np.round(rng.normal(size=(b, dim)) * 4) / 8
+    spec = FilterSpec(PRED_RANGE, None, np.full(b, 0.1, np.float32),
+                      np.full(b, 0.8, np.float32))
+    t = lambda a, dt=None: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        a if dt is None else a.astype(dt))).to(dev)
+    cfg = SearchConfig(k=k, queue_size=m, degree=r, greedy_stop=greedy)
+    prog = program_to_torch(compile_spec(spec, 1), dev)
+    args = (cfg, t(queries, np.float32), prog, t(vecs, np.float32),
+            (t(labels), t(values)), t(nbrs),
+            t(rng.integers(30, 400, size=b), np.int32))
+    state = init_state(cfg, args[1], prog, args[3], args[4], 0)
+    state = persistent_multi_step_plain(*args, state, 10 ** 6, None, steps=5)
+    state = state._replace(active=t(rng.random(b) < 0.9))
+    gt = t(np.sort(rng.random((b, k)) * 60, axis=1), np.float32)
+    for steps in (1, 8, 40):
+        copy = lambda s: type(s)(*(a.clone() for a in s))  # noqa: E731
+        got = persistent_multi_step(*args, copy(state), 10 ** 6, gt,
+                                    steps=steps)
+        want = persistent_multi_step_plain(*args, copy(state), 10 ** 6, gt,
+                                           steps=steps)
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, state_to_numpy(got),
+                              state_to_numpy(want)):
+            np.testing.assert_array_equal(g, w, f"steps={steps}: {name}")
+
+
+# ------------------------------------------------------------- build ----
+def test_build_target_hashes_shared_headers(tmp_path, monkeypatch):
+    """A library's name covers every csrc/*.cuh, so an edited header
+    builds anew instead of loading a stale library."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("")
+    assert _build._target("k") not in (first, second)

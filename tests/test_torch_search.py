@@ -174,6 +174,8 @@ def test_port_imports_without_jax_or_repro():
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
         "import repro_torch.index, repro_torch.data, repro_torch.filters\n"
         "import repro_torch.kernels.fused_step, repro_torch.kernels.gbdt\n"
+        "import repro_torch.kernels.persistent_step\n"
+        "import repro_torch.kernels.distance\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.')]\n"
         "assert not bad, bad\n")
