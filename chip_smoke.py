@@ -7,10 +7,12 @@
 Phases, each printed as one JSON line:
   1. the card (and the raw `nvidia-smi` name/power-limit line);
   2. the kernel build (`nvcc`, one process per source, in parallel);
-  3. K1 (fused traversal step) against `fused_step_plain` on the card, at
-     the main path's shapes, post and pre mode: exact-arithmetic inputs
-     with injected ties and duplicate ids (everything must be equal), and
-     float inputs (distances within rtol 1e-5);
+  3. K1 (fused traversal step) and its int8 and PQ heads K3 and K4
+     against `fused_step_plain` on the card, at the main path's shapes,
+     post and pre mode: exact-arithmetic inputs with injected ties and
+     duplicate ids (everything must be equal), and float inputs (K1:
+     distances within rtol 1e-5; K3: everything equal; K4: distances
+     within rtol 1e-5 plus the bound on the lookup sums' rounding);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
   5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
      d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones;
@@ -19,7 +21,8 @@ Phases, each printed as one JSON line:
      mid-launch, lanes already stopped, repeated ids and convergence:
      every field equal on exact-arithmetic inputs; on float inputs each
      step replayed alone agrees up to near-tie moves, which must explain
-     every lane whose 8-step trajectory differs;
+     every lane whose 8-step trajectory differs; K5's int8 and PQ
+     branches after one 8-step launch: every field equal;
   7. dataset, graph build, ground truth and estimator training, with the
      share of training lanes whose exhaustive traversal reaches recall
      10/10 beside the share whose W_q label converged;
@@ -37,7 +40,14 @@ Phases, each printed as one JSON line:
      to 0 just before it, and each of its kernels must launch;
  10. a `profile` line per backend (fused, persistent) for one batch:
      device busy ms, idle share, kernel launches per lockstep step;
- 11. the `kernels` line (launches, ms, bound, plain ms per kernel).
+ 11. per codec (int8, PQ): the quantized engine's build (seconds,
+     `index_nbytes`, `store_ratio`), training labels with the compressed
+     target, the estimator, and `e2e_search` with the terminal rerank on
+     contain and range at α=1 with backends fused (K3 / K4), persistent
+     (K5's codec branch; every SearchState field equal to fused's, bit
+     for bit) and dense (≥ 95% of lanes identical to fused, recall
+     within 0.01), and a `profile` line for the persistent batch;
+ 12. the `kernels` line (launches, ms, bound, plain ms per kernel).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -58,9 +68,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12    # H100 SXM int8 dense (tensor cores)
 DIM = 768                   # Tripclick's embedding width; never cut
 EVAL_LANES = 64             # lanes per evaluation batch
 REPEATS = 3                 # timed calls per e2e cell; the median is kept
+PROFILE_ATTEMPTS = 3        # profiles taken before "no device time" fails
 
 
 def emit(obj) -> None:
@@ -114,20 +126,24 @@ def _kernel_events(prof):
 
 def device_ms(fn, iters: int = 20) -> float:
     """Mean device time per call: the kernels' own time, from
-    torch.profiler (CUPTI), without the host's launch overhead."""
+    torch.profiler (CUPTI), without the host's launch overhead. A profile
+    that recorded no kernel at all (CUPTI drops one now and then) is taken
+    again, up to PROFILE_ATTEMPTS times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    total = sum(us for _, us in _kernel_events(prof))
-    require(total > 0, "the profiler recorded no device time")
-    return total / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(us for _, us in _kernel_events(prof))
+        if total > 0:
+            return total / 1e3 / iters
+    raise AssertionError("the profiler recorded no device time")
 
 
 # ---------------------------------------------------------------- K1 ----
@@ -159,28 +175,84 @@ def four_slot_program(rng, b, w, v, equal_rows, device):
                                      vattr, neg, term, active, term_active)))
 
 
-def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
-    """Inputs of one fused step at the main path's shapes.
+K4_SLOTS, K4_KC = 576, 256  # PQ at d=768: S=192 subspaces × L=3, Kc=256
+HEADS = {"float32": "K1", "int8": "K3", "pq": "K4"}
 
-    exact=True draws vectors on the grid 1/8 in [-2, 2], so every squared
-    distance is exact in float32 whatever the summation order, copies rows
-    to create equal distances and repeats ids; old buffer entries take
-    values of the new distances (ties across old and new).
+
+def step_head(rng, b, r, d, exact: bool, device, precision):
+    """The distance head of one fused step at the main path's shapes: K1's
+    (q, x), or K3's / K4's QuantGather (int8 codes [b, r, d], or uint8
+    codes [b, r, 576] with a [b, 576, 256] table).
+
+    exact=True makes every distance exact in float32 whatever the order of
+    the sums (K1: grid 1/8 in [-2, 2]; K3: integer dots, dyadic sq, grid
+    norms; K4: table and norms on the grid 1/64) and copies rows to make
+    equal distances. The float codec cases take the main path's
+    magnitudes: unit-norm data, so qn ≈ xn ≈ 1 and the inner product
+    (2·sq·dot, or the lookup sum) is of order 1, with distances down to
+    the clamp at 0. Returns (q, x, quant).
     """
     import torch
 
-    from repro_torch.kernels.distance import sqdist_bdrd
+    from repro_torch.quant.codecs import Int8Prep, PQPrep, QuantGather
 
-    if exact:
-        q = np.clip(np.round(rng.normal(size=(b, d)) * 4) / 8, -2, 2)
-        x = np.clip(np.round(rng.normal(size=(b, r, d)) * 4) / 8, -2, 2)
-        x[:, 1] = x[:, 0]                       # equal distances
-        x[:, 5] = x[:, 3]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    grid = lambda a: np.round(a * 64) / 64  # noqa: E731
+    if precision == "float32":
+        if exact:
+            q = np.clip(np.round(rng.normal(size=(b, d)) * 4) / 8, -2, 2)
+            x = np.clip(np.round(rng.normal(size=(b, r, d)) * 4) / 8, -2, 2)
+            x[:, 1] = x[:, 0]                   # equal distances
+            x[:, 5] = x[:, 3]
+        else:
+            q = rng.normal(size=(b, d))
+            x = rng.normal(size=(b, r, d))
+        return to(q.astype(np.float32)), to(x.astype(np.float32)), None
+    width = d if precision == "int8" else K4_SLOTS
+    if precision == "int8":
+        codes = rng.integers(-127, 128, (b, r, width)).astype(np.int8)
     else:
-        q = rng.normal(size=(b, d))
-        x = rng.normal(size=(b, r, d))
-    q = q.astype(np.float32)
-    x = x.astype(np.float32)
+        codes = rng.integers(0, K4_KC, (b, r, width)).astype(np.uint8)
+    codes[:, 1] = codes[:, 0]
+    codes[:, 5] = codes[:, 3]
+    xn = rng.random((b, r)) * 4
+    qn = rng.random(b) * 4
+    if not exact:
+        xn, qn = 0.9 + xn / 20, 0.9 + qn / 20
+    if precision == "int8":
+        qq = rng.integers(-127, 128, (b, width)).astype(np.int8)
+        if exact:  # |dot| ≤ 127²·d, so dot / 1024 is exact
+            sq = np.full(b, 1 / 2048)
+            xn, qn = grid(xn * 64), grid(400 + qn * 64)
+        else:  # dot has std ≈ 1.5e5 at d=768
+            sq = 2e-6 * (1 + rng.random(b))
+        prep = Int8Prep(qq=to(qq), sq=to(sq.astype(np.float32)),
+                        qn=to(qn.astype(np.float32)))
+    else:
+        lut = rng.normal(size=(b, width, K4_KC)) * (
+            0.05 if exact else 0.5 / np.sqrt(width))
+        if exact:
+            lut, xn, qn = grid(lut), grid(xn * 64), grid(qn * 64)
+        prep = PQPrep(lut=to(lut.astype(np.float32)),
+                      qn=to(qn.astype(np.float32)))
+    xn[:, 1] = xn[:, 0]
+    xn[:, 5] = xn[:, 3]
+    return None, None, QuantGather(prep=prep, codes=to(codes),
+                                   norms=to(xn.astype(np.float32)))
+
+
+def step_inputs(rng, b, r, d, m, k, w, v, exact: bool, device,
+                precision="float32"):
+    """Inputs of one fused step at the main path's shapes: the head of
+    `step_head`, then ids with duplicates, flags, attributes, a 4-slot
+    program and sorted buffers whose old entries take values of the new
+    distances when exact (ties across old and new). Returns (args, quant)."""
+    import torch
+
+    from repro_torch.kernels.distance import sqdist_bdrd
+    from repro_torch.quant.codecs import quant_dist
+
+    qt, xt, quant = step_head(rng, b, r, d, exact, device, precision)
     nb = rng.integers(0, 1 << 20, (b, r)).astype(np.int32)
     nb[:, 7] = nb[:, 6]                         # duplicate ids
     is_new = rng.random((b, r)) < 0.8
@@ -190,8 +262,8 @@ def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
     prog = four_slot_program(
         rng, b, w, v,
         labels[np.arange(b), rng.integers(0, r, b)].view(np.uint32), device)
-    qt, xt = torch.from_numpy(q).to(device), torch.from_numpy(x).to(device)
-    dnew = sqdist_bdrd(qt, xt).cpu().numpy()
+    dnew = (sqdist_bdrd(qt, xt) if quant is None
+            else quant_dist(precision, quant)).cpu().numpy()
     if exact:
         base = np.sort(dnew, axis=1)
         cd = np.sort(np.concatenate(
@@ -214,24 +286,56 @@ def k1_inputs(rng, b, r, d, m, k, w, v, exact: bool, device):
     ri[np.isinf(rd)] = -1
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return (qt, xt, to(nb), to(is_new), prog, to(labels), to(values),
-            to(cd), to(cp), to(rd), to(ri))
+            to(cd), to(cp), to(rd), to(ri)), quant
 
 
-def check_k1(device):
+def pq_sum_atol(quant) -> np.ndarray:
+    """[b, 1]: how far K4's distances may lie from the plain ones in each
+    lane. Both sum a row's S·L looked-up entries in float32, K4 in slot
+    order and the plain version in torch.sum's, and any order lands within
+    γ_{n−1}·Σ|entries| of the exact sum (γ_n = n·u / (1 − n·u), u = 2⁻²⁴;
+    Higham, Accuracy and Stability of Numerical Algorithms, §4.2). The
+    distance takes twice the sum, so two sums differ in it by at most
+    4·γ·Σ|entries|, here the lane's largest; the tail's own rounding stays
+    inside rtol 1e-5."""
+    import torch
+
+    n = quant.codes.shape[2]
+    u = 2.0 ** -24
+    gamma = (n - 1) * u / (1 - (n - 1) * u)
+    idx = quant.codes.to(torch.int64).transpose(1, 2)          # [b, S·L, r]
+    abs_sum = torch.gather(quant.prep.lut.abs().double(), 2, idx).sum(dim=1)
+    return (4 * gamma * abs_sum.amax(dim=1, keepdim=True)).cpu().numpy()
+
+
+def check_step_kernel(device, precision="float32"):
+    """K1 (float32), K3 (int8) or K4 (pq) against `fused_step_plain` at
+    B=64, R=32, d=768, M=512, K=10, post and pre mode: exact inputs (every
+    output equal) and float inputs. On float inputs K3 must be equal too
+    (an exact integer dot, the same tail); K1's distances must lie within
+    rtol 1e-5 and K4's within rtol 1e-5 plus the lookup sums' rounding
+    bound (`pq_sum_atol`), payloads moving only between entries that
+    close."""
     import torch
 
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
 
     b, r, d, m, k, w, v = 64, 32, 768, 512, 10, 2, 2
-    rng = np.random.default_rng(0)
+    kid = HEADS[precision]
+    rng = np.random.default_rng({"float32": 0, "int8": 3, "pq": 4}[precision])
     names = ("cand_dist", "cand_pay", "res_dist", "res_idx", "valid",
              "clause_add")
-    max_err, n_near = 0.0, 0
+    max_err, err_over_atol, n_near, bitwise = 0.0, 0.0, 0, True
     for exact in (True, False):
-        args = k1_inputs(rng, b, r, d, m, k, w, v, exact, device)
+        args, quant = step_inputs(rng, b, r, d, m, k, w, v, exact, device,
+                                  precision)
+        kw = dict(quant=quant, precision=precision)
+        strict = exact or precision == "int8"
+        atol = (pq_sum_atol(quant) if precision == "pq" and not exact
+                else np.zeros((b, 1)))
         for pre in (False, True):
-            got = fused_step(*args, pre=pre)
-            want = fused_step_plain(*args, pre=pre)
+            got = fused_step(*args, pre=pre, **kw)
+            want = fused_step_plain(*args, pre=pre, **kw)
             torch.cuda.synchronize()
             got = [a.cpu().numpy() for a in got]
             want = [a.cpu().numpy() for a in want]
@@ -239,24 +343,31 @@ def check_k1(device):
                 if g.dtype != np.float32:
                     continue
                 require(np.array_equal(np.isinf(g), np.isinf(wa)),
-                        f"K1 {name}: inf pattern differs (pre={pre})")
+                        f"{kid} {name}: inf pattern differs (pre={pre})")
                 fin = np.isfinite(wa)
+                lane_atol = np.broadcast_to(atol, wa.shape)[fin]
                 err = np.abs(g[fin] - wa[fin])
                 max_err = max(max_err, float(err.max(initial=0.0)))
-                require(np.allclose(g[fin], wa[fin], rtol=1e-5, atol=0.0),
-                        f"K1 {name}: distances beyond rtol 1e-5 (pre={pre})")
-                if exact:
+                if precision == "pq" and not exact:
+                    err_over_atol = max(err_over_atol,
+                                        float((err / lane_atol).max()))
+                bitwise = bitwise and np.array_equal(g[fin], wa[fin])
+                require((err <= 1e-5 * np.abs(wa[fin]) + lane_atol).all(),
+                        f"{kid} {name}: distances beyond the stated "
+                        f"tolerance (pre={pre}, max abs err {err.max()})")
+                if strict:
                     require(np.array_equal(g[fin], wa[fin]),
-                            f"K1 {name}: exact-arithmetic distances differ")
+                            f"{kid} {name}: distances differ (pre={pre}, "
+                            f"exact={exact})")
             for name in ("valid", "clause_add"):
                 i = names.index(name)
                 require(np.array_equal(got[i], want[i]),
-                        f"K1 {name} differs (pre={pre}, exact={exact})")
+                        f"{kid} {name} differs (pre={pre}, exact={exact})")
             for di, pi in ((0, 1), (2, 3)):
                 same = got[pi] == want[pi]
-                if exact:
-                    require(same.all(), f"K1 {names[pi]} differs with ties "
-                            f"(pre={pre})")
+                if strict:
+                    require(same.all(), f"{kid} {names[pi]} differs "
+                            f"(pre={pre}, exact={exact})")
                 else:
                     # float inputs: a payload may move only between entries
                     # whose distances are within the stated tolerance
@@ -265,34 +376,54 @@ def check_k1(device):
                         gap = np.minimum(
                             np.abs(np.diff(dw, axis=1, prepend=-np.inf)),
                             np.abs(np.diff(dw, axis=1, append=np.inf)))
-                    near = gap <= 1e-5 * np.abs(dw)
+                    near = gap <= 1e-5 * np.abs(dw) + atol
                     n_near += int((~same & near).sum())
                     require((same | near).all(),
-                            f"K1 {names[pi]} differs away from near-ties "
+                            f"{kid} {names[pi]} differs away from near-ties "
                             f"(pre={pre})")
-    args = k1_inputs(rng, b, r, d, m, k, w, v, False, device)
-    ms = device_ms(lambda: fused_step(*args))
-    plain_ms = device_ms(lambda: fused_step_plain(*args))
-    call_ms = time_cuda(lambda: fused_step(*args))
-    plain_call_ms = time_cuda(lambda: fused_step_plain(*args))
+    args, quant = step_inputs(rng, b, r, d, m, k, w, v, False, device,
+                              precision)
+    kw = dict(quant=quant, precision=precision)
+    ms = device_ms(lambda: fused_step(*args, **kw))
+    plain_ms = device_ms(lambda: fused_step_plain(*args, **kw))
+    call_ms = time_cuda(lambda: fused_step(*args, **kw))
+    plain_call_ms = time_cuda(lambda: fused_step_plain(*args, **kw))
     q, x, nb, is_new, prog, lab, val, cd, cp, rd, ri = args
-    in_bytes = sum(t.numel() * t.element_size()
-                   for t in (q, x, nb, is_new, lab, val, cd, cp, rd, ri, *prog))
+    tail = (nb, is_new, lab, val, cd, cp, rd, ri, *prog)
     out_bytes = b * m * 8 + b * k * 8 + b * r + b * 4 * 4
-    flops = 4 * b * r * d  # x·x and q·x, multiply + add each
-    bound = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                flops / FP32_FLOP_PER_S) * 1e3
-    emit({"phase": "k1_check", "ok": True, "shapes": dict(
-        B=b, R=r, d=d, M=m, K=k, W=w, V=v, S=4, T=2),
-        "modes": ["post", "pre"], "max_abs_err": max_err,
-        "float_case_payload_moves_at_near_ties": n_near,
-        "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
-        "plain_call_ms": plain_call_ms, "bound_ms": bound,
-        "bytes": in_bytes + out_bytes})
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                call_ms=call_ms, plain_call_ms=plain_call_ms, bound_ms=bound,
-                bound_by="bytes" if (in_bytes + out_bytes) / HBM_BYTES_PER_S
-                >= flops / FP32_FLOP_PER_S else "operations")
+    if quant is None:
+        head_bytes = sum(t.numel() * t.element_size() for t in (q, x))
+        t_ops = 4 * b * r * d / FP32_FLOP_PER_S  # x·x and q·x
+    else:
+        codes = quant.codes
+        if precision == "int8":   # int8 multiply-adds over the int8 peak
+            head = (codes, quant.norms, *quant.prep)
+            t_ops = 2 * codes.numel() / INT8_OPS_PER_S
+        else:  # the codes and the table entries they look up, adds
+            head = (codes, quant.norms, quant.prep.qn)
+            t_ops = codes.numel() / FP32_FLOP_PER_S
+        head_bytes = sum(t.numel() * t.element_size() for t in head)
+        if precision == "pq":
+            head_bytes += codes.numel() * 4
+    nbytes = head_bytes + out_bytes + sum(
+        t.numel() * t.element_size() for t in tail)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+               call_ms=call_ms, plain_call_ms=plain_call_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    shapes = dict(B=b, R=r, d=d, M=m, K=k, W=w, V=v, S=4, T=2)
+    if precision == "pq":
+        shapes.update(SL=K4_SLOTS, Kc=K4_KC)
+        out_pq = {"float_case_max_err_over_rounding_bound": err_over_atol}
+    else:
+        out_pq = {}
+    emit({"phase": f"{kid.lower()}_check", "ok": True, "precision": precision,
+          "shapes": shapes, "modes": ["post", "pre"],
+          "float_case_bitwise": bitwise, **out_pq,
+          "float_case_payload_moves_at_near_ties": n_near, "bytes": nbytes,
+          **out})
+    return out
 
 
 # ---------------------------------------------------------------- K2 ----
@@ -396,12 +527,49 @@ def copy_state(state):
     return type(state)(*(a.clone() for a in state))
 
 
-def k5_world(seed, exact: bool, device):
+def k5_quant(g, n, b, d, precision, exact: bool, device):
+    """A synthetic quant index over N rows and its per-query state, at the
+    main path's widths: int8 codes [N, 768], or uint8 codes [N, 576] with
+    64 tables [576, 256]; norms and errors per row. exact=True puts the
+    tables, norms, errors and the query step on dyadic grids (every ADC
+    distance and error sum exact in float32); the int8 dot is exact in any
+    case."""
+    import torch
+
+    from repro_torch.quant.codecs import Int8Index, Int8Prep, PQIndex, PQPrep
+
+    kw = dict(generator=g, device=device)
+    grid = (lambda t: torch.round(t * 64) / 64) if exact else (  # noqa: E731
+        lambda t: t)
+    norms = grid(torch.rand((n,), **kw) * 4)
+    err = grid(torch.rand((n,), **kw) * 0.25)
+    qn = grid(torch.rand((b,), **kw) * 4)
+    if precision == "int8":
+        codes = torch.randint(-127, 128, (n, d), dtype=torch.int8, **kw)
+        qq = torch.randint(-127, 128, (b, d), dtype=torch.int8, **kw)
+        sq = (torch.full((b,), 1 / 2048, device=device) if exact
+              else 1e-4 * (1 + torch.rand((b,), **kw)))
+        index = Int8Index(codes=codes, scale=torch.full((d,), 1 / 32,
+                                                        device=device),
+                          zero=torch.zeros(d, device=device), norms=norms,
+                          err=err)
+        return index, Int8Prep(qq=qq, sq=sq, qn=300 + qn)
+    codes = torch.randint(0, K4_KC, (n, K4_SLOTS), dtype=torch.uint8, **kw)
+    books = grid(torch.randn((3, K4_SLOTS // 3, K4_KC, d * 3 // K4_SLOTS),
+                             **kw) * 0.05)
+    lut = grid(torch.randn((b, K4_SLOTS, K4_KC), **kw) * 0.05)
+    index = PQIndex(codes=codes, codebooks=books, norms=norms, err=err)
+    return index, PQPrep(lut=lut, qn=qn)
+
+
+def k5_world(seed, exact: bool, device, precision="float32"):
     """A synthetic index at the main path's shapes on the card — N=1M
-    rows of d=768, a random graph of degree 32 with a repeated id in every
-    row and some -1 padding, 2 label words, 2 value channels — 64 queries,
-    a 4-slot program, and a state advanced by 24 plain steps, with budgets
-    that stop lanes inside the next launch and some lanes already stopped.
+    rows of d=768 (and, under a codec, the index of `k5_quant`), a random
+    graph of degree 32 with a repeated id in every row and some -1
+    padding, 2 label words, 2 value channels — 64 queries, a 4-slot
+    program, and a state advanced by 24 plain steps, with budgets that stop
+    lanes inside the next launch and some lanes already stopped. Returns
+    (args, state, kw) with kw the quant keywords of the calls.
 
     exact=True puts vectors on the grid 1/8 in [-2, 2] (every squared
     distance exact in float32, ties frequent); otherwise N(0, 1).
@@ -433,11 +601,16 @@ def k5_world(seed, exact: bool, device):
     prog = four_slot_program(rng, b, w, v,
                              equal_rows.cpu().numpy().view(np.uint32), device)
     attrs = (labels, values)
-    cfg = SearchConfig(k=10, queue_size=512, degree=r)
+    cfg = SearchConfig(k=10, queue_size=512, degree=r, precision=precision)
+    kw = {}
+    if precision != "float32":
+        quant, qprep = k5_quant(g, n, b, d, precision, exact, device)
+        kw = dict(quant=quant, qprep=qprep)
     big = torch.full((b,), 1 << 30, dtype=torch.int32, device=device)
-    state = init_state(cfg, queries, prog, base, attrs, 0)
+    state = init_state(cfg, queries, prog, base, attrs, 0, **kw)
     state = persistent_multi_step_plain(cfg, queries, prog, base, attrs, nbrs,
-                                        big, state, 1 << 30, None, steps=24)
+                                        big, state, 1 << 30, None, steps=24,
+                                        **kw)
     cnt = state.cnt.cpu().numpy()
     budgets = torch.from_numpy(
         (cnt + rng.integers(0, K5_STEPS * r, b)).astype(np.int32)).to(device)
@@ -445,7 +618,7 @@ def k5_world(seed, exact: bool, device):
     active[::9] = False                         # stopped before the launch
     state = state._replace(active=torch.from_numpy(active).to(device))
     args = (cfg, queries, prog, base, attrs, nbrs, budgets)
-    return args, state
+    return args, state, kw
 
 
 def k5_compare(got, want, what):
@@ -454,7 +627,7 @@ def k5_compare(got, want, what):
     Lanes whose trajectory fields (visited, counters, flags) are equal
     must have distances within rtol 1e-5, and their ids and flags may
     move only between entries whose distances are within that tolerance
-    (near-ties), as in check_k1. Returns (lanes with equal trajectories,
+    (near-ties), as in check_step_kernel. Returns (lanes with equal trajectories,
     lanes where some payload moved, max abs error, moved entries).
     """
     g = {f: getattr(got, f).cpu().numpy() for f in got._fields}
@@ -499,7 +672,7 @@ def check_k5(device):
 
     big = 1 << 30
     # exact arithmetic: every field equal
-    args, state = k5_world(5, True, device)
+    args, state, _ = k5_world(5, True, device)
     # even lanes converge when their results reach those of 3 more steps
     gt = persistent_multi_step_plain(*args, copy_state(state), big, None,
                                      steps=3).res_dist
@@ -518,7 +691,7 @@ def check_k5(device):
     torch.cuda.empty_cache()
 
     # float data: every step replayed alone explains any lane that moved
-    args, state = k5_world(6, False, device)
+    args, state, _ = k5_world(6, False, device)
     want = [copy_state(state)]
     for _ in range(K5_STEPS):
         want.append(persistent_multi_step_plain(*args, copy_state(want[-1]),
@@ -539,52 +712,161 @@ def check_k5(device):
             "K5: a lane's trajectory diverged without a near-tie move")
     max_err = max(max_err, err)
 
-    # time one 8-step launch from the same state (state consumed: clones)
-    iters = 10
-    clones = iter([copy_state(state) for _ in range(2 * (iters + 5))])
-    run_k = lambda: persistent_multi_step(  # noqa: E731
-        *args, next(clones), big, None, steps=K5_STEPS)
-    run_p = lambda: persistent_multi_step_plain(  # noqa: E731
-        *args, next(clones), big, None, steps=K5_STEPS)
-    ms = device_ms(run_k, iters=iters)
-    call_ms = time_cuda(run_k, iters=iters, warmup=2)
-    clones = iter([copy_state(state) for _ in range(2 * (iters + 5))])
-    plain_ms = device_ms(run_p, iters=iters)
-    plain_call_ms = time_cuda(run_p, iters=iters, warmup=2)
-
-    # the least time for this launch's work: bytes it must move, flops
+    out, timed = k5_time_and_bound(args, state, {}, got)
+    out = dict(max_abs_err=max_err, **out)
     cfg, queries, prog, base, (labels, values), nbrs, budgets = args
     b, d = queries.shape
     m, k, r = cfg.queue_size, cfg.k, nbrs.shape[1]
     w, v = labels.shape[1], values.shape[1]
-    new_rows = int((got.cnt - state.cnt).sum())
-    lane_steps = int((got.hops - state.hops).sum())
-    state_bytes = b * (m * 10 + k * 8 + 4 * 11 + 1)
-    nbytes = (4 * b * d + 2 * state_bytes
-              + sum(t.numel() * t.element_size() for t in (*prog, budgets))
-              + lane_steps * r * 4 * 2           # id row + visited words read
-              + new_rows * 4                     # visited words written
-              + new_rows * 4 * (d + w + v))      # new rows, labels, values
-    flops = 4 * new_rows * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    out = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-               call_ms=call_ms, plain_call_ms=plain_call_ms,
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "k5_check", "ok": True, "shapes": dict(
         B=b, N=base.shape[0], d=d, M=m, K=k, R=r, W=w, V=v, S=4, T=2,
         steps=K5_STEPS), "exact_case_lanes_stopped": stopped,
         "exact_case_lanes_converged": conv,
         "float_case_lanes_moved_at_near_ties": int(moved.sum()),
         "float_case_payload_moves_at_near_ties": n_near,
-        "timed_launch": dict(new_rows=new_rows, lane_steps=lane_steps,
-                             bytes=nbytes), **out})
+        "timed_launch": timed, **out})
     del args, state, got, want
     torch.cuda.empty_cache()
     return out
 
 
+def k5_time_and_bound(args, state, kw, got):
+    """Device and call ms of one 8-step launch from `state` (kernel and
+    plain version; the state is consumed, so each call takes a clone), and
+    the least time for that launch's work (`got` is its result): the bytes
+    it must move, or its operations."""
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    big, iters = 1 << 30, 10
+    n_clones = 4 * iters + 10  # device_ms's retries and time_cuda's calls
+    clones = iter([copy_state(state) for _ in range(n_clones)])
+    run_k = lambda: persistent_multi_step(  # noqa: E731
+        *args, next(clones), big, None, steps=K5_STEPS, **kw)
+    run_p = lambda: persistent_multi_step_plain(  # noqa: E731
+        *args, next(clones), big, None, steps=K5_STEPS, **kw)
+    ms = device_ms(run_k, iters=iters)
+    call_ms = time_cuda(run_k, iters=iters, warmup=2)
+    clones = iter([copy_state(state) for _ in range(n_clones)])
+    plain_ms = device_ms(run_p, iters=iters)
+    plain_call_ms = time_cuda(run_p, iters=iters, warmup=2)
+
+    cfg, queries, prog, base, (labels, values), nbrs, budgets = args
+    precision = cfg.precision or "float32"
+    b, d = queries.shape
+    m, k, r = cfg.queue_size, cfg.k, nbrs.shape[1]
+    w, v = labels.shape[1], values.shape[1]
+    new_rows = int((got.cnt - state.cnt).sum())
+    lane_steps = int((got.hops - state.hops).sum())
+    # buffers, 11 counters (+ q_err_sum under a codec), active
+    state_bytes = b * (m * 10 + k * 8 + 4 * (11 + (precision != "float32"))
+                       + 1)
+    nbytes = (2 * state_bytes
+              + sum(t.numel() * t.element_size() for t in (*prog, budgets))
+              + lane_steps * r * 4 * 2           # id row + visited words read
+              + new_rows * 4                     # visited words written
+              + new_rows * 4 * (w + v))          # new rows' labels, values
+    if precision == "float32":
+        nbytes += 4 * b * d + new_rows * 4 * d   # queries, new rows
+        t_ops = 4 * new_rows * d / FP32_FLOP_PER_S
+    else:
+        width = kw["quant"].codes.shape[1]
+        nbytes += new_rows * (width + 8)         # codes, norm and error
+        nbytes += sum(t.numel() * t.element_size() for t in kw["qprep"]
+                      if t.dim() < 3)            # qq, sq, qn
+        if precision == "int8":
+            t_ops = 2 * new_rows * width / INT8_OPS_PER_S
+        else:                                    # table entries looked up
+            nbytes += new_rows * width * 4
+            t_ops = new_rows * width / FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+               plain_call_ms=plain_call_ms,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out, dict(new_rows=new_rows, lane_steps=lane_steps, bytes=nbytes)
+
+
+def check_k5_codec(device, precision):
+    """K5's int8 or PQ branch against persistent_multi_step_plain after one
+    8-step launch over the N=1M synthetic index: every field equal, float
+    fields and q_err_sum included (int8 on float data — its dot is exact
+    — and PQ on exact data)."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    big = 1 << 30
+    exact = precision == "pq"
+    args, state, kw = k5_world(7, exact, device, precision)
+    gt = persistent_multi_step_plain(*args, copy_state(state), big, None,
+                                     steps=3, **kw).res_dist
+    gt[1::2] = 0.0
+    got = persistent_multi_step(*args, copy_state(state), big, gt,
+                                steps=K5_STEPS, **kw)
+    want = persistent_multi_step_plain(*args, copy_state(state), big, gt,
+                                       steps=K5_STEPS, **kw)
+    torch.cuda.synchronize()
+    for f, a, b_ in zip(got._fields, state_to_numpy(got),
+                        state_to_numpy(want)):
+        require(np.array_equal(a, b_), f"K5 {precision} {f} differs")
+    require(bool((got.q_err_sum > state.q_err_sum).any()),
+            f"K5 {precision}: q_err_sum did not grow")
+    stopped = int((~got.active.cpu().numpy()).sum())
+    conv = int((got.conv_cnt.cpu().numpy() > 0).sum())
+    got = persistent_multi_step(*args, copy_state(state), big, None,
+                                steps=K5_STEPS, **kw)
+    out, timed = k5_time_and_bound(args, state, kw, got)
+    out = dict(max_abs_err=0.0, **out)  # every field equal
+    emit({"phase": f"k5_{precision}_check", "ok": True,
+          "data": "exact" if exact else "float", "shapes": dict(
+              B=EVAL_LANES, N=K5_N, row_width=int(kw["quant"].codes.shape[1]),
+              M=512, K=10, R=32, steps=K5_STEPS),
+          "all_fields_equal": True, "lanes_stopped": stopped,
+          "lanes_converged": conv, "timed_launch": timed, **out})
+    del args, state, got, want, gt, kw
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------- main path ----
+COUNTED = ("fused_step", "fused_step_int8", "fused_step_pq", "gbdt_predict",
+           "persistent_multi_step", "persistent_multi_step_int8",
+           "persistent_multi_step_pq", "sqdist_masked")
+
+
+def _wrappers():
+    from repro_torch.kernels.distance import sqdist_masked
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.gbdt import gbdt_predict
+    from repro_torch.kernels.persistent_step import persistent_multi_step
+
+    return fused_step, gbdt_predict, persistent_multi_step, sqdist_masked
+
+
+def reset_counts() -> None:
+    """Every kernel launch count to 0 (fused_step and persistent_multi_step
+    count per precision: one count per kernel head)."""
+    for fn in _wrappers():
+        if isinstance(fn.launches, dict):
+            fn.launches.update(dict.fromkeys(fn.launches, 0))
+        else:
+            fn.launches = 0
+
+
+def read_counts() -> dict:
+    """Launches per kernel since the last reset: K1, K3, K4 (the heads of
+    fused_step), K2, K5's three branches, K6."""
+    fused, gbdt, pers, sqd = _wrappers()
+    out = {"gbdt_predict": gbdt.launches, "sqdist_masked": sqd.launches}
+    for fn in (fused, pers):
+        for prec, n in fn.launches.items():
+            name = fn.__name__ + ("" if prec == "float32" else f"_{prec}")
+            out[name] = n
+    return {k: out[k] for k in COUNTED}
+
 def run_pipeline(args, device):
     import torch
 
@@ -597,10 +879,6 @@ def run_pipeline(args, device):
     from repro_torch.index.bruteforce import filtered_knn_exact, recall_at_k
     from repro_torch.index.builder import build_graph_index
     from repro_torch.core import dispatch_counters
-    from repro_torch.kernels.distance import sqdist_masked
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.gbdt import gbdt_predict
-    from repro_torch.kernels.persistent_step import persistent_multi_step
 
     preset = dict(DATASET_PRESETS["tripclick-s"])
     preset.update(n=args.n, dim=DIM)
@@ -684,16 +962,12 @@ def run_pipeline(args, device):
             alpha=key[1], n_probes=2))[1] for _ in range(REPEATS - 1)]
         return float(np.median([first_ms, *more]))
 
-    counted = (fused_step, gbdt_predict, persistent_multi_step,
-               sqdist_masked)
-
     def drive(path: str, backend: str, only=None, **kw):
         """One path of the main path: every kernel count set to 0 just
         before, read just after; each kernel of the path must launch."""
-        for fn in counted:
-            fn.launches = 0
+        reset_counts()
         out = run(backend, only, **kw)
-        counts = {fn.__name__: fn.launches for fn in counted}
+        counts = read_counts()
         need = {"fused": ("fused_step", "gbdt_predict"),
                 "persistent": ("persistent_multi_step", "gbdt_predict"),
                 "dense_use_pallas": ("sqdist_masked", "gbdt_predict")}[path]
@@ -809,10 +1083,204 @@ def run_pipeline(args, device):
                 rows[0]["fused"]["e2e_ms"])
     profile_e2e(eng, est, evals["contain"], probe, "persistent",
                 pers_rows[0]["e2e_ms"])
-    return {"fused_step": fused_counts["fused_step"],
-            "gbdt_predict": fused_counts["gbdt_predict"],
-            "persistent_multi_step": pers_counts["persistent_multi_step"],
-            "sqdist_masked": k6_counts["sqdist_masked"]}
+    launches = {"fused_step": fused_counts["fused_step"],
+                "gbdt_predict": fused_counts["gbdt_predict"],
+                "persistent_multi_step": pers_counts["persistent_multi_step"],
+                "sqdist_masked": k6_counts["sqdist_masked"]}
+    del eng
+    torch.cuda.empty_cache()
+    launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
+                              device))
+    return launches
+
+
+def run_quant(ds, graph, wl_train, evals, gts, probe, device):
+    """The quantized engines on the same dataset and graph: per codec,
+    build (train + encode on the card), training labels with the
+    compressed convergence target, the estimator, and e2e_search with the
+    terminal exact rerank on contain and range at α=1, backends fused
+    (K3 / K4 + K2, the path's launches counted), persistent (K5's codec
+    branch + K2, counted) and dense (plain). Returns the launch counts."""
+    import torch
+
+    from repro_torch.core import (CostEstimator, SearchConfig, SearchEngine,
+                                  dispatch_counters, e2e_search,
+                                  generate_training_data)
+    from repro_torch.index.bruteforce import recall_at_k
+    from repro_torch.quant import index_nbytes, store_ratio
+
+    cells = [(name, 1.0) for name in evals]
+    launches = {}
+    for precision in ("int8", "pq"):
+        t = time.perf_counter()
+        qeng = SearchEngine.build(ds, graph, device=device,
+                                  precision=precision)
+        torch.cuda.synchronize()
+        emit({"phase": "quant_build", "precision": precision,
+              "seconds": time.perf_counter() - t,
+              "codes": list(qeng.quant.codes.shape),
+              "codes_dtype": str(qeng.quant.codes.dtype),
+              "index_nbytes": index_nbytes(qeng.quant),
+              "store_ratio": store_ratio(qeng.quant, qeng.base_vectors),
+              "codec_key": qeng.codec_key()})
+
+        t = time.perf_counter()
+        td = generate_training_data(
+            qeng, ds, wl_train,
+            SearchConfig(k=10, queue_size=512, backend="persistent"),
+            probe_budget=probe, chunk=128, n_probes=2)
+        label_s = time.perf_counter() - t
+        est = CostEstimator.fit(td.features, td.w_q, n_trees=200, depth=5)
+        emit({"phase": "quant_training", "precision": precision,
+              "label_seconds": label_s,
+              "fit_seconds": time.perf_counter() - t - label_s,
+              "queries": int(td.w_q.shape[0]),
+              "converged_frac": float(td.converged.mean()),
+              "w_q_median": float(np.median(td.w_q)),
+              **quant_convergence_check(qeng, ds, wl_train, td, probe,
+                                        chunk=128)})
+
+        def call(backend: str, key):
+            wl = evals[key[0]]
+            return e2e_search(
+                qeng, est, SearchConfig(k=10, queue_size=512,
+                                        backend=backend),
+                wl.queries, wl.spec, probe_budget=probe, alpha=key[1],
+                n_probes=2)
+
+        def run(backend: str):
+            """One call per cell: (result, wall ms, dispatch deltas)."""
+            out = {}
+            for key in cells:
+                d0 = dispatch_counters()
+                res, ms = wall_ms(lambda: call(backend, key))
+                d1 = dispatch_counters()
+                out[key] = (res, ms, {k: d1[k] - d0[k] for k in d0})
+            return out
+
+        def drive(backend: str, need):
+            """Counts set to 0 just before the path, read just after; each
+            of its kernels must launch."""
+            reset_counts()
+            out = run(backend)
+            counts = read_counts()
+            require(all(counts[n] > 0 for n in need),
+                    f"quant {precision} {backend}: a kernel of the path was "
+                    f"never launched: {counts}")
+            return out, counts
+
+        def median_e2e_ms(backend: str, key, first: float) -> float:
+            return float(np.median([first, *(
+                wall_ms(lambda: call(backend, key))[1]
+                for _ in range(REPEATS - 1))]))
+
+        fused, f_counts = drive("fused", (f"fused_step_{precision}",
+                                          "gbdt_predict"))
+        pers, p_counts = drive("persistent",
+                               (f"persistent_multi_step_{precision}",
+                                "gbdt_predict"))
+        dense = run("dense")
+        launches[f"fused_step_{precision}"] = f_counts[
+            f"fused_step_{precision}"]
+        launches[f"persistent_multi_step_{precision}"] = p_counts[
+            f"persistent_multi_step_{precision}"]
+        pers_ms = {}
+        for key in cells:
+            name, alpha = key
+            (fr, fms, _), (pr, pms, disp), (dr, dms, _) = (
+                fused[key], pers[key], dense[key])
+            fms = median_e2e_ms("fused", key, fms)
+            pms = median_e2e_ms("persistent", key, pms)
+            dms = median_e2e_ms("dense", key, dms)
+            gi = gts[name][0]
+            f_idx = fr.state.res_idx.cpu().numpy()
+            d_idx = dr.state.res_idx.cpu().numpy()
+            f_cnt, d_cnt = fr.state.cnt.cpu().numpy(), dr.state.cnt.cpu().numpy()
+            f_dist = fr.state.res_dist.cpu().numpy()
+            require(f_idx.shape == (EVAL_LANES, 10), "result shape")
+            require(not np.isnan(f_dist).any(), "NaN result distance")
+            f_rec = float(recall_at_k(f_idx, gi).mean())
+            d_rec = float(recall_at_k(d_idx, gi).mean())
+            p_rec = float(recall_at_k(pr.state.res_idx.cpu().numpy(),
+                                      gi).mean())
+            same = float(((f_idx == d_idx).all(axis=1)
+                          & (f_cnt == d_cnt)).mean())
+            # persistent vs fused: every field bitwise, the float ones
+            # included (K3/K4 and K5 share their distance code, and K5
+            # replays make_step's q_err_sum tree)
+            differ = [f for f, a, b_ in zip(pr.state._fields, pr.state,
+                                            fr.state) if not torch.equal(a, b_)]
+            require(not differ, f"quant {precision} {name}: persistent "
+                    f"fields differ from fused: {differ}")
+            require(np.array_equal(pr.predicted_budget, fr.predicted_budget),
+                    f"quant {precision} {name}: budgets differ from fused")
+            pers_ms[key] = pms
+            emit({"phase": "e2e_quant", "precision": precision,
+                  "workload": name, "alpha": alpha,
+                  "fused": {"recall@10": f_rec,
+                            "mean_ndc": float(f_cnt.mean()), "e2e_ms": fms,
+                            "mean_budget": float(fr.predicted_budget.mean())},
+                  "dense": {"recall@10": d_rec,
+                            "mean_ndc": float(d_cnt.mean()), "e2e_ms": dms},
+                  "persistent": {"recall@10": p_rec, "e2e_ms": pms,
+                                 "launches": disp["launches"],
+                                 "compactions": disp["compactions"],
+                                 "steps": disp["steps"]},
+                  "identical_top10_and_ndc_frac": same,
+                  "persistent_fields_equal_fused": True})
+            require(abs(f_rec - d_rec) <= 0.01,
+                    f"quant {precision} {name}: fused recall {f_rec} vs "
+                    f"dense {d_rec}")
+            require(same >= 0.95, f"quant {precision} {name}: only "
+                    f"{same:.3f} of lanes identical to dense")
+            require(0.0 < f_rec <= 1.0 and (f_cnt > 1).all(),
+                    f"quant {precision} {name}: recall {f_rec}, min NDC "
+                    f"{f_cnt.min()}")
+        emit({"phase": "quant_path", "precision": precision,
+              "query_batches": len(cells), "batch": EVAL_LANES,
+              "launches": {"fused": f_counts, "persistent": p_counts}})
+        profile_e2e(qeng, est, evals["contain"], probe, "persistent",
+                    pers_ms[cells[0]])
+        del qeng, fused, pers, dense
+        torch.cuda.empty_cache()
+    return launches
+
+
+def quant_convergence_check(eng, ds, wl, td, probe, chunk):
+    """On the first training chunk of a quantized engine: re-run the probe
+    and the exhaustive resume (persistent backend) against the compressed
+    target, then the rerank. Lanes whose top-10 ids equal the compressed
+    top-10 (recall 10/10 before the rerank) beside those whose reranked
+    top-10 equal the exact one."""
+    import torch
+
+    from repro_torch.core import SearchConfig, probe_and_features
+    from repro_torch.core.engine import BIG_BUDGET
+    from repro_torch.index.bruteforce import recall_at_k, valid_mask
+    from repro_torch.quant import compressed_filtered_topk
+
+    c = SearchConfig(k=10, queue_size=512, backend="persistent")
+    n = min(chunk, wl.batch)
+    q = wl.queries[:n]
+    filt = wl.filter_slice(0, n)
+    ok = valid_mask(filt, ds.labels_packed, ds.value_matrix)
+    conv_dist, conv_idx = compressed_filtered_topk(eng.precision, eng.quant,
+                                                   q, ok, 10)
+    conv_dev = torch.from_numpy(conv_dist).to(eng.device)
+    prog = eng.compile(filt)
+    st, _ = probe_and_features(eng, c, q, prog, probe, 2, gt_dist=conv_dev)
+    st = eng.search(c, q, prog, BIG_BUDGET, state=st, gt_dist=conv_dev)
+    conv = st.conv_cnt.cpu().numpy() > 0
+    require(np.array_equal(conv, td.converged[:n]),
+            "re-run quantized training lanes converge differently")
+    comp_full = recall_at_k(st.res_idx.cpu().numpy(), conv_idx) == 1.0
+    rr = eng.rerank(c, q, st)
+    rec = recall_at_k(rr.res_idx.cpu().numpy(), td.gt_idx[:n])
+    return {"diag_lanes": n,
+            "compressed_recall10_full_frac": float(comp_full.mean()),
+            "reranked_recall10_full_frac": float((rec == 1.0).mean()),
+            "mean_reranked_recall_at_exhaustion": float(rec.mean()),
+            "converged_not_compressed_full": int((conv & ~comp_full).sum())}
 
 
 def convergence_check(eng, wl, td, probe, chunk):
@@ -889,7 +1357,8 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
     steps = (d1["steps"] - d0["steps"] if backend == "persistent"
              else int(res.state.hops.max()))
     top = sorted(evs, key=lambda x: x[1], reverse=True)[:10]
-    emit({"phase": "profile", "backend": backend, "workload": "contain",
+    emit({"phase": "profile", "backend": backend,
+          "precision": eng.precision, "workload": "contain",
           "alpha": 1.0, "wall_ms_profiled": wall,
           "wall_ms": wall_unprofiled_ms,
           "device_busy_ms": busy if evs else "not measured",
@@ -932,55 +1401,50 @@ def main(argv=None) -> int:
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t})
 
-    k1 = check_k1(device)
+    k1 = check_step_kernel(device)
+    k3 = check_step_kernel(device, "int8")
+    k4 = check_step_kernel(device, "pq")
     k2 = check_k2(device)
     k6 = check_k6(device)
     k5 = check_k5(device)
+    k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches = run_pipeline(args, device)
 
+    def entry(name, source, replaces, chk, launches_of, why):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}",
+                "launches": launches[launches_of],
+                "max_abs_err": chk["max_abs_err"], "ms": chk["ms"],
+                "plain_ms": chk["plain_ms"], "bound_ms": chk["bound_ms"],
+                "bound_by": chk["bound_by"], "library_ms": None,
+                "library_none_because": why, "call_ms": chk["call_ms"],
+                "plain_call_ms": chk["plain_call_ms"]}
+
+    step_why = "no single PyTorch call runs a traversal step"
+    steps_why = "no single PyTorch call runs traversal steps"
     emit({"kernels": [
-        {"name": "fused_step", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_step.cu",
-         "replaces": "src/repro/kernels/fused_step.py:182",
-         "launches": launches["fused_step"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None,
-         "library_none_because": "no single PyTorch call runs a traversal "
-                                 "step",
-         "call_ms": k1["call_ms"],
-         "plain_call_ms": k1["plain_call_ms"]},
-        {"name": "gbdt_predict", "route": "cuda",
-         "source": "src/repro_torch/csrc/gbdt.cu",
-         "replaces": "src/repro/kernels/gbdt.py:22",
-         "launches": launches["gbdt_predict"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None,
-         "library_none_because": "no single PyTorch call walks a tree "
-                                 "ensemble",
-         "call_ms": k2["call_ms"], "plain_call_ms": k2["plain_call_ms"]},
-        {"name": "persistent_multi_step", "route": "cuda",
-         "source": "src/repro_torch/csrc/persistent_step.cu",
-         "replaces": "src/repro/kernels/persistent_step.py:127",
-         "launches": launches["persistent_multi_step"],
-         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
-         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-         "bound_by": k5["bound_by"], "library_ms": None,
-         "library_none_because": "no single PyTorch call runs traversal "
-                                 "steps",
-         "call_ms": k5["call_ms"], "plain_call_ms": k5["plain_call_ms"]},
-        {"name": "sqdist_masked", "route": "cuda",
-         "source": "src/repro_torch/csrc/sqdist.cu",
-         "replaces": "src/repro/kernels/distance.py:76",
-         "launches": launches["sqdist_masked"],
-         "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
-         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None,
-         "library_none_because": "no single PyTorch call computes a masked "
-                                 "batched squared L2 (torch.cdist gives "
-                                 "unsquared, unmasked distances)",
-         "call_ms": k6["call_ms"], "plain_call_ms": k6["plain_call_ms"]},
+        entry("fused_step", "fused_step.cu", "fused_step.py:182", k1,
+              "fused_step", step_why),
+        entry("gbdt_predict", "gbdt.cu", "gbdt.py:22", k2, "gbdt_predict",
+              "no single PyTorch call walks a tree ensemble"),
+        entry("fused_step_int8", "fused_step.cu", "fused_step.py:209", k3,
+              "fused_step_int8", step_why),
+        entry("fused_step_pq", "fused_step.cu", "fused_step.py:243", k4,
+              "fused_step_pq", step_why),
+        entry("persistent_multi_step", "persistent_step.cu",
+              "persistent_step.py:127", k5, "persistent_multi_step",
+              steps_why),
+        entry("persistent_multi_step_int8", "persistent_step.cu",
+              "persistent_step.py:293", k5q["int8"],
+              "persistent_multi_step_int8", steps_why),
+        entry("persistent_multi_step_pq", "persistent_step.cu",
+              "persistent_step.py:301", k5q["pq"],
+              "persistent_multi_step_pq", steps_why),
+        entry("sqdist_masked", "sqdist.cu", "distance.py:76", k6,
+              "sqdist_masked", "no single PyTorch call computes a masked "
+              "batched squared L2 (torch.cdist gives unsquared, unmasked "
+              "distances)"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

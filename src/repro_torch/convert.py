@@ -19,6 +19,7 @@ from repro_torch.core.gbdt import GBDTModel
 from repro_torch.core.state import SearchState
 from repro_torch.device import resolve_device
 from repro_torch.filters.compile import FilterProgram, program_to
+from repro_torch.quant.codecs import Int8Index, Int8Prep, PQIndex, PQPrep
 
 _STATE_DTYPES = {
     "cand_dist": torch.float32, "cand_idx": torch.int32,
@@ -65,12 +66,43 @@ def program_to_torch(leaves: Sequence[np.ndarray], device=None,
     return program_to(FilterProgram(*leaves), resolve_device(device))
 
 
+def _named_to_torch(kinds, obj, device):
+    """A reference NamedTuple of arrays → the port's type with the same
+    field names (the first of `kinds` whose fields match)."""
+    fields = tuple(obj._fields)
+    for cls in kinds:
+        if cls._fields == fields:
+            dev = resolve_device(device)
+            return cls(*(torch.from_numpy(np.array(a, order="C")).to(dev)
+                         for a in obj))
+    raise TypeError(f"no port counterpart with fields {fields}")
+
+
+def quant_to_torch(index, device=None):
+    """A reference Int8Index or PQIndex (leaves as numpy or JAX arrays) →
+    the port's, with the same dtypes (codes int8 / uint8)."""
+    return _named_to_torch((Int8Index, PQIndex), index, device)
+
+
+def qprep_to_torch(prep, device=None):
+    """A reference Int8Prep or PQPrep → the port's."""
+    return _named_to_torch((Int8Prep, PQPrep), prep, device)
+
+
+def quant_to_numpy(obj) -> tuple[np.ndarray, ...]:
+    """A port quant index or prep → its leaves as numpy arrays, in field
+    order and dtype."""
+    return tuple(t.detach().cpu().numpy() for t in obj)
+
+
 def engine_from_arrays(vectors: np.ndarray, labels_packed: np.ndarray,
                        values: np.ndarray, neighbors: np.ndarray,
                        entry_point: int, backend: str | None = None,
-                       device=None) -> SearchEngine:
+                       device=None, precision: str = "float32",
+                       quant=None) -> SearchEngine:
     """Dataset arrays (vectors [N,d], labels [N,W] uint32, values [N,V])
-    and graph arrays (neighbors [N,R], entry point) → SearchEngine."""
+    and graph arrays (neighbors [N,R], entry point) → SearchEngine; a
+    quantized engine takes the reference's quant index as `quant`."""
     dev = resolve_device(device)
     values = np.asarray(values, np.float32)
     if values.ndim == 1:
@@ -85,6 +117,8 @@ def engine_from_arrays(vectors: np.ndarray, labels_packed: np.ndarray,
             np.ascontiguousarray(neighbors, np.int32)).to(dev),
         entry_point=int(entry_point),
         backend=backend,
+        precision=precision,
+        quant=None if quant is None else quant_to_torch(quant, dev),
     )
 
 

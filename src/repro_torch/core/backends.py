@@ -5,13 +5,14 @@ program and the neighbor distances and merges both sorted buffers; the
 rest of the step is shared in `core.step`.
 
 Registered backends:
-  dense       plain PyTorch: shared program evaluation + `sqdist_bdrd` +
-              two stable argsort merges (`repro`'s DenseBackend); with
-              `cfg.use_pallas` its distances go through kernel K6
+  dense       plain PyTorch: shared program evaluation + `sqdist_bdrd`
+              (compressed: `quant.codecs.quant_dist`) + two stable argsort
+              merges (`repro`'s DenseBackend); with `cfg.use_pallas` its
+              float32 distances go through kernel K6
               (`kernels.distance.sqdist_masked`).
-  fused       kernel K1 (`kernels.fused_step`) through packed payloads
-              (`repro`'s PallasBackend); also registered as "pallas" so
-              reference configurations carry over.
+  fused       kernel K1 (`kernels.fused_step`; K3 under int8, K4 under pq)
+              through packed payloads (`repro`'s PallasBackend); also
+              registered as "pallas" so reference configurations carry over.
   persistent  the fused per-step merge, with `persistent = True`: the
               engine runs it through `core.search.run_search_persistent`,
               whose launches are kernel K5 (`kernels.persistent_step`);
@@ -28,6 +29,7 @@ from repro_torch.filters.compile import clause_counts, eval_program_gathered
 from repro_torch.kernels.distance import sqdist_bdrd, sqdist_masked
 from repro_torch.kernels.fused_step import fused_step
 from repro_torch.kernels.topk import merge_stable, pack_payload, unpack_payload
+from repro_torch.quant.codecs import quant_dist
 
 
 class TraversalBackend(Protocol):
@@ -37,11 +39,12 @@ class TraversalBackend(Protocol):
 
     def merge_step(self, cfg: SearchConfig, queries, xv, nb, is_new, prog,
                    labels_g, values_g, cand_dist, cand_idx, cand_exp,
-                   cand_valid, res_dist, res_idx):
-        """queries [B,d], xv [B,R,d], nb/is_new [B,R], prog FilterProgram,
-        labels_g [B,R,W] i32, values_g [B,R,V] f32, cand_* [B,M],
-        res_* [B,K] → (cand_dist, cand_idx, cand_exp, cand_valid,
-        res_dist, res_idx, valid [B,R], clause_add [B,4])."""
+                   cand_valid, res_dist, res_idx, quant=None):
+        """queries [B,d], xv [B,R,d] (None in compressed mode), nb/is_new
+        [B,R], prog FilterProgram, labels_g [B,R,W] i32, values_g [B,R,V]
+        f32, cand_* [B,M], res_* [B,K], quant QuantGather or None →
+        (cand_dist, cand_idx, cand_exp, cand_valid, res_dist, res_idx,
+        valid [B,R], clause_add [B,4])."""
         ...
 
 
@@ -80,13 +83,15 @@ class DenseBackend:
 
     def merge_step(self, cfg, queries, xv, nb, is_new, prog, labels_g,
                    values_g, cand_dist, cand_idx, cand_exp, cand_valid,
-                   res_dist, res_idx):
+                   res_dist, res_idx, quant=None):
         m, k = cfg.queue_size, cfg.k
         pvalid, clause_sat = eval_program_gathered(prog, labels_g, values_g)
         valid = pvalid & is_new
         clause_add = clause_counts(clause_sat, is_new)
         dist_mask = valid if cfg.mode == "pre" else is_new
-        if cfg.use_pallas:
+        if quant is not None:
+            dd = torch.where(dist_mask, quant_dist(cfg.precision, quant), INF)
+        elif cfg.use_pallas:
             dd = sqdist_masked(queries, xv, dist_mask)
         else:
             dd = torch.where(dist_mask, sqdist_bdrd(queries, xv), INF)
@@ -114,12 +119,13 @@ class FusedBackend:
 
     def merge_step(self, cfg, queries, xv, nb, is_new, prog, labels_g,
                    values_g, cand_dist, cand_idx, cand_exp, cand_valid,
-                   res_dist, res_idx):
+                   res_dist, res_idx, quant=None):
         cand_pay = pack_payload(cand_idx, cand_exp, cand_valid)
         (cand_dist, cand_pay, res_dist, res_idx, valid,
          clause_add) = fused_step(
             queries, xv, nb, is_new, prog, labels_g, values_g, cand_dist,
-            cand_pay, res_dist, res_idx, pre=cfg.mode == "pre")
+            cand_pay, res_dist, res_idx, pre=cfg.mode == "pre", quant=quant,
+            precision=cfg.precision or "float32")
         cand_idx, cand_exp, cand_valid = unpack_payload(cand_pay)
         return (cand_dist, cand_idx, cand_exp, cand_valid, res_dist, res_idx,
                 valid, clause_add)

@@ -1,13 +1,16 @@
 """E2E: probe → estimate → resume (paper Algorithm 1).
 
-Counterpart of `repro/core/e2e.py` (tracing, EXPLAIN reports and the
-quantized rerank stage wait for the observability and quant slices):
+Counterpart of `repro/core/e2e.py` (tracing and EXPLAIN reports wait for
+the observability slice):
 
   1. Early Probe   — run the lockstep search with per-lane budget f; the
                      probe is the first f NDCs of the real traversal.
   2. Cost Estimate — extract z_q from the live SearchState and run the
                      GBDT (kernel K2 on the card): Ŵ_q = α·exp(M(z_q)).
   3. Adaptive Term — resume the same carry with budget Ŵ_q.
+  4. Rerank        — on a quantized engine, the terminal exact float32
+                     rerank of the final pool (after the last resume; a
+                     reranked state is never resumed).
 
 `repredict_every` > 0 gives the DARTH-style iterative variant.
 """
@@ -118,7 +121,7 @@ def e2e_search(
             budgets = estimator.predict_budget(f2, alpha, min_budget,
                                                max_budget, packed=packed)
 
-    # --- stage 4: terminal rerank (a no-op at float32) ---
+    # --- stage 4 (quantized engines): terminal exact float32 rerank ---
     state = engine.rerank(cfg, queries, state)
     return E2EResult(state=state,
                      predicted_budget=budgets.cpu().numpy(),

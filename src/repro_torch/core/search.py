@@ -19,6 +19,10 @@ Counterpart of `repro/core/search.py`. Two loops over one carry:
                            reference's power-of-two width ladder. Every
                            launch boundary is a step boundary, so the
                            returned state equals `run_search`'s bit for bit.
+
+Under `cfg.precision` "int8" or "pq" both loops take the quant index
+(`quant`); the per-query ADC state is prepared once per call
+(`_make_qprep`) and its lanes are compacted with the state's.
 """
 from __future__ import annotations
 
@@ -30,8 +34,21 @@ from repro_torch.core.state import (SearchConfig, SearchState, init_state,
                                     prepare_resume, put_lanes, take_lanes)
 from repro_torch.core.step import make_step
 from repro_torch.kernels.persistent_step import persistent_multi_step
+from repro_torch.quant.codecs import prepare_query
 
 CHECK_EVERY = 8  # steps between host reads of `active`
+
+
+def _make_qprep(cfg: SearchConfig, queries, quant):
+    """Per-query ADC state for compressed-domain traversal (None at f32)."""
+    precision = cfg.precision or "float32"
+    if precision == "float32":
+        return None
+    if quant is None:
+        raise ValueError(
+            f"cfg.precision={precision!r} needs a quant index — build "
+            "the engine with precision=... or pass quant= explicitly")
+    return prepare_query(precision, quant, queries)
 
 
 def run_search(
@@ -45,6 +62,7 @@ def run_search(
     entry_point: int,
     state: SearchState | None = None,
     gt_dist: torch.Tensor | None = None,
+    quant=None,                      # Int8Index | PQIndex (compressed mode)
 ) -> SearchState:
     """Run (or resume) the lockstep search until all lanes terminate.
 
@@ -57,13 +75,14 @@ def run_search(
     (the reference donates it), so callers must not reuse it afterwards.
     """
     backend = get_backend(cfg.backend or "dense")
+    qprep = _make_qprep(cfg, queries, quant)
     if state is None:
         state = init_state(cfg, queries, prog, base_vectors, attrs,
-                           entry_point)
+                           entry_point, quant=quant, qprep=qprep)
     else:
         state = prepare_resume(state)
     step = make_step(cfg, backend, queries, prog, base_vectors, attrs,
-                     neighbors, budgets, gt_dist)
+                     neighbors, budgets, gt_dist, quant=quant, qprep=qprep)
     it = 0
     while it < cfg.max_steps:
         n = min(CHECK_EVERY, cfg.max_steps - it)
@@ -87,8 +106,8 @@ def dispatch_counters() -> dict:
 
 
 def _persistent_launch(cfg, queries, prog, base_vectors, attrs, neighbors,
-                       budgets, entry_point, state, gt_dist, rem: int, *,
-                       mode: str) -> SearchState:
+                       budgets, entry_point, state, gt_dist, quant, qprep,
+                       rem: int, *, mode: str) -> SearchState:
     """One dispatch: advance by up to cfg.steps_per_launch steps.
 
     mode  "init"    no incoming state — build it (first launch of a search)
@@ -98,12 +117,13 @@ def _persistent_launch(cfg, queries, prog, base_vectors, attrs, neighbors,
     """
     if mode == "init":
         state = init_state(cfg, queries, prog, base_vectors, attrs,
-                           entry_point)
+                           entry_point, quant=quant, qprep=qprep)
     elif mode == "resume":
         state = prepare_resume(state)
     return persistent_multi_step(
         cfg, queries, prog, base_vectors, attrs, neighbors, budgets, state,
-        rem, gt_dist, steps=max(1, cfg.steps_per_launch))
+        rem, gt_dist, steps=max(1, cfg.steps_per_launch), quant=quant,
+        qprep=qprep)
 
 
 def _hops_active(state: SearchState) -> tuple[np.ndarray, np.ndarray]:
@@ -123,6 +143,7 @@ def run_search_persistent(
     entry_point: int,
     state: SearchState | None = None,
     gt_dist: torch.Tensor | None = None,
+    quant=None,
 ) -> SearchState:
     """The launch loop for persistent backends (single device).
 
@@ -142,11 +163,13 @@ def run_search_persistent(
     `state`, when passed, is consumed (same contract as `run_search`).
     """
     b = int(queries.shape[0])
+    qprep = _make_qprep(cfg, queries, quant)
     mode = "init" if state is None else "resume"
     hops0 = 0 if state is None else state.hops.cpu().numpy().copy()
     state = _persistent_launch(cfg, queries, prog, base_vectors, attrs,
                                neighbors, budgets, entry_point, state,
-                               gt_dist, cfg.max_steps, mode=mode)
+                               gt_dist, quant, qprep, cfg.max_steps,
+                               mode=mode)
     hops, active = _hops_active(state)
     it = int((hops - hops0).max(initial=0))
     _DISPATCH_COUNTERS["launches"] += 1
@@ -162,14 +185,16 @@ def run_search_persistent(
         if compact:  # pad by repeating the first active lane
             sel = np.concatenate([sel, np.full(w - sel.size, sel[0])])
             idx = torch.from_numpy(sel).to(queries.device)
-            sub = take_lanes((state, queries, prog, budgets, gt_dist), idx)
+            sub = take_lanes((state, queries, prog, budgets, gt_dist, qprep),
+                             idx)
         else:
             sel = np.arange(b)
-            sub = (state, queries, prog, budgets, gt_dist)
-        sub_state, sub_q, sub_prog, sub_bud, sub_gt = sub
+            sub = (state, queries, prog, budgets, gt_dist, qprep)
+        sub_state, sub_q, sub_prog, sub_bud, sub_gt, sub_qp = sub
         out = _persistent_launch(cfg, sub_q, sub_prog, base_vectors, attrs,
                                  neighbors, sub_bud, entry_point, sub_state,
-                                 sub_gt, cfg.max_steps - it, mode="cont")
+                                 sub_gt, quant, sub_qp, cfg.max_steps - it,
+                                 mode="cont")
         sub_hops, sub_active = _hops_active(out)
         d = int((sub_hops - hops[sel]).max(initial=0))
         it += d

@@ -12,7 +12,9 @@ and the same 18 `SearchState` leaves, as torch tensors:
 
 Lane surgery (`take_lanes`, `put_lanes`) serves the persistent loop's
 lane compaction; `concat_lanes`, `pad_lanes` and shard surgery wait for
-the serving and scale-out slices. Float32 only.
+the serving and scale-out slices. Under a compressed precision ("int8",
+"pq") the entry distance, and every distance after it, is the codec's
+ADC distance (`repro_torch.quant`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.filters.compile import clause_counts, eval_program_gathered
 from repro_torch.filters.predicates import PRED_CONTAIN
 from repro_torch.kernels.distance import sqdist_bdrd
+from repro_torch.quant.codecs import QuantGather, quant_dist
 
 INF = float("inf")
 INT32_MIN = -(1 << 31)
@@ -43,7 +46,8 @@ class SearchConfig:
     backend: str | None = None # TraversalBackend name; None → engine default
     steps_per_launch: int = 8  # persistent backends: steps per K5 launch
     use_pallas: bool = False   # dense backend: distances through kernel K6
-    precision: str | None = None  # "float32" (None inherits the engine's)
+    precision: str | None = None  # "float32" | "int8" | "pq"; None
+                               # inherits the engine's ("float32" alone)
 
 
 class SearchState(NamedTuple):
@@ -59,19 +63,13 @@ class SearchState(NamedTuple):
     n_valid_visited: torch.Tensor # [B] i32 — valid among inspected
     n_clause_valid: torch.Tensor  # [B, C] i32 — per-clause-slot hits
     n_pop_valid: torch.Tensor     # [B] i32 — valid among popped/expanded
-    q_err_sum: torch.Tensor       # [B] f32 — 0 in float32 mode
+    q_err_sum: torch.Tensor       # [B] f32 — Σ ‖x − x̂‖² over inspected
+                                  # nodes (0 in float32 mode)
     hops: torch.Tensor            # [B] i32 — expansions (search hops)
     active: torch.Tensor          # [B] bool
     d_start: torch.Tensor         # [B] f32 — entry-point distance
     conv_cnt: torch.Tensor        # [B] i32 — NDC at first full recall, -1
     res_full_cnt: torch.Tensor    # [B] i32 — NDC when the k-th valid was found, -1
-
-
-def check_precision(cfg: SearchConfig) -> None:
-    if (cfg.precision or "float32") != "float32":
-        raise ValueError(
-            f"precision {cfg.precision!r} is not ported yet: the int8/PQ "
-            "codecs come with the quantized-domain slice of the port")
 
 
 def word_bit(ids: torch.Tensor) -> torch.Tensor:
@@ -92,8 +90,9 @@ def init_state(
     base_vectors: torch.Tensor,  # [N, d]
     attrs,                       # (labels [N, W] i32, values [N, V] f32)
     entry_point: int,
+    quant=None,                  # Int8Index | PQIndex (compressed mode)
+    qprep=None,                  # its prepared per-query ADC state
 ) -> SearchState:
-    check_precision(cfg)
     dev = queries.device
     b = queries.shape[0]
     n = base_vectors.shape[0]
@@ -103,8 +102,18 @@ def init_state(
     i32 = torch.int32
 
     ep = torch.full((b, 1), entry_point, dtype=i32, device=dev)
-    d0 = sqdist_bdrd(queries, base_vectors[entry_point][None, None, :]
-                     .expand(b, 1, -1))                         # [B,1]
+    if (cfg.precision or "float32") != "float32":
+        # the entry distance in the compressed domain: the whole traversal,
+        # d_start included, lives in one metric
+        codes0 = quant.codes[entry_point][None, None, :].expand(b, 1, -1)
+        norms0 = quant.norms[entry_point].expand(b, 1)
+        d0 = quant_dist(cfg.precision, QuantGather(prep=qprep, codes=codes0,
+                                                   norms=norms0))
+        err0 = quant.err[entry_point].expand(b).clone()
+    else:
+        d0 = sqdist_bdrd(queries, base_vectors[entry_point][None, None, :]
+                         .expand(b, 1, -1))                     # [B,1]
+        err0 = torch.zeros((b,), dtype=torch.float32, device=dev)
     val0, csat0 = eval_program_gathered(
         prog, labels[entry_point][None, None, :].expand(b, 1, -1),
         values[entry_point][None, None, :].expand(b, 1, -1))
@@ -142,7 +151,7 @@ def init_state(
         n_valid_visited=v0.to(i32),
         n_clause_valid=cadd0,
         n_pop_valid=zeros,
-        q_err_sum=torch.zeros((b,), dtype=torch.float32, device=dev),
+        q_err_sum=err0,
         hops=zeros.clone(),
         active=torch.ones((b,), dtype=torch.bool, device=dev),
         d_start=d0[:, 0].contiguous(),

@@ -4,30 +4,47 @@ Counterpart of `repro/core/step.py::make_step`, post mode: pop → gather
 the 1-hop frontier → visited test and set → (backend: filter program +
 distances + queue/result merge) → counters, convergence and lane masking.
 
-Pre and widen modes (and the 2-hop frontier they gather) wait for the
-planning slice of the port; compressed precisions for the quantized one.
+Under a compressed precision ("int8", "pq") the step gathers the quant
+index's codes, norms and reconstruction errors instead of the float
+vectors, and hands the backend a `QuantGather`. Pre and widen modes (and
+the 2-hop frontier they gather) wait for the planning slice of the port.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.state import (INF, SearchConfig, SearchState,
-                                    check_precision, word_bit)
+from repro_torch.core.state import INF, SearchConfig, SearchState, word_bit
+from repro_torch.quant.codecs import QuantGather
+
+
+def tree_sum(e: torch.Tensor) -> torch.Tensor:
+    """Row sums of [B, R] by halving: pad with zeros to a power of 2, then
+    add the second half onto the first until one column is left. Kernel K5
+    sums each step's reconstruction errors in this order, so `q_err_sum`
+    is bitwise the same on the single-step and the persistent path."""
+    r = e.shape[1]
+    e = torch.nn.functional.pad(e, (0, (1 << (r - 1).bit_length()) - r))
+    while e.shape[1] > 1:
+        h = e.shape[1] // 2
+        e = e[:, :h] + e[:, h:]
+    return e[:, 0]
 
 
 def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
-              neighbors, budgets, gt_dist):
+              neighbors, budgets, gt_dist, quant=None, qprep=None):
     """Build the step function closed over static data and per-lane budgets.
 
     The returned `step(state)` consumes `state`: its visited bitset is
-    updated in place (the reference donates the carry the same way).
+    updated in place (the reference donates the carry the same way). In
+    compressed mode `quant` is the Int8Index / PQIndex and `qprep` its
+    per-query ADC state; the float vectors are not read.
     """
     if cfg.mode != "post":
         raise ValueError(
             f"mode {cfg.mode!r} is not ported yet: pre/widen traversal comes "
             "with the planning slice of the port (post mode only here)")
-    check_precision(cfg)
     label_attrs, value_attrs = attrs
+    compressed = (cfg.precision or "float32") != "float32"
 
     def step(state: SearchState) -> SearchState:
         # ---- pop best unexpanded candidate per lane ----
@@ -72,12 +89,19 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
         # ---- backend hot path: filter program + distances + merges ----
         labels_g = label_attrs[nb_long]                       # [B, R, W]
         values_g = value_attrs[nb_long]                       # [B, R, V]
-        xv = base_vectors[nb_long]                            # [B, R, d]
+        if compressed:
+            xv = None  # the float vectors stay out of the loop
+            qg = QuantGather(prep=qprep, codes=quant.codes[nb_long],
+                             norms=quant.norms[nb_long])
+            err_add = tree_sum(torch.where(is_new, quant.err[nb_long], 0.0))
+        else:
+            xv = base_vectors[nb_long]                        # [B, R, d]
+            qg = err_add = None
         (cand_dist, cand_idx, cand_exp2, cand_valid, res_dist, res_idx,
          valid, clause_add) = backend.merge_step(
             cfg, queries, xv, nb, is_new, prog, labels_g, values_g,
             state.cand_dist, state.cand_idx, cand_exp, state.cand_valid,
-            state.res_dist, state.res_idx)
+            state.res_dist, state.res_idx, quant=qg)
 
         # ---- counters (post: every new node gets a distance) ----
         zero = torch.zeros_like(state.cnt)
@@ -91,6 +115,8 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
             act[:, None], clause_add, 0)
         n_pop_valid = state.n_pop_valid + (act & u_valid).to(torch.int32)
         hops = state.hops + act.to(torch.int32)
+        q_err_sum = state.q_err_sum if err_add is None else (
+            state.q_err_sum + torch.where(act, err_add, 0.0))
 
         # ---- convergence tracking for W_q ground truth ----
         if gt_dist is not None:
@@ -120,7 +146,7 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
             n_valid_visited=n_valid_visited,
             n_clause_valid=n_clause_valid,
             n_pop_valid=n_pop_valid,
-            q_err_sum=state.q_err_sum,
+            q_err_sum=q_err_sum,
             hops=hops,
             active=act,
             d_start=state.d_start,

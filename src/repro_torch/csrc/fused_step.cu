@@ -1,25 +1,40 @@
 // K1: fused traversal step (filter program + squared L2 + top-M queue merge
-// + top-K result merge + per-clause counts), one thread block per query lane.
+// + top-K result merge + per-clause counts), one thread block per query lane,
+// and its compressed-domain heads K3 (int8 ADC) and K4 (PQ ADC).
 //
-// Replaces the TPU kernel repro/kernels/fused_step.py::_fused_step_kernel
-// with its tail _merge_core, _program_valid_kernel and
+// Replaces the TPU kernels repro/kernels/fused_step.py::_fused_step_kernel
+// (K1), _fused_step_int8_kernel (K3) and _fused_step_pq_kernel (K4), with
+// their shared tail _merge_core, _program_valid_kernel and
 // kernels/topk.py::bitonic_topm. Wrapper and plain version:
-// repro_torch/kernels/fused_step.py.
+// repro_torch/kernels/fused_step.py. Only the distance head differs between
+// the three; the program evaluation and merges are the same code.
 //
-// What bounds it on an H100: bytes. A step reads the gathered rows
+// What bounds it on an H100: bytes. A K1 step reads the gathered rows
 // x [B, R, d] f32 once (B*R*d*4 bytes, 6.3 MB at B=64, R=32, d=768) plus
 // the lane's buffers; the arithmetic is ~2*R*d flops per lane. The design
 // reads every gathered row exactly once, with one warp per row and
 // neighbouring lanes on neighbouring addresses; everything else (program
 // evaluation, both merges) stays in shared memory and writes only the
 // merged buffers, the valid mask and four counters.
+//   K3 reads the int8 codes [B, R, d] (1.6 MB) once, one warp per row as
+// packed 4-byte words into __dp4a, with the quantized query in shared
+// memory. K4 reads the uint8 codes [B, R, S·L] and, per row, S·L entries
+// of the lane's table lut [S·L, Kc] f32 (576 KB per lane at S·L=576,
+// Kc=256: too large for shared memory, so it stays in device memory; 64
+// lanes' tables, 37.7 MB, fit the 50 MB L2). All threads of the block
+// gather the R·S·L entries the rows look up into shared memory (74 KB at
+// R=32), so the loads overlap; then one thread per row sums its entries
+// in slot order, the reference kernels' order, so K4 and K5's pq branch
+// agree bit for bit.
 //
-// The per-lane building blocks (query norm, one-warp row distance, filter
-// program, bitonic merges) live in step_common.cuh, shared with K5 and K6.
+// The per-lane building blocks (query norm, row distances, filter program,
+// bitonic merges) live in step_common.cuh, shared with K5 and K6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "step_common.cuh"
+
+extern "C" size_t fused_step_smem_bytes(int R, int QW, int wq, int wr);
 
 namespace {
 
@@ -27,9 +42,18 @@ using step::kClauseSlots;
 using step::kThreads;
 using step::kWarps;
 
+constexpr int kF32 = 0, kInt8 = 1, kPQ = 2;  // distance heads
+
 struct StepArgs {
-  const float* q;          // [B, D]
-  const float* x;          // [B, R, D]
+  int prec;                // kF32 (K1) | kInt8 (K3) | kPQ (K4)
+  const float* q;          // [B, D] (K1)
+  const float* x;          // [B, R, D] (K1)
+  const void* codes;       // [B, R, D] int8 (K3) | [B, R, SL=D] uint8 (K4)
+  const float* xn;         // [B, R] code norms (K3, K4)
+  const int8_t* qq;        // [B, D] quantized query (K3)
+  const float* sq;         // [B] its step (K3)
+  const float* lut;        // [B, SL, Kc] lookup table (K4)
+  const float* qn;         // [B] query norm (K3, K4)
   const int* nb;           // [B, R]
   const uint8_t* is_new;   // [B, R] bool
   const int* labels;       // [B, R, W] (uint32 bit patterns)
@@ -46,6 +70,7 @@ struct StepArgs {
   uint8_t* out_valid;      // [B, R] bool
   int* out_counts;         // [B, 4]
   int R, D, M, K, wq, wr, pre;
+  int QW, Kc;              // shared-memory words of the head; PQ Kc
 };
 
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
@@ -54,8 +79,8 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wmax = a.wq > a.wr ? a.wq : a.wr;
   const int W = a.prog.W, V = a.prog.V;
-  float* qs = smem;                          // [D]
-  float* dist = qs + a.D;                    // [R]
+  float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
+  float* dist = qs + a.QW;                   // [R]
   int* vld = reinterpret_cast<int*>(dist + a.R);   // [R]
   int* dmask = vld + a.R;                    // [R]
   float* key = reinterpret_cast<float*>(dmask + a.R);  // [wmax]
@@ -63,16 +88,43 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   int* cnt = pos + wmax;                     // [4]
   float* red = reinterpret_cast<float*>(cnt + kClauseSlots);  // [kWarps + 1]
 
-  // ---- query row and its squared norm ----
   if (tid < kClauseSlots) cnt[tid] = 0;
-  const float qn = step::query_sqnorm(a.q + (size_t)b * a.D, qs, a.D, red);
-
-  // ---- squared L2 to the R gathered rows: one warp per row ----
-  for (int r = warp; r < a.R; r += kWarps) {
-    const float d = step::row_sqdist(
-        qs, a.x + ((size_t)b * a.R + r) * a.D, a.D, qn, lane);
-    if (lane == 0) dist[r] = d;
+  if (a.prec == kF32) {
+    // ---- query row and its squared norm; squared L2, one warp per row ----
+    const float qn = step::query_sqnorm(a.q + (size_t)b * a.D, qs, a.D, red);
+    for (int r = warp; r < a.R; r += kWarps) {
+      const float d = step::row_sqdist(
+          qs, a.x + ((size_t)b * a.R + r) * a.D, a.D, qn, lane);
+      if (lane == 0) dist[r] = d;
+    }
+  } else if (a.prec == kInt8) {
+    // ---- K3: packed query into shared memory; int8 ADC, one warp per row ----
+    int* qq4 = reinterpret_cast<int*>(qs);
+    const int* src = reinterpret_cast<const int*>(a.qq + (size_t)b * a.D);
+    for (int i = tid; i < a.QW; i += kThreads) qq4[i] = src[i];
+    __syncthreads();
+    const float qn = a.qn[b], sq2 = __fmul_rn(2.f, a.sq[b]);
+    const int8_t* codes = static_cast<const int8_t*>(a.codes);
+    for (int r = warp; r < a.R; r += kWarps) {
+      const size_t row = (size_t)b * a.R + r;
+      const float d = step::row_int8_dist(qq4, codes + row * a.D, a.QW, qn,
+                                          sq2, a.xn[row], lane);
+      if (lane == 0) dist[r] = d;
+    }
+  } else {
+    // ---- K4: every thread gathers table entries into shared memory (the
+    // loads overlap); then one thread per row sums them in slot order ----
+    const float qn = a.qn[b];
+    const int ld = step::pq_stage_ld(a.D);
+    step::pq_stage(qs, a.lut + (size_t)b * a.D * a.Kc, a.Kc,
+                   static_cast<const uint8_t*>(a.codes), a.D, a.R, nullptr,
+                   b * a.R, nullptr);
+    __syncthreads();
+    for (int r = tid; r < a.R; r += kThreads)
+      dist[r] = step::pq_dist_staged(qs + r * ld, a.D, qn,
+                                     a.xn[(size_t)b * a.R + r]);
   }
+  __syncthreads();
 
   // ---- filter program, one thread per gathered neighbor ----
   for (int r = tid; r < a.R; r += kThreads) {
@@ -107,14 +159,53 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   if (tid < kClauseSlots) a.out_counts[b * kClauseSlots + tid] = cnt[tid];
 }
 
+int launch(const StepArgs& a, int B, void* stream) {
+  const size_t smem = fused_step_smem_bytes(a.R, a.QW, a.wq, a.wr);
+  static bool opted_in[step::kMaxDevices] = {};
+  cudaError_t err = step::opt_in_smem_once(fused_step_kernel, opted_in);
+  if (err != cudaSuccess) return (int)err;
+  fused_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The shared tail of both entry points' pointer lists: nb, is_new, labels,
+// values, the 9 program leaves, the 4 buffers and the 6 outputs.
+void set_tail(StepArgs& a, void* const* p) {
+  int i = 0;
+  a.nb = static_cast<const int*>(p[i++]);
+  a.is_new = static_cast<const uint8_t*>(p[i++]);
+  a.labels = static_cast<const int*>(p[i++]);
+  a.values = static_cast<const float*>(p[i++]);
+  a.prog.kinds = static_cast<const int*>(p[i++]);
+  a.prog.masks = static_cast<const int*>(p[i++]);
+  a.prog.lo = static_cast<const float*>(p[i++]);
+  a.prog.hi = static_cast<const float*>(p[i++]);
+  a.prog.vattr = static_cast<const int*>(p[i++]);
+  a.prog.neg = static_cast<const uint8_t*>(p[i++]);
+  a.prog.term = static_cast<const int*>(p[i++]);
+  a.prog.active = static_cast<const uint8_t*>(p[i++]);
+  a.prog.term_active = static_cast<const uint8_t*>(p[i++]);
+  a.cand_dist = static_cast<const float*>(p[i++]);
+  a.cand_pay = static_cast<const int*>(p[i++]);
+  a.res_dist = static_cast<const float*>(p[i++]);
+  a.res_idx = static_cast<const int*>(p[i++]);
+  a.out_cand_dist = static_cast<float*>(p[i++]);
+  a.out_cand_pay = static_cast<int*>(p[i++]);
+  a.out_res_dist = static_cast<float*>(p[i++]);
+  a.out_res_idx = static_cast<int*>(p[i++]);
+  a.out_valid = static_cast<uint8_t*>(p[i++]);
+  a.out_counts = static_cast<int*>(p[i++]);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these widths, in bytes.
-size_t fused_step_smem_bytes(int R, int D, int wq, int wr) {
+// Dynamic shared memory the kernel needs for these widths, in bytes; QW is
+// the distance head's words: D (K1), D / 4 (K3), R · (S·L | 1) (K4).
+size_t fused_step_smem_bytes(int R, int QW, int wq, int wr) {
   const int wmax = wq > wr ? wq : wr;
-  return sizeof(float) * ((size_t)D + 3 * (size_t)R + 2 * (size_t)wmax +
+  return sizeof(float) * ((size_t)QW + 3 * (size_t)R + 2 * (size_t)wmax +
                           kClauseSlots + kWarps + 1);
 }
 
@@ -130,41 +221,55 @@ int fused_step_f32(
     void* out_res_idx, void* out_valid, void* out_counts,
     int B, int R, int D, int M, int K, int W, int V, int S, int T,
     int wq, int wr, int pre, void* stream) {
-  StepArgs a;
+  StepArgs a = {};
+  a.prec = kF32;
   a.q = static_cast<const float*>(q);
   a.x = static_cast<const float*>(x);
-  a.nb = static_cast<const int*>(nb);
-  a.is_new = static_cast<const uint8_t*>(is_new);
-  a.labels = static_cast<const int*>(labels);
-  a.values = static_cast<const float*>(values);
-  a.prog.kinds = static_cast<const int*>(kinds);
-  a.prog.masks = static_cast<const int*>(masks);
-  a.prog.lo = static_cast<const float*>(lo);
-  a.prog.hi = static_cast<const float*>(hi);
-  a.prog.vattr = static_cast<const int*>(vattr);
-  a.prog.neg = static_cast<const uint8_t*>(neg);
-  a.prog.term = static_cast<const int*>(term);
-  a.prog.active = static_cast<const uint8_t*>(active);
-  a.prog.term_active = static_cast<const uint8_t*>(term_active);
-  a.cand_dist = static_cast<const float*>(cand_dist);
-  a.cand_pay = static_cast<const int*>(cand_pay);
-  a.res_dist = static_cast<const float*>(res_dist);
-  a.res_idx = static_cast<const int*>(res_idx);
-  a.out_cand_dist = static_cast<float*>(out_cand_dist);
-  a.out_cand_pay = static_cast<int*>(out_cand_pay);
-  a.out_res_dist = static_cast<float*>(out_res_dist);
-  a.out_res_idx = static_cast<int*>(out_res_idx);
-  a.out_valid = static_cast<uint8_t*>(out_valid);
-  a.out_counts = static_cast<int*>(out_counts);
+  void* const tail[] = {
+      const_cast<void*>(nb), const_cast<void*>(is_new),
+      const_cast<void*>(labels), const_cast<void*>(values),
+      const_cast<void*>(kinds), const_cast<void*>(masks),
+      const_cast<void*>(lo), const_cast<void*>(hi), const_cast<void*>(vattr),
+      const_cast<void*>(neg), const_cast<void*>(term),
+      const_cast<void*>(active), const_cast<void*>(term_active),
+      const_cast<void*>(cand_dist), const_cast<void*>(cand_pay),
+      const_cast<void*>(res_dist), const_cast<void*>(res_idx),
+      out_cand_dist, out_cand_pay, out_res_dist, out_res_idx, out_valid,
+      out_counts};
+  set_tail(a, tail);
   a.prog.S = S; a.prog.T = T; a.prog.W = W; a.prog.V = V;
   a.R = R; a.D = D; a.M = M; a.K = K;
   a.wq = wq; a.wr = wr; a.pre = pre;
-  const size_t smem = fused_step_smem_bytes(R, D, wq, wr);
-  static bool opted_in[step::kMaxDevices] = {};
-  cudaError_t err = step::opt_in_smem_once(fused_step_kernel, opted_in);
-  if (err != cudaSuccess) return (int)err;
-  fused_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.QW = D;
+  return launch(a, B, stream);
+}
+
+// K3 / K4. ptrs: codes, xn, qq (K3) | lut (K4), sq (K3; null for K4), qn,
+// then the shared tail of set_tail (28 pointers); dims: B, R, D, M, K, W,
+// V, S, T, wq, wr, pre, prec (1 = int8, 2 = pq), Kc, where D is d (int8,
+// a multiple of 4) or S·L (pq).
+int fused_step_quant(void* const* ptrs, const int* dims, void* stream) {
+  StepArgs a = {};
+  a.codes = ptrs[0];
+  a.xn = static_cast<const float*>(ptrs[1]);
+  a.qn = static_cast<const float*>(ptrs[4]);
+  set_tail(a, ptrs + 5);
+  const int B = dims[0];
+  a.R = dims[1]; a.D = dims[2]; a.M = dims[3]; a.K = dims[4];
+  a.prog.W = dims[5]; a.prog.V = dims[6]; a.prog.S = dims[7];
+  a.prog.T = dims[8]; a.wq = dims[9]; a.wr = dims[10]; a.pre = dims[11];
+  a.prec = dims[12]; a.Kc = dims[13];
+  if (a.prec == kInt8) {
+    a.qq = static_cast<const int8_t*>(ptrs[2]);
+    a.sq = static_cast<const float*>(ptrs[3]);
+    a.QW = a.D / 4;
+  } else if (a.prec == kPQ) {
+    a.lut = static_cast<const float*>(ptrs[2]);
+    a.QW = a.R * (a.D | 1);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(a, B, stream);
 }
 
 const char* fused_step_error_string(int err) {

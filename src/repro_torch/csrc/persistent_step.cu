@@ -1,7 +1,7 @@
-// K5: persistent multi-step traversal (float32, post mode). One launch runs
-// up to `steps` whole lockstep steps per query lane: pop, neighbor-id row,
-// visited test-before-set, filter program, squared L2, queue and result
-// merges, counters and the per-lane stop test.
+// K5: persistent multi-step traversal (post mode; float32, int8 and PQ).
+// One launch runs up to `steps` whole lockstep steps per query lane: pop,
+// neighbor-id row, visited test-before-set, filter program, distances,
+// queue and result merges, counters and the per-lane stop test.
 //
 // Replaces the TPU kernel repro/kernels/persistent_step.py::_persistent_kernel
 // (called from persistent_multi_step). Wrapper and plain version:
@@ -23,8 +23,17 @@
 // convergence test), and launches no step at all when no lane of the batch
 // is active, which is when the reference's launch loop runs none.
 //
-// Bit-exactness with the single-step path (core/step.py + K1): the
-// distance, program and merge code is K1's (step_common.cuh, same block
+// Codec branches (the reference kernel's int8 and PQ heads and distance
+// blocks). The new neighbors' codes, ADC norms and reconstruction errors
+// are read straight from the quant index (codes [N, d] int8 or [N, S·L]
+// uint8, norms and err [N]); the int8 query (d bytes) sits in shared
+// memory, the PQ table lut [S·L, Kc] of the lane stays in device memory
+// and the new rows' lookups are staged in shared memory, as in K4. The step's reconstruction errors of new neighbors are summed
+// by the halving tree of core/step.py::tree_sum into q_err_sum, carried in
+// a register and written back.
+//
+// Bit-exactness with the single-step path (core/step.py + K1/K3/K4): the
+// distance, program and merge code is theirs (step_common.cuh, same block
 // size and thread mapping); the pop takes the first minimum over
 // unexpanded slots, as argmin does, by reducing (key, slot) pairs; every
 // id of the row is tested against the pre-step words before any bit is
@@ -56,9 +65,11 @@ constexpr int kExpandedBit = 1 << 29;
 constexpr int kValidBit = 1 << 30;
 constexpr int kIdMask = (1 << 29) - 1;
 
+constexpr int kF32 = 0, kInt8 = 1, kPQ = 2;  // distance heads
+
 struct PersistArgs {
-  const float* q;           // [B, D]
-  const float* base;        // [N, D]
+  const float* q;           // [B, D] (float32)
+  const float* base;        // [N, D] (float32)
   const int* labels;        // [N, W] (uint32 bit patterns)
   const float* values;      // [N, V]
   const int* neighbors;     // [N, R]
@@ -98,7 +109,18 @@ struct PersistArgs {
   uint8_t* o_active;
   int* o_conv_cnt;
   int* o_res_full_cnt;
+  // codec branches (null under float32, where q_err_sum passes through)
+  const void* codes;        // [N, D] int8 | [N, SL=D] uint8
+  const float* qnorms;      // [N] ADC norms
+  const float* qerr;        // [N] reconstruction errors
+  const int8_t* qq;         // [B, D] quantized query (int8)
+  const float* sq;          // [B] its step (int8)
+  const float* qn;          // [B] query norm (int8, pq)
+  const float* lut;         // [B, SL, Kc] lookup table (pq)
+  const float* q_err_sum;   // [B]
+  float* o_q_err_sum;       // [B]
   int B, R, D, M, K, NW, steps, greedy, wq, wr;
+  int prec, Kc, QW, P;      // head; PQ Kc; query-head words; pow2 >= R
 };
 
 __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a) {
@@ -108,8 +130,8 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   const int M = a.M, K = a.K, R = a.R, D = a.D;
   const int wmax = a.wq > a.wr ? a.wq : a.wr;
   const int W = a.prog.W, V = a.prog.V;
-  float* qs = smem;                                     // [D]
-  float* cd = qs + D;                                   // [M] x 2
+  float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
+  float* cd = qs + a.QW;                                // [M] x 2
   float* cd2 = cd + M;
   int* cp = reinterpret_cast<int*>(cd2 + M);            // [M] x 2
   int* cp2 = cp + M;
@@ -128,6 +150,7 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   float* popk = red + kWarps + 1;                       // [kWarps]
   int* pops = reinterpret_cast<int*>(popk + kWarps);    // [kWarps]
   int* ctl = pops + kWarps;                             // [4]
+  float* ebuf = reinterpret_cast<float*>(ctl + 4);      // [P]
 
   // ---- the lane's state into shared memory ----
   const size_t bm = (size_t)b * M, bk = (size_t)b * K;
@@ -146,11 +169,28 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   __syncthreads();
   for (int i = tid; i < a.B; i += kThreads)
     if (a.active[i]) ctl[2] = 1;  // some lane of the launch is active
-  const float qn = step::query_sqnorm(a.q + (size_t)b * D, qs, D, red);
+  // ---- the query head ----
+  float qn, sq2 = 0.f;
+  int* qq4 = reinterpret_cast<int*>(qs);
+  const float* lut = nullptr;
+  if (a.prec == kF32) {
+    qn = step::query_sqnorm(a.q + (size_t)b * D, qs, D, red);
+  } else {
+    qn = a.qn[b];
+    if (a.prec == kInt8) {
+      const int* src = reinterpret_cast<const int*>(a.qq + (size_t)b * D);
+      for (int i = tid; i < a.QW; i += kThreads) qq4[i] = src[i];
+      sq2 = __fmul_rn(2.f, a.sq[b]);
+    } else {
+      lut = a.lut + (size_t)b * D * a.Kc;
+    }
+  }
+  __syncthreads();
   const int nsteps = ctl[2] ? a.steps : 0;
 
   // per-lane counters: thread 0 owns them
   int cnt = 0, nin = 0, nvv = 0, npv = 0, hops = 0, conv = 0, rfull = 0;
+  float qerr = 0.f;
   int ncl[kClauseSlots] = {0, 0, 0, 0};
   bool prev_act = a.active[b] != 0;
   int budget = 0;
@@ -158,6 +198,7 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
     cnt = a.cnt[b]; nin = a.n_inspected[b]; nvv = a.n_valid_visited[b];
     npv = a.n_pop_valid[b]; hops = a.hops[b]; conv = a.conv_cnt[b];
     rfull = a.res_full_cnt[b]; budget = a.budgets[b];
+    if (a.prec != kF32) qerr = a.q_err_sum[b];
     for (int c = 0; c < kClauseSlots; ++c)
       ncl[c] = a.n_clause_valid[b * kClauseSlots + c];
   }
@@ -231,14 +272,39 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
         atomicAdd(reinterpret_cast<unsigned*>(vis + (nbs[r] >> 5)),
                   1u << (nbs[r] & 31));
 
-    // ---- squared L2 to the new rows: one warp per row ----
-    for (int r = warp; r < R; r += kWarps) {
-      if (isnew[r]) {
-        const float d = step::row_sqdist(qs, a.base + (size_t)nbs[r] * D, D,
-                                         qn, lane);
-        if (lane == 0) dist[r] = d;
+    // ---- distances to the new rows ----
+    if (a.prec == kF32) {  // squared L2, one warp per row
+      for (int r = warp; r < R; r += kWarps) {
+        if (isnew[r]) {
+          const float d = step::row_sqdist(qs, a.base + (size_t)nbs[r] * D,
+                                           D, qn, lane);
+          if (lane == 0) dist[r] = d;
+        }
       }
+    } else if (a.prec == kInt8) {  // int8 ADC, one warp per row
+      const int8_t* codes = static_cast<const int8_t*>(a.codes);
+      for (int r = warp; r < R; r += kWarps) {
+        if (isnew[r]) {
+          const float d = step::row_int8_dist(
+              qq4, codes + (size_t)nbs[r] * D, a.QW, qn, sq2,
+              a.qnorms[nbs[r]], lane);
+          if (lane == 0) dist[r] = d;
+        }
+      }
+    } else {  // PQ ADC: stage the new rows' lookups, then slot order
+      const int ld = step::pq_stage_ld(D);
+      step::pq_stage(qs, lut, a.Kc, static_cast<const uint8_t*>(a.codes), D,
+                     R, nbs, 0, isnew);
+      __syncthreads();
+      for (int r = tid; r < R; r += kThreads)
+        if (isnew[r])
+          dist[r] = step::pq_dist_staged(qs + r * ld, D, qn,
+                                         a.qnorms[nbs[r]]);
     }
+    // ---- reconstruction errors of the new rows, zero-padded to P ----
+    if (a.prec != kF32)
+      for (int r = tid; r < a.P; r += kThreads)
+        ebuf[r] = (r < R && isnew[r]) ? a.qerr[nbs[r]] : 0.f;
     // ---- filter program on the new rows ----
     for (int r = tid; r < R; r += kThreads) {
       int valid = 0;
@@ -252,6 +318,11 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
       vld[r] = valid;
     }
     __syncthreads();
+    // the halving-tree sum of core/step.py::tree_sum; only thread 0 reads
+    // ebuf until the next step's fill, which is behind the pop barrier
+    if (a.prec != kF32 && tid == 0)
+      for (int h = a.P >> 1; h > 0; h >>= 1)
+        for (int i = 0; i < h; ++i) ebuf[i] = __fadd_rn(ebuf[i], ebuf[i + h]);
 
     // ---- merges into the second buffers, then swap ----
     step::queue_merge(cd, cp, dist, isnew, vld, nbs, M, R, a.wq, key, pos,
@@ -272,6 +343,7 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
       nvv += nval;
       for (int c = 0; c < kClauseSlots; ++c) { ncl[c] += ccnt[c]; ccnt[c] = 0; }
       hops += 1;
+      if (a.prec != kF32) qerr = __fadd_rn(qerr, ebuf[0]);
       if (gt && conv < 0) {
         bool covered = true;
         for (int i = 0; i < K; ++i)
@@ -300,6 +372,7 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
     a.o_res_full_cnt[b] = rfull; a.o_active[b] = prev_act;
     for (int c = 0; c < kClauseSlots; ++c)
       a.o_n_clause_valid[b * kClauseSlots + c] = ncl[c];
+    if (a.prec != kF32) a.o_q_err_sum[b] = qerr;
   }
 }
 
@@ -307,17 +380,22 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these widths, in bytes.
-size_t persistent_step_smem_bytes(int R, int D, int M, int K, int wq, int wr) {
+// Dynamic shared memory the kernel needs for these widths, in bytes; QW is
+// the distance head's words: D (float32), D / 4 (int8), R · (S·L | 1)
+// (pq: the staged lookups); P the next power of 2 >= R.
+size_t persistent_step_smem_bytes(int R, int QW, int M, int K, int wq, int wr,
+                                  int P) {
   const int wmax = wq > wr ? wq : wr;
-  return sizeof(float) * ((size_t)D + 4 * (size_t)M + 4 * (size_t)K +
+  return sizeof(float) * ((size_t)QW + 4 * (size_t)M + 4 * (size_t)K +
                           4 * (size_t)R + 2 * (size_t)wmax + kClauseSlots +
-                          3 * kWarps + 1 + 4);
+                          3 * kWarps + 1 + 4 + (size_t)P);
 }
 
-// ptrs: the 47 pointers of PersistArgs in declaration order (gt may be
-// null); dims: B, R, D, M, K, W, V, S, T, NW, steps, greedy, wq, wr, where
-// steps is the number of steps this launch may take.
+// ptrs: the 56 pointers of PersistArgs in declaration order (gt, and the
+// codec pointers under float32, may be null); dims: B, R, D, M, K, W, V, S,
+// T, NW, steps, greedy, wq, wr, prec (0 = float32, 1 = int8, 2 = pq), Kc,
+// where steps is the number of steps this launch may take and D is d
+// (float32; int8, a multiple of 4) or S·L (pq).
 int persistent_step_f32(void* const* ptrs, const int* dims, void* stream) {
   PersistArgs a;
   const void* const* p = ptrs;
@@ -369,11 +447,25 @@ int persistent_step_f32(void* const* ptrs, const int* dims, void* stream) {
   a.o_active = static_cast<uint8_t*>(const_cast<void*>(p[i++]));
   a.o_conv_cnt = static_cast<int*>(const_cast<void*>(p[i++]));
   a.o_res_full_cnt = static_cast<int*>(const_cast<void*>(p[i++]));
+  a.codes = p[i++];
+  a.qnorms = static_cast<const float*>(p[i++]);
+  a.qerr = static_cast<const float*>(p[i++]);
+  a.qq = static_cast<const int8_t*>(p[i++]);
+  a.sq = static_cast<const float*>(p[i++]);
+  a.qn = static_cast<const float*>(p[i++]);
+  a.lut = static_cast<const float*>(p[i++]);
+  a.q_err_sum = static_cast<const float*>(p[i++]);
+  a.o_q_err_sum = static_cast<float*>(const_cast<void*>(p[i++]));
   a.B = dims[0]; a.R = dims[1]; a.D = dims[2]; a.M = dims[3]; a.K = dims[4];
   a.prog.W = dims[5]; a.prog.V = dims[6]; a.prog.S = dims[7];
   a.prog.T = dims[8]; a.NW = dims[9]; a.steps = dims[10]; a.greedy = dims[11];
-  a.wq = dims[12]; a.wr = dims[13];
-  const size_t smem = persistent_step_smem_bytes(a.R, a.D, a.M, a.K, a.wq, a.wr);
+  a.wq = dims[12]; a.wr = dims[13]; a.prec = dims[14]; a.Kc = dims[15];
+  if (a.prec < kF32 || a.prec > kPQ) return (int)cudaErrorInvalidValue;
+  a.QW = a.prec == kF32 ? a.D : a.prec == kInt8 ? a.D / 4 : a.R * (a.D | 1);
+  a.P = 1;
+  while (a.P < a.R) a.P <<= 1;
+  const size_t smem = persistent_step_smem_bytes(a.R, a.QW, a.M, a.K, a.wq,
+                                                 a.wr, a.P);
   static bool opted_in[step::kMaxDevices] = {};
   cudaError_t err = step::opt_in_smem_once(persistent_step_kernel, opted_in);
   if (err != cudaSuccess) return (int)err;

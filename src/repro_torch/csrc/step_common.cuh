@@ -5,7 +5,9 @@
 // Every kernel that computes a traversal distance calls `query_sqnorm` and
 // `row_sqdist` from here with the same block size (kThreads) and the same
 // thread-to-element mapping, so K1, K5 and K6 give bitwise-equal distances
-// for the same (query, row) pair. The merges sort (distance, position in
+// for the same (query, row) pair; the codec distances `row_int8_dist` (K3
+// and K5's int8 branch) and `pq_dist_staged` (K4 and K5's pq branch)
+// likewise. The merges sort (distance, position in
 // [old | new | pad]) pairs; positions are distinct, so the bitonic network
 // realizes a total order equal to a stable argsort over [old | new] — the
 // order the reference's host path and dense backend give, ties included.
@@ -64,6 +66,83 @@ __device__ __forceinline__ float row_sqdist(const float* qs, const float* xr,
   xx = warp_sum(xx);
   qx = warp_sum(qx);
   return fmaxf(__fsub_rn(__fadd_rn(qn, xx), __fmul_rn(2.f, qx)), 0.f);
+}
+
+// int8 ADC distance between a lane's quantized query (qq4: the int8 query
+// packed four to an int, in shared memory, nwords = d / 4 words) and one
+// row of int8 codes (4-byte aligned), computed by one warp:
+// max((qn + xn) − sq2·dot, 0) with sq2 = 2·sq rounded first, as
+// `quant/codecs.py::_int8_assemble`. The dot is __dp4a over packed quads
+// and an int32 warp sum: exact in any order (|dot| ≤ 127²·d). The value is
+// valid on lane 0.
+__device__ __forceinline__ float row_int8_dist(const int* qq4,
+                                               const int8_t* codes_row,
+                                               int nwords, float qn, float sq2,
+                                               float xn, int lane) {
+  const int* c4 = reinterpret_cast<const int*>(codes_row);
+  int acc = 0;
+  for (int i = lane; i < nwords; i += 32) acc = __dp4a(qq4[i], c4[i], acc);
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(sq2, __int2float_rn(acc))),
+               0.f);
+}
+
+// PQ ADC distance of one row from its staged lookups vals[j] =
+// lut[j, code_j] (shared memory), computed by one thread:
+// max((qn + xn) − 2·ip, 0) with ip the lookups summed in slot order
+// 0..SL−1 — the reference kernels' order.
+__device__ __forceinline__ float pq_dist_staged(const float* vals, int SL,
+                                                float qn, float xn) {
+  float ip = 0.f;
+  for (int j = 0; j < SL; ++j) ip = __fadd_rn(ip, vals[j]);
+  return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.f, ip)), 0.f);
+}
+
+// Row stride of the staged PQ lookups: odd, so the 32 threads of a warp
+// summing 32 rows read 32 different banks.
+__device__ __forceinline__ int pq_stage_ld(int SL) { return SL | 1; }
+
+// Stage the table entries the code rows look up, by all threads of the
+// block: vals[r · ld + j] = lut[j, code_r[j]] for the rows r < R with
+// use[r] set (every row when use is null), ld = pq_stage_ld(SL), row r's
+// codes at codes + row · SL with row = rows ? rows[r] : row0 + r. Each
+// thread issues kStageLoads code loads, then kStageLoads table loads,
+// before it stores, so the loads' latencies overlap. Callers put a
+// barrier before reading vals.
+constexpr int kStageLoads = 8;
+
+__device__ __forceinline__ void pq_stage(float* vals, const float* lut,
+                                         int Kc, const uint8_t* codes, int SL,
+                                         int R, const int* rows, int row0,
+                                         const int* use) {
+  const int total = R * SL, ld = pq_stage_ld(SL);
+  for (int base = threadIdx.x; base < total; base += kStageLoads * kThreads) {
+    int code[kStageLoads], slot[kStageLoads], dst[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int i = base + u * kThreads;
+      code[u] = -1;
+      slot[u] = 0;
+      dst[u] = 0;
+      if (i < total) {
+        const int r = i / SL, j = i - r * SL;
+        if (use == nullptr || use[r]) {
+          const int row = rows ? rows[r] : row0 + r;
+          code[u] = codes[(size_t)row * SL + j];
+          slot[u] = j;
+          dst[u] = r * ld + j;
+        }
+      }
+    }
+    float v[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u)
+      v[u] = code[u] >= 0 ? __ldg(lut + (size_t)slot[u] * Kc + code[u]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u)
+      if (code[u] >= 0) vals[dst[u]] = v[u];
+  }
 }
 
 // A compiled filter program (`filters/compile.py::FilterProgram`), leaves

@@ -15,6 +15,13 @@ from repro_torch.filters.predicates import filter_matrix
 INF = float("inf")
 
 
+def valid_mask(filt, labels_packed: np.ndarray,
+               values: np.ndarray) -> np.ndarray:
+    """[B, N] bool validity of every base item for every query filter
+    (host; callers with large B or N take it a query chunk at a time)."""
+    return filter_matrix(filt, labels_packed, values)
+
+
 def filtered_knn_exact(
     queries: np.ndarray,
     base,                      # [N, d] numpy or torch

@@ -1,9 +1,10 @@
 """Kernel parity of the PyTorch port against the JAX reference, on CPU.
 
-The plain PyTorch versions of K1 (`fused_step_plain`), K2
-(`gbdt_predict_plain`) and K6 (`sqdist_masked_plain`) take the same
-numpy-made inputs as the reference's host path / interpret-mode kernels
-and `kernels/ref.py` oracles. The CUDA kernels themselves are held
+The plain PyTorch versions of K1 (`fused_step_plain`; K3 and K4 are its
+int8 and PQ heads), K2 (`gbdt_predict_plain`) and K6
+(`sqdist_masked_plain`) take the same numpy-made inputs as the
+reference's host path / interpret-mode kernels and `kernels/ref.py`
+oracles. The CUDA kernels themselves are held
 against the plain versions by the `cuda`-marked tests (and by
 chip_smoke.py on the card). K5 has its own file,
 tests/test_torch_persistent.py.
@@ -185,6 +186,99 @@ def test_fused_step_kernel_matches_plain_on_cuda(pre):
         _assert_step_equal(got, want, exact_dist=integer)
 
 
+# ------------------------------------------------------------ K3, K4 ----
+def _quant_step_inputs(rng, precision, b, m, r, k, n=600, d=24,
+                       device="cpu"):
+    """A port quant index over grid vectors (int8: scale 1/32; PQ: trained
+    codebooks rounded to the grid 1/64, 2 levels), grid queries, and one
+    step's gathered inputs: every ADC distance exact in float32."""
+    from repro_torch.quant import codecs as P
+
+    grid = lambda a: np.round(a * 64) / 64  # noqa: E731
+    vecs = torch.from_numpy(grid(rng.normal(size=(n, d)) * 0.3)
+                            .astype(np.float32))
+    q = np.clip(grid(rng.normal(size=(b, d)) * 0.3), -127 / 64, 127 / 64)
+    if precision == "int8":
+        q[:, 0] = 127 / 64  # query step sq = 1/2048
+        scale = torch.full((d,), 1 / 32)
+        zero = torch.zeros(d)
+        codes, norms, err = P.encode_int8(scale, zero, vecs)
+        index = P.Int8Index(codes, scale, zero, norms, err)
+    else:
+        books = P.train_pq(vecs, 8, 16, 6, 0, n_levels=2)
+        books = torch.round(books * 64) / 64
+        codes, norms, err = P.encode_pq(books, vecs)
+        index = P.PQIndex(codes, books, norms, err)
+    index = type(index)(*(t.to(device) for t in index))
+    qt = torch.from_numpy(q.astype(np.float32)).to(device)
+    prep = P.prepare_query(precision, index, qt)
+    a = _inputs(rng, b, m, r, k, d, compiled=False)
+    nb = rng.integers(0, n, (b, r)).astype(np.int32)
+    nb[:, -1] = nb[:, 0]
+    t = _torch_args(a, device)
+    nbt = torch.from_numpy(nb).to(device)
+    nbl = nbt.long()
+    qg = P.QuantGather(prep=prep, codes=index.codes[nbl],
+                       norms=index.norms[nbl])
+    return (qt, None, nbt, *t[3:]), qg, index, prep
+
+
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_plain_quant_matches_reference(precision, pre):
+    """fused_step_plain under int8 (K3's plain version) and PQ (K4's) ==
+    the reference's host path, and its kernel in interpret mode at micro
+    widths; exact data, so every output equal."""
+    import jax.numpy as jnp
+    from repro.kernels.fused_step import fused_step as j_fused
+    from repro.quant.codecs import (Int8Prep, PQPrep, QuantGather)
+
+    rng = np.random.default_rng(21)
+    for b, m, r, k in ((6, 64, 16, 5), (5, 8, 4, 2)):
+        args, qg, _, prep = _quant_step_inputs(rng, precision, b, m, r, k)
+        got = [t.numpy() for t in fused_step_plain(
+            *args, pre=pre, quant=qg, precision=precision)]
+        got2 = [t.numpy() for t in fused_step(
+            *args, pre=pre, quant=qg, precision=precision)]
+        _assert_step_equal(got2, got, exact_dist=True)
+        jprep = (Int8Prep if precision == "int8" else PQPrep)(
+            *(jnp.asarray(t.numpy()) for t in prep))
+        codes = jnp.asarray(qg.codes.numpy())
+        if precision == "pq":
+            codes = codes.astype(jnp.int32)
+        jqg = QuantGather(prep=jprep, codes=codes,
+                          norms=jnp.asarray(qg.norms.numpy()))
+        ja = list(_jax_args(tuple(np.zeros(1) if t is None else (
+            t.numpy() if isinstance(t, torch.Tensor) else
+            type(t)(*(u.numpy() for u in t))) for t in args)))
+        ja[1] = None  # no float vectors under a codec
+        want = _fused_step_host()(*ja, pre=pre, quant=jqg,
+                                  precision=precision)
+        _assert_step_equal(got, want, exact_dist=True)
+        if m == 8:  # the reference kernel itself, at micro widths
+            want = j_fused(*ja, pre=pre, quant=jqg, precision=precision,
+                           interpret=True)
+            _assert_step_equal(got, want, exact_dist=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_quant_kernel_matches_plain_on_cuda(precision, pre):
+    """K3 / K4 on the card == their plain version, every output equal
+    (exact data: the int8 dot is integer, the PQ lookups are dyadic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels K3/K4 have no CPU mode)")
+    rng = np.random.default_rng(22)
+    args, qg, _, _ = _quant_step_inputs(rng, precision, 16, 128, 32, 10,
+                                        d=64, device="cuda")
+    got = [t.cpu().numpy() for t in fused_step(
+        *args, pre=pre, quant=qg, precision=precision)]
+    want = [t.cpu().numpy() for t in fused_step_plain(
+        *args, pre=pre, quant=qg, precision=precision)]
+    _assert_step_equal(got, want, exact_dist=True)
+
+
 def test_payload_pack_roundtrip():
     idx = torch.tensor([-1, 0, 5, (1 << 29) - 1], dtype=torch.int32)
     exp = torch.tensor([False, True, False, True])
@@ -202,7 +296,7 @@ def _fused_step_host():
     import jax
     from repro.kernels.fused_step import fused_step_host
 
-    return jax.jit(fused_step_host, static_argnames="pre")
+    return jax.jit(fused_step_host, static_argnames=("pre", "precision"))
 
 
 def _forest(seed, n, f, trees, depth, train=train_gbdt):
@@ -346,6 +440,83 @@ def test_persistent_kernel_matches_plain_on_cuda(greedy):
                                     steps=steps)
         want = persistent_multi_step_plain(*args, copy(state), 10 ** 6, gt,
                                            steps=steps)
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, state_to_numpy(got),
+                              state_to_numpy(want)):
+            np.testing.assert_array_equal(g, w, f"steps={steps}: {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+def test_build_quant_index_numpy_input_lands_on_the_card(precision):
+    """Numpy vectors and no `device`: the codec is trained and encoded on
+    the card, and equals the one built from the same tensors placed there
+    first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the default device is the card)")
+    from repro_torch.quant import codecs as P
+
+    rng = np.random.default_rng(13)
+    vecs = rng.normal(size=(600, 24)).astype(np.float32)
+    cfg = dict(pq_subspaces=6, pq_centroids=16, pq_iters=4)
+    got = P.build_quant_index(precision, vecs, train_sample=vecs[:300], **cfg)
+    want = P.build_quant_index(precision, torch.from_numpy(vecs).cuda(),
+                               train_sample=torch.from_numpy(vecs[:300]),
+                               device="cuda", **cfg)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.device.type == "cuda", name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+def test_persistent_kernel_codecs_match_plain_on_cuda(precision):
+    """K5's int8 and PQ branches on the card == the plain version on exact
+    data, every field (q_err_sum included): lanes stop mid-launch, ids
+    repeat, convergence fires."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K5 has no CPU mode)")
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import SearchConfig, init_state
+    from repro_torch.filters import FilterSpec
+    from repro_torch.filters.compile import compile_spec
+    from repro_torch.filters.predicates import PRED_RANGE
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    rng = np.random.default_rng(6)
+    n, r, b, m, k = 600, 16, 24, 64, 8
+    dev = "cuda"
+    _, _, index, prep = _quant_step_inputs(rng, precision, b, m, r, k, n=n,
+                                           d=64, device=dev)
+    vecs = torch.zeros((n, 64), device=dev)  # unread under a codec
+    nbrs = rng.integers(0, n, size=(n, r)).astype(np.int32)
+    nbrs[::3, 2] = nbrs[::3, 1]
+    nbrs[::7, -1] = -1
+    labels = rng.integers(0, 1 << 16, size=(n, 1)).astype(np.int32)
+    values = rng.random((n, 1)).astype(np.float32)
+    spec = FilterSpec(PRED_RANGE, None, np.full(b, 0.1, np.float32),
+                      np.full(b, 0.8, np.float32))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cfg = SearchConfig(k=k, queue_size=m, degree=r, precision=precision)
+    prog = program_to_torch(compile_spec(spec, 1), dev)
+    queries = torch.zeros((b, 64), device=dev)
+    args = (cfg, queries, prog, vecs, (t(labels), t(values)), t(nbrs),
+            t(rng.integers(30, 400, size=b).astype(np.int32)))
+    kw = dict(quant=index, qprep=prep)
+    state = init_state(cfg, queries, prog, vecs, args[4], 0, **kw)
+    state = persistent_multi_step_plain(*args, state, 10 ** 6, None, steps=3,
+                                        **kw)
+    state = state._replace(active=t(rng.random(b) < 0.9))
+    gt = persistent_multi_step_plain(
+        *args, type(state)(*(a.clone() for a in state)), 10 ** 6, None,
+        steps=4, **kw).res_dist
+    for steps in (1, 8, 40):
+        copy = lambda s: type(s)(*(a.clone() for a in s))  # noqa: E731
+        got = persistent_multi_step(*args, copy(state), 10 ** 6, gt,
+                                    steps=steps, **kw)
+        want = persistent_multi_step_plain(*args, copy(state), 10 ** 6, gt,
+                                           steps=steps, **kw)
         torch.cuda.synchronize()
         for name, g, w in zip(got._fields, state_to_numpy(got),
                               state_to_numpy(want)):

@@ -12,6 +12,10 @@ in the PyTorch port, held to the JAX reference on the CPU.
 - `e2e_search` with the persistent backend against the reference's, on a
   carried GBDT model: equal budgets, top-k ids and NDC.
 - The dense backend with `use_pallas=True` against the reference's.
+- The int8 and PQ branches: K5's plain version against the reference
+  kernel in interpret mode, and the "persistent" backend against
+  "pallas_persistent" with the dispatch counter deltas, on the exact
+  quantized data of `tests/_quant_grid.py` (every field equal).
 
 Vectors and queries sit on the grid 1/64, so every squared distance is
 exact in float32 whatever the summation order, and float leaves are
@@ -38,6 +42,8 @@ from repro_torch.core import (CostEstimator, SearchConfig, dispatch_counters,
 from repro_torch.filters import FilterSpec
 from repro_torch.kernels.persistent_step import (persistent_multi_step,
                                                  persistent_multi_step_plain)
+from repro_torch.quant.codecs import prepare_query
+from _quant_grid import grid_index, grid_queries
 
 
 def on_grid(a):
@@ -284,3 +290,110 @@ def test_e2e_persistent_matches_reference(world, e2e_world, kind):
                                np.asarray(ref.probe_features), rtol=1e-5,
                                atol=1e-5)
     assert_fields_equal(got.state, ref.state, f"e2e {kind}")
+
+
+# ------------------------------------------ K5's int8 and PQ branches ----
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+def test_persistent_plain_matches_reference_kernel_codecs(precision):
+    """persistent_multi_step_plain (and the CPU wrapper) == the reference
+    kernel in interpret mode under int8 and PQ (the reference's own case,
+    tests/test_persistent.py::test_persistent_kernel_interpret_parity, on
+    exact data): every field, q_err_sum included."""
+    from repro.core.state import init_state as j_init
+    from repro.filters import FilterSpec as JSpec
+    from repro.filters.compile import compile_spec
+    from repro.filters.predicates import PRED_RANGE
+    from repro.kernels.persistent_step import (build_persistent_operands,
+                                               persistent_multi_step as j_k5)
+    from repro.quant.codecs import prepare_query as j_prepare
+    from repro_torch.convert import qprep_to_torch, quant_to_torch
+
+    rng = np.random.default_rng(0)
+    vecs, nbrs, labels, values, queries, budgets = _micro(rng)
+    queries = grid_queries(queries, precision)
+    b, k, m, u = queries.shape[0], 4, 8, 6
+    gt = np.sort(rng.random((b, k)), axis=1).astype(np.float32) * 4
+    gt[::2] = 1e4
+    quant = grid_index(precision, vecs, pq_subspaces=4, pq_centroids=16,
+                       pq_levels=2)
+    qprep = j_prepare(precision, quant, jnp.asarray(queries))
+    spec = JSpec(PRED_RANGE, None, np.full(b, 0.2, np.float32),
+                 np.full(b, 0.9, np.float32))
+    prog_np = compile_spec(spec, 1)
+    jprog = type(prog_np)(*(jnp.asarray(a) for a in prog_np))
+    jcfg = JConfig(k=k, queue_size=m, degree=nbrs.shape[1], mode="post",
+                   precision=precision)
+    st0 = j_init(jcfg, jnp.asarray(queries), jprog, jnp.asarray(vecs),
+                 (jnp.asarray(labels), jnp.asarray(values)), 0, quant=quant,
+                 qprep=qprep)
+    rows, aux = build_persistent_operands(precision, jnp.asarray(vecs),
+                                          jnp.asarray(labels),
+                                          jnp.asarray(values), quant)
+    want = j_k5(jcfg, jnp.asarray(queries), jprog, rows, aux,
+                jnp.asarray(nbrs), jnp.asarray(budgets), st0,
+                jnp.int32(10 ** 6), jnp.asarray(gt), qprep, steps=u,
+                n_values=1, has_gt=True, interpret=True, block_b=4)
+
+    cfg = SearchConfig(k=k, queue_size=m, degree=nbrs.shape[1],
+                       precision=precision)
+    t = torch.from_numpy
+    pq, pp = quant_to_torch(quant, "cpu"), qprep_to_torch(qprep, "cpu")
+    args = (cfg, t(queries), program_to_torch(prog_np, "cpu"), t(vecs),
+            (t(labels.view(np.int32)), t(values)), t(nbrs), t(budgets))
+    leaves = [np.asarray(a) for a in st0]
+    for fn in (persistent_multi_step_plain, persistent_multi_step):
+        got = fn(*args, state_to_torch(leaves, "cpu"), 10 ** 6, t(gt),
+                 steps=u, quant=pq, qprep=pp)
+        assert_fields_equal(got, want, f"{fn.__name__} ({precision})")
+    assert (np.asarray(want.q_err_sum) > np.asarray(st0.q_err_sum)).any()
+    assert (np.asarray(want.conv_cnt) > 0).any()
+    # the port's own prep of the same queries is the reference's
+    mine = prepare_query(precision, pq, t(queries))
+    for g, w in zip(mine, qprep):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.fixture(scope="module")
+def quant_world(world):
+    """Reference and port engines per codec over the world's grid data,
+    sharing one exact quant index."""
+    ds, jeng, _, _, _ = world
+    graph_nb, ep = np.array(jeng.neighbors), jeng.entry_point
+    out = {}
+    for precision in ("int8", "pq"):
+        jq = dataclasses.replace(jeng, precision=precision,
+                                 quant=grid_index(precision, ds.vectors))
+        eng = engine_from_arrays(ds.vectors, ds.labels_packed,
+                                 ds.value_matrix, graph_nb, ep, device="cpu",
+                                 precision=precision, quant=jq.quant)
+        wl = make_label_workload(ds, batch=13, kind="contain", seed=3)
+        wl.queries = grid_queries(wl.queries, precision)
+        out[precision] = (jq, eng, wl)
+    return out
+
+
+@pytest.mark.parametrize("spl", [1, 8])
+@pytest.mark.parametrize("precision", ["int8", "pq"])
+def test_persistent_codecs_match_reference(world, quant_world, precision,
+                                           spl):
+    """"persistent" == "pallas_persistent" under int8 and PQ, probe and
+    resume: every field and the dispatch counter deltas."""
+    jeng, eng, wl = quant_world[precision]
+    budgets = world[4]
+    jcfg = JConfig(k=5, queue_size=32, backend="pallas_persistent",
+                   steps_per_launch=spl)
+    cfg = SearchConfig(k=5, queue_size=32, backend="persistent",
+                       steps_per_launch=spl)
+    ref, got = None, None
+    for bud in (budgets // 4, budgets):
+        j0, p0 = j_dispatch_counters(), dispatch_counters()
+        ref = jeng.search(jcfg, wl.queries, wl.spec, bud, state=ref)
+        got = eng.search(cfg, wl.queries, pspec(wl.spec), bud, state=got)
+        jd = {key: v - j0[key] for key, v in j_dispatch_counters().items()}
+        pd = {key: v - p0[key] for key, v in dispatch_counters().items()}
+        assert_fields_equal(got, ref, f"{precision} spl={spl} budget")
+        assert pd == jd and pd["launches"] > 0, (pd, jd)
+    assert pd["compactions"] > 0
+    fused = eng.search(dataclasses.replace(cfg, backend="fused"),
+                       wl.queries, pspec(wl.spec), budgets)
+    assert_fields_equal(got, state_to_numpy(fused), "persistent vs fused")
