@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # Tripclick scale: N=1,000,000, d=768
     python3 chip_smoke.py --n 100000 --train-queries 128   # ~1 min smoke
 
-Phases, each printed as one JSON line:
+Phases, each printed as one JSON line with its wall seconds:
   1. the card (and the raw `nvidia-smi` name/power-limit line);
   2. the kernel build (`nvcc`, one process per source, in parallel);
   3. K1 (fused traversal step) and its int8 and PQ heads K3 and K4
@@ -12,42 +12,63 @@ Phases, each printed as one JSON line:
      post and pre mode: exact-arithmetic inputs with injected ties and
      duplicate ids (everything must be equal), and float inputs (K1:
      distances within rtol 1e-5; K3: everything equal; K4: distances
-     within rtol 1e-5 plus the bound on the lookup sums' rounding);
+     within rtol 1e-5 plus the bound on the lookup sums' rounding); K1
+     again at R'=160, the widened frontier of pre/widen mode
+     (`k1_wide_check`, the same tolerances);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
   5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
      d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones;
-  6. K5 (persistent multi-step) against `persistent_multi_step_plain`
+     K6's row-id variant (the scan's and the oracle's distance) over an
+     N=1M store at V ∈ {4096, 65536} against its plain per-lane version,
+     and bit for bit against itself alone, padded and gathered
+     (`k6_scan_check`);
+  6. K7 (sorted-buffer merge) against `topm_merge_plain`, bit for bit,
+     ties, R=1 and M=500 included, with the library call pair's time
+     (`k7_check`);
+  7. K5 (persistent multi-step) against `persistent_multi_step_plain`
      over an N=1M synthetic index, 8 steps a launch, with lanes stopping
      mid-launch, lanes already stopped, repeated ids and convergence:
      every field equal on exact-arithmetic inputs; on float inputs each
      step replayed alone agrees up to near-tie moves, which must explain
      every lane whose 8-step trajectory differs; K5's int8 and PQ
      branches after one 8-step launch: every field equal;
-  7. dataset, graph build, ground truth and estimator training, with the
-     share of training lanes whose exhaustive traversal reaches recall
-     10/10 beside the share whose W_q label converged;
-  8. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
+  8. dataset, graph build, ground truth (the exact oracle on K6's row-id
+     variant) and estimator training, with the share of training lanes
+     whose exhaustive traversal reaches recall 10/10 beside the share
+     whose W_q label converged;
+  9. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
      contain-label and a range workload of 64 lanes each: recall@10, mean
      NDC, e2e ms (median of 3 calls), per-stage ms (a separate stage-by-
      stage run); the same runs with backend "dense" (plain PyTorch):
      recall within 0.01 and ≥ 95% of lanes with identical top-10 ids and
      NDC;
-  9. the same four cells with backend "persistent" (K5): every
+ 10. the same four cells with backend "persistent" (K5): every
      SearchState field equal to the fused run's, with e2e ms and the
      launch loop's launches, compactions and steps per batch; and contain α=1
      with backend "dense" + `use_pallas` (K6): top-10 ids and NDC of all
      lanes equal to fused's. Each path runs with every kernel count set
      to 0 just before it, and each of its kernels must launch;
- 10. a `profile` line per backend (fused, persistent) for one batch:
+ 11. a `profile` line per backend (fused, persistent) for one batch:
      device busy ms, idle share, kernel launches per lockstep step;
- 11. per codec (int8, PQ): the quantized engine's build (seconds,
+ 12. the planner path on composite And/Or/Not workloads: `plan_training`
+     (256 "mixed" queries: oracle, probe and the two exhaustion resumes'
+     seconds, converged shares, fit seconds); `plan_forced` (each plan
+     forced equals `run_plan` in every field, the scan equals the oracle
+     bit for bit with recall 1.0, widen on persistent equals widen on
+     fused); `plan_e2e` on an "and" and a "mixed" batch (plan mix, recall,
+     NDC, e2e ms for fused and persistent, which must agree in every
+     field; fused and dense widen, and on "and" fused and dense pre, give
+     identical top-10 and NDC on ≥ 95% of lanes); a `profile` line for one
+     planned batch;
+ 13. per codec (int8, PQ): the quantized engine's build (seconds,
      `index_nbytes`, `store_ratio`), training labels with the compressed
      target, the estimator, and `e2e_search` with the terminal rerank on
      contain and range at α=1 with backends fused (K3 / K4), persistent
      (K5's codec branch; every SearchState field equal to fused's, bit
      for bit) and dense (≥ 95% of lanes identical to fused, recall
      within 0.01), and a `profile` line for the persistent batch;
- 12. the `kernels` line (launches, ms, bound, plain ms per kernel).
+ 14. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7
+     and K6's row-id variant).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -75,7 +96,16 @@ REPEATS = 3                 # timed calls per e2e cell; the median is kept
 PROFILE_ATTEMPTS = 3        # profiles taken before "no device time" fails
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print one JSON line. A phase line without its own `seconds` gets
+    the wall seconds since the previous line: the work of that phase."""
+    now = time.perf_counter()
+    if "phase" in obj and "seconds" not in obj:
+        obj = {**obj, "seconds": now - _LAST_EMIT[0]}
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -308,19 +338,20 @@ def pq_sum_atol(quant) -> np.ndarray:
     return (4 * gamma * abs_sum.amax(dim=1, keepdim=True)).cpu().numpy()
 
 
-def check_step_kernel(device, precision="float32"):
+def check_step_kernel(device, precision="float32", r=32):
     """K1 (float32), K3 (int8) or K4 (pq) against `fused_step_plain` at
-    B=64, R=32, d=768, M=512, K=10, post and pre mode: exact inputs (every
+    B=64, R=r, d=768, M=512, K=10, post and pre mode: exact inputs (every
     output equal) and float inputs. On float inputs K3 must be equal too
     (an exact integer dot, the same tail); K1's distances must lie within
     rtol 1e-5 and K4's within rtol 1e-5 plus the lookup sums' rounding
     bound (`pq_sum_atol`), payloads moving only between entries that
-    close."""
+    close. R=32 is the 1-hop frontier; K1 also runs at R'=160, the widened
+    frontier of pre and widen mode (32 + 32·32/8 at two_hop_stride 8)."""
     import torch
 
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
 
-    b, r, d, m, k, w, v = 64, 32, 768, 512, 10, 2, 2
+    b, d, m, k, w, v = 64, 768, 512, 10, 2, 2
     kid = HEADS[precision]
     rng = np.random.default_rng({"float32": 0, "int8": 3, "pq": 4}[precision])
     names = ("cand_dist", "cand_pay", "res_dist", "res_idx", "valid",
@@ -418,7 +449,8 @@ def check_step_kernel(device, precision="float32"):
         out_pq = {"float_case_max_err_over_rounding_bound": err_over_atol}
     else:
         out_pq = {}
-    emit({"phase": f"{kid.lower()}_check", "ok": True, "precision": precision,
+    phase = f"{kid.lower()}_check" if r == 32 else f"{kid.lower()}_wide_check"
+    emit({"phase": phase, "ok": True, "precision": precision,
           "shapes": shapes, "modes": ["post", "pre"],
           "float_case_bitwise": bitwise, **out_pq,
           "float_case_payload_moves_at_near_ties": n_near, "bytes": nbytes,
@@ -513,6 +545,159 @@ def check_k6(device):
     emit({"phase": "k6_check", "ok": True,
           "shapes": dict(B=b, R=r, d=d, unmasked_rows=rows), **out})
     return out
+
+
+# ---------------------------------------------------------------- K7 ----
+def merge_inputs(rng, b, m, r, ties: bool, device):
+    """K7's inputs: sorted [b, m] buffers whose last quarter is +inf
+    (payload -1) and raw [b, r] entries. ties=True draws distances on the
+    grid 1/8 in [0, 3), so equal keys fall within the new entries, within
+    the old ones and across the two."""
+    import torch
+
+    draw = ((lambda shape: rng.integers(0, 24, shape) / 8) if ties
+            else (lambda shape: rng.random(shape) * 3))
+    dist = np.sort(draw((b, m)).astype(np.float32), axis=1)
+    dist[:, 3 * m // 4:] = np.inf
+    pay = rng.integers(0, 1 << 29, (b, m)).astype(np.int32)
+    pay[np.isinf(dist)] = -1
+    nd = draw((b, r)).astype(np.float32)
+    npay = rng.integers(0, 1 << 29, (b, r)).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (dist, pay, nd, npay)]
+
+
+def library_merge(cat_d, cat_p, m):
+    """One PyTorch call pair computing K7's function on the concatenation
+    [old | new]: a stable sort, then a gather of the payloads."""
+    import torch
+
+    sd, order = torch.sort(cat_d, dim=1, stable=True)
+    return sd[:, :m], torch.gather(cat_p, 1, order[:, :m])
+
+
+def check_k7(device):
+    """K7 (merge by rank) against `topm_merge_plain`, bit for bit, at
+    B=64, M=512, R=32 on sorted buffers with +inf tails: forced ties
+    within and across the runs, R=1, an M that is not a power of two, and
+    float distances; the library call pair must give the same order."""
+    import torch
+
+    from repro_torch.kernels.topk import topm_merge, topm_merge_plain
+
+    b, m, r = EVAL_LANES, 512, 32
+    rng = np.random.default_rng(8)
+    cases = [(m, r, True), (m, 1, True), (500, r, True), (m, r, False)]
+    for cm, cr, ties in cases:
+        args = merge_inputs(rng, b, cm, cr, ties, device)
+        gd, gp = topm_merge(*args)
+        wd, wp = topm_merge_plain(*args)
+        ld, lp = library_merge(torch.cat(args[0::2], 1),
+                               torch.cat(args[1::2], 1), cm)
+        torch.cuda.synchronize()
+        require(torch.equal(gd, wd) and torch.equal(gp, wp),
+                f"K7 differs from its plain version (M={cm}, R={cr}, "
+                f"ties={ties})")
+        require(torch.equal(ld, wd) and torch.equal(lp, wp),
+                f"K7's library call pair differs (M={cm}, R={cr})")
+    args = merge_inputs(rng, b, m, r, True, device)
+    cat_d, cat_p = torch.cat(args[0::2], 1), torch.cat(args[1::2], 1)
+    out = dict(
+        max_abs_err=0.0, ms=device_ms(lambda: topm_merge(*args)),
+        plain_ms=device_ms(lambda: topm_merge_plain(*args)),
+        call_ms=time_cuda(lambda: topm_merge(*args)),
+        plain_call_ms=time_cuda(lambda: topm_merge_plain(*args)),
+        library_ms=device_ms(lambda: library_merge(cat_d, cat_p, m)))
+    nbytes = b * (m + r) * 8 + b * m * 8  # read both runs, write best M
+    out.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    emit({"phase": "k7_check", "ok": True, "shapes": dict(B=b, M=m, R=r),
+          "cases": [dict(M=cm, R=cr, ties=t) for cm, cr, t in cases],
+          "bitwise": True, "bytes": nbytes,
+          "library": "torch.sort(stable=True) over [B, M+R] + gather", **out})
+    return out
+
+
+# ---------------------------------------------------------- K6 row ids ----
+ORACLE_BLOCK = 1 << 18  # filtered_knn_exact's n_block: its rows per call
+
+
+def check_k6_scan(device):
+    """K6's row-id variant (the scan's and the oracle's distance) over an
+    N=1M, d=768 store: against its plain per-lane version (equal on grid
+    data, rtol 1e-5 on float data), and bit for bit against itself with
+    one lane alone, with 64·j padded rows, and against the gathered K6 on
+    the same rows. Layouts: the scan's (sorted ids, a masked tail) at
+    V ∈ {4096, 65536}, and the oracle's (one block of consecutive ids in
+    every lane, masked by validity) at its block width V = 2^18."""
+    import torch
+
+    from repro_torch.kernels.distance import (SCAN_ALIGN, sqdist_masked,
+                                              sqdist_rows, sqdist_rows_plain)
+
+    n, d, b = K5_N, DIM, EVAL_LANES
+    g = torch.Generator(device=device).manual_seed(9)
+    max_err, checked = 0.0, []
+    for exact in (True, False):
+        if exact:  # grid 1/8 in [-2, 2]: every distance exact in float32
+            base = torch.randint(-16, 17, (n, d), generator=g, device=device,
+                                 dtype=torch.int32).to(torch.float32) / 8
+            q = torch.randint(-16, 17, (b, d), generator=g, device=device,
+                              dtype=torch.int32).to(torch.float32) / 8
+        else:
+            base = torch.randn((n, d), generator=g, device=device)
+            q = torch.randn((b, d), generator=g, device=device)
+        for v, layout in ((4096, "scan"), (65536, "scan"),
+                          (ORACLE_BLOCK, "oracle")):
+            if layout == "scan":
+                ids = torch.sort(torch.randint(0, n, (b, v), generator=g,
+                                               device=device), dim=1)[0]
+                counts = torch.randint(v // 2, v + 1, (b, 1), generator=g,
+                                       device=device)
+                mask = torch.arange(v, device=device)[None, :] < counts
+            else:  # the oracle's third block: rows 2^19 .. 2^19 + 2^18
+                ids = torch.arange(2 * v, 3 * v, device=device)[None]
+                ids = ids.expand(b, v)
+                sel = torch.rand((b, 1), generator=g, device=device) * 0.3
+                mask = torch.rand((b, v), generator=g, device=device) < sel
+            ids = ids.to(torch.int32).contiguous()
+            got = sqdist_rows(q, base, ids, mask)
+            want = sqdist_rows_plain(q, base, ids, mask)
+            pad = 3 * SCAN_ALIGN
+            wide = sqdist_rows(q, base,
+                               torch.nn.functional.pad(ids, (0, pad)),
+                               torch.nn.functional.pad(mask, (0, pad)))
+            lanes = (0, b // 3, b - 1)
+            ones = [sqdist_rows(q[i:i + 1], base, ids[i:i + 1],
+                                mask[i:i + 1]) for i in lanes]
+            gl = b * 4096 // v  # gathered rows: 0.8 GB in every case
+            gathered = sqdist_masked(q[:gl], base[ids[:gl].long()],
+                                     mask[:gl])
+            torch.cuda.synchronize()
+            require(torch.equal(torch.isinf(got), ~mask),
+                    "K6 rows: +inf pattern is not the mask's complement")
+            err = float((got[mask] - want[mask]).abs().max())
+            max_err = max(max_err, err)
+            if exact:
+                require(torch.equal(got, want),
+                        f"K6 rows: exact distances differ at V={v}")
+            else:
+                require(torch.allclose(got[mask], want[mask], rtol=1e-5,
+                                       atol=0.0),
+                        f"K6 rows: beyond rtol 1e-5 at V={v} ({err})")
+            require(torch.equal(wide[:, :v], got),
+                    f"K6 rows: padded width changed a value at V={v}")
+            require(all(torch.equal(o[0], got[i]) for o, i in zip(ones,
+                                                                  lanes)),
+                    f"K6 rows: a lane alone differs from the batch at V={v}")
+            require(torch.equal(gathered, got[:gl]),
+                    f"K6 rows: differs from the gathered K6 at V={v}")
+            checked.append(dict(V=v, layout=layout, exact=exact,
+                                max_abs_err=err))
+        del base
+        torch.cuda.empty_cache()
+    emit({"phase": "k6_scan_check", "ok": True,
+          "shapes": dict(B=b, N=n, d=d), "cases": checked,
+          "max_abs_err": max_err, "lane_invariant": True,
+          "width_invariant": True, "equals_gathered_k6": True})
 
 
 # ---------------------------------------------------------------- K5 ----
@@ -834,16 +1019,19 @@ def check_k5_codec(device, precision):
 # ---------------------------------------------------------- main path ----
 COUNTED = ("fused_step", "fused_step_int8", "fused_step_pq", "gbdt_predict",
            "persistent_multi_step", "persistent_multi_step_int8",
-           "persistent_multi_step_pq", "sqdist_masked")
+           "persistent_multi_step_pq", "sqdist_masked", "sqdist_rows",
+           "topm_merge")
 
 
 def _wrappers():
-    from repro_torch.kernels.distance import sqdist_masked
+    from repro_torch.kernels.distance import sqdist_masked, sqdist_rows
     from repro_torch.kernels.fused_step import fused_step
     from repro_torch.kernels.gbdt import gbdt_predict
     from repro_torch.kernels.persistent_step import persistent_multi_step
+    from repro_torch.kernels.topk import topm_merge
 
-    return fused_step, gbdt_predict, persistent_multi_step, sqdist_masked
+    return (fused_step, gbdt_predict, persistent_multi_step, sqdist_masked,
+            sqdist_rows, topm_merge)
 
 
 def reset_counts() -> None:
@@ -858,9 +1046,10 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches per kernel since the last reset: K1, K3, K4 (the heads of
-    fused_step), K2, K5's three branches, K6."""
-    fused, gbdt, pers, sqd = _wrappers()
-    out = {"gbdt_predict": gbdt.launches, "sqdist_masked": sqd.launches}
+    fused_step), K2, K5's three branches, K6 and its row-id variant, K7."""
+    fused, gbdt, pers, sqd, rows, merge = _wrappers()
+    out = {"gbdt_predict": gbdt.launches, "sqdist_masked": sqd.launches,
+           "sqdist_rows": rows.launches, "topm_merge": merge.launches}
     for fn in (fused, pers):
         for prec, n in fn.launches.items():
             name = fn.__name__ + ("" if prec == "float32" else f"_{prec}")
@@ -1087,11 +1276,309 @@ def run_pipeline(args, device):
                 "gbdt_predict": fused_counts["gbdt_predict"],
                 "persistent_multi_step": pers_counts["persistent_multi_step"],
                 "sqdist_masked": k6_counts["sqdist_masked"]}
+    plan_launches, k6r = run_planner(ds, eng, probe, device)
+    launches.update(plan_launches)
     del eng
     torch.cuda.empty_cache()
     launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
                               device))
-    return launches
+    return launches, k6r
+
+
+# ------------------------------------------------------------ planner ----
+PLAN_TRAIN = 256    # "mixed" planner training queries, 4 chunks of 64
+PLAN_CHUNK = 64
+
+
+def plan_cfg(backend: str, **kw):
+    from repro_torch.core import SearchConfig
+
+    return SearchConfig(k=10, queue_size=512, two_hop_stride=8,
+                        backend=backend, **kw)
+
+
+def fields_differ(a, b) -> list:
+    import torch
+
+    return [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+
+
+def same_lanes(a, b) -> float:
+    """Share of lanes with equal top-10 ids and NDC."""
+    return float(((a.res_idx == b.res_idx).all(dim=1)
+                  & (a.cnt == b.cnt)).float().mean())
+
+
+def time_scan_kernel(eng, wl, stats):
+    """K6's row-id variant on this batch's scan inputs (the planner's scan
+    shape): held against its plain version on them (+inf exactly where
+    masked, values within rtol 1e-5; the max abs error and whether they are
+    bitwise equal), device and call ms, the plain version's, and the bound
+    — each distinct passing row of the store read once (lanes share rows)
+    plus ids, mask, query and output, or 4·d flops per (lane, passing row)
+    pair, whichever is larger."""
+    import torch
+
+    from repro_torch.core.plans import scan_rows
+    from repro_torch.kernels.distance import sqdist_rows, sqdist_rows_plain
+
+    idx, mask = scan_rows(stats)
+    q = torch.from_numpy(wl.queries).to(eng.device)
+    base = eng.base_vectors
+    b, v = idx.shape
+    d = base.shape[1]
+    rows = int(mask.sum())
+    distinct = int(torch.unique(idx[mask]).numel())
+    got = sqdist_rows(q, base, idx, mask)
+    want = sqdist_rows_plain(q, base, idx, mask)
+    require(torch.equal(torch.isinf(got), ~mask)
+            and torch.equal(torch.isinf(want), ~mask),
+            "K6 rows (planner scan): +inf pattern is not the mask's "
+            "complement")
+    err = float((got[mask] - want[mask]).abs().max())
+    require(torch.allclose(got[mask], want[mask], rtol=1e-5, atol=0.0),
+            f"K6 rows (planner scan): beyond rtol 1e-5 (max abs err {err})")
+    bitwise = torch.equal(got, want)
+    del got, want
+    nbytes = 4 * b * d + 9 * b * v + 4 * distinct * d  # ids, mask, out
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * rows * d / FP32_FLOP_PER_S
+    out = dict(max_abs_err=err, bitwise_equal_plain=bitwise,
+               ms=device_ms(lambda: sqdist_rows(q, base, idx, mask), iters=5),
+               plain_ms=device_ms(lambda: sqdist_rows_plain(q, base, idx,
+                                                            mask), iters=2),
+               call_ms=time_cuda(lambda: sqdist_rows(q, base, idx, mask),
+                                 iters=5, warmup=1),
+               plain_call_ms=time_cuda(lambda: sqdist_rows_plain(
+                   q, base, idx, mask), iters=2, warmup=1),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out, dict(B=b, V=v, d=d, passing_rows=rows,
+                     distinct_rows=distinct, bytes=nbytes)
+
+
+def run_planner(ds, eng, probe, device):
+    """The planning path on the float32 engine: composite workloads, the
+    planner's training (oracle on K6's row-id variant, a shared probe and
+    two exhaustion resumes, persistent backend), forced plans against
+    run_plan, and planned_search end to end on an "and" and a "mixed"
+    batch with the fused and persistent backends. Returns the launch
+    counts of the planner path and the row-id kernel's measurements."""
+    import torch
+
+    from repro_torch.core import (PLANS, fit_planner,
+                                  generate_plan_training_data, planned_search,
+                                  run_plan, scan_stats)
+    from repro_torch.core.planner import PLAN_SCAN, PLAN_WIDEN
+    from repro_torch.data.synthetic import make_composite_workload
+    from repro_torch.index.bruteforce import filtered_knn_exact, recall_at_k
+
+    t = time.perf_counter()
+    wl_train = make_composite_workload(ds, batch=PLAN_TRAIN,
+                                       structure="mixed", seed=10)
+    evals = {"and": make_composite_workload(ds, batch=EVAL_LANES,
+                                            structure="and", seed=21),
+             "mixed": make_composite_workload(ds, batch=EVAL_LANES,
+                                              structure="mixed", seed=22)}
+    emit({"phase": "plan_workloads", "seconds": time.perf_counter() - t,
+          "train_queries": PLAN_TRAIN,
+          "sigma": {name: {"min": float(wl.sigma_global.min()),
+                           "median": float(np.median(wl.sigma_global)),
+                           "max": float(wl.sigma_global.max())}
+                    for name, wl in evals.items()}})
+    t = time.perf_counter()
+    gts = {name: filtered_knn_exact(wl.queries, eng.base_vectors, wl.exprs,
+                                    ds.labels_packed, ds.value_matrix, 10,
+                                    device=device)
+           for name, wl in evals.items()}
+    emit({"phase": "plan_ground_truth", "seconds": time.perf_counter() - t,
+          "queries": 2 * EVAL_LANES})
+
+    # ---- training: one probe, two exhaustion resumes per query ----
+    secs = {}
+    t = time.perf_counter()
+    data = generate_plan_training_data(
+        eng, ds, wl_train, plan_cfg("persistent"), probe_budget=probe,
+        chunk=PLAN_CHUNK, n_probes=2, seconds=secs)
+    label_s = time.perf_counter() - t
+    t = time.perf_counter()
+    planner = fit_planner(data, probe_budget=probe)
+    emit({"phase": "plan_training", "label_seconds": label_s,
+          "stage_seconds": secs, "fit_seconds": time.perf_counter() - t,
+          "queries": int(data.w_traverse.shape[0]),
+          "converged_t": float(data.converged_t.mean()),
+          "converged_w": float(data.converged_w.mean()),
+          "w_traverse_median": float(np.median(data.w_traverse)),
+          "w_widen_median": float(np.median(data.w_widen)),
+          "sigma_median": float(np.median(data.sigma))})
+
+    # ---- forced plans ("mixed" batch): planned_search ≡ run_plan ----
+    wl = evals["mixed"]
+    gi, gd = gts["mixed"]
+    kw = dict(probe_budget=probe, n_probes=2)
+    reset_counts()
+    forced = {}
+    for p in PLANS:
+        f = planned_search(eng, planner, plan_cfg("fused"), wl.queries,
+                           wl.exprs, force_plan=p, **kw)
+        direct = run_plan(eng, planner, p, plan_cfg("fused"), wl.queries,
+                          wl.exprs, **kw)
+        differ = fields_differ(f.state, direct)
+        require(not differ, f"planned_search(force_plan={p!r}) differs "
+                f"from run_plan in {differ}")
+        forced[p] = f.state
+    forced_counts = read_counts()
+    need = ("sqdist_rows", "fused_step", "gbdt_predict")
+    require(all(forced_counts[n] > 0 for n in need),
+            f"forced plans: a kernel of the path was never launched: "
+            f"{forced_counts}")
+    # widen on the persistent backend: the probe is post mode (K5), the
+    # widen resume steps K1 at R'=160, so K1's count is its wide launches
+    reset_counts()
+    widen_p = run_plan(eng, planner, "widen", plan_cfg("persistent"),
+                       wl.queries, wl.exprs, **kw)
+    widen_counts = read_counts()
+    differ = fields_differ(widen_p, forced["widen"])
+    require(not differ, f"widen on persistent differs from fused: {differ}")
+    need = ("persistent_multi_step", "fused_step", "gbdt_predict")
+    require(all(widen_counts[n] > 0 for n in need),
+            f"widen on persistent: a kernel of the path was never launched: "
+            f"{widen_counts}")
+    scan = forced["scan"]
+    s_idx, s_dist = scan.res_idx.cpu().numpy(), scan.res_dist.cpu().numpy()
+    require(np.array_equal(s_idx, gi)
+            and np.array_equal(s_dist.view(np.uint32), gd.view(np.uint32)),
+            "the float32 scan differs from filtered_knn_exact")
+    scan_rec = float(recall_at_k(s_idx, gi).mean())
+    require(scan_rec == 1.0, f"scan recall {scan_rec}")
+    stats = scan_stats(eng, eng.compile(wl.exprs))
+    k6r, k6r_shape = time_scan_kernel(eng, wl, stats)
+    emit({"phase": "plan_forced", "workload": "mixed", "batch": EVAL_LANES,
+          "forced_equals_run_plan": {p: True for p in PLANS},
+          "widen_persistent_equals_fused": True,
+          "scan_equals_oracle_bitwise": True, "scan_recall@10": scan_rec,
+          "recall@10": {p: float(recall_at_k(st.res_idx.cpu().numpy(),
+                                             gi).mean())
+                        for p, st in forced.items()},
+          "mean_ndc": {p: float(st.cnt.float().mean())
+                       for p, st in forced.items()},
+          "launches": {"forced_fused": forced_counts,
+                       "widen_persistent": widen_counts},
+          "k6_rows": {**k6r_shape, **k6r}})
+
+    # ---- planned_search end to end ----
+    plan_counts, e2e_rows = {}, []
+    for name, wl in evals.items():
+        gi = gts[name][0]
+        res, ms = {}, {}
+        for backend in ("fused", "persistent"):
+            reset_counts()
+            res[backend], first = wall_ms(lambda: planned_search(
+                eng, planner, plan_cfg(backend), wl.queries, wl.exprs, **kw))
+            plan_counts[(name, backend)] = read_counts()
+            ms[backend] = float(np.median([first, *(
+                wall_ms(lambda: planned_search(
+                    eng, planner, plan_cfg(backend), wl.queries, wl.exprs,
+                    **kw))[1] for _ in range(REPEATS - 1))]))
+        fr, pr = res["fused"], res["persistent"]
+        differ = fields_differ(pr.state, fr.state)
+        require(not differ, f"planned {name}: persistent differs from fused "
+                f"in {differ}")
+        require(np.array_equal(pr.plan, fr.plan), f"planned {name}: plans "
+                "differ between backends")
+        scanned = bool((fr.plan == PLAN_SCAN).any())
+        widened = bool((fr.plan == PLAN_WIDEN).any())
+        for backend, need in (("fused", ("fused_step", "gbdt_predict")),
+                              ("persistent", ("persistent_multi_step",
+                                              "gbdt_predict"))):
+            need = need + (("sqdist_rows",) if scanned else ()) + (
+                ("fused_step",) if widened else ())
+            c = plan_counts[(name, backend)]
+            require(all(c[n] > 0 for n in need),
+                    f"planned {name} {backend}: a kernel of the path was "
+                    f"never launched: {c}")
+        # widen and pre traversal: fused (K1 at R'=160) against dense
+        wf = run_plan(eng, planner, "widen", plan_cfg("fused"), wl.queries,
+                      wl.exprs, **kw)
+        wd = run_plan(eng, planner, "widen", plan_cfg("dense"), wl.queries,
+                      wl.exprs, **kw)
+        widen_same = same_lanes(wf, wd)
+        require(widen_same >= 0.95, f"widen {name}: only {widen_same} of "
+                "lanes identical between fused and dense")
+        row = {"phase": "plan_e2e", "workload": name, "batch": EVAL_LANES,
+               "plan_share": {p: float((fr.plan == i).mean())
+                              for i, p in enumerate(PLANS)},
+               "stage0_share": float(fr.pre_probe.mean()),
+               "recall@10": float(recall_at_k(fr.state.res_idx.cpu().numpy(),
+                                              gi).mean()),
+               "mean_ndc": float(fr.state.cnt.float().mean()),
+               "e2e_ms": ms, "persistent_fields_equal_fused": True,
+               "widen_fused_vs_dense_identical_frac": widen_same,
+               "widen_recall@10": float(recall_at_k(
+                   wf.res_idx.cpu().numpy(), gi).mean()),
+               "launches": {b: plan_counts[(name, b)]
+                            for b in ("fused", "persistent")}}
+        if name == "and":
+            pf = run_plan(eng, planner, "traverse", plan_cfg("fused",
+                                                             mode="pre"),
+                          wl.queries, wl.exprs, **kw)
+            pd = run_plan(eng, planner, "traverse", plan_cfg("dense",
+                                                             mode="pre"),
+                          wl.queries, wl.exprs, **kw)
+            pre_same = same_lanes(pf, pd)
+            require(pre_same >= 0.95, f"pre {name}: only {pre_same} of "
+                    "lanes identical between fused and dense")
+            row.update(pre_fused_vs_dense_identical_frac=pre_same,
+                       pre_recall=float(recall_at_k(
+                           pf.res_idx.cpu().numpy(), gi).mean()),
+                       pre_mean_ndc=float(pf.cnt.float().mean()))
+        emit(row)
+        e2e_rows.append(row)
+    profile_planned(eng, planner, evals["mixed"], probe,
+                    e2e_rows[-1]["e2e_ms"]["persistent"])
+    main_counts = plan_counts[("mixed", "fused")]
+    return ({"fused_step_wide": widen_counts["fused_step"],
+             "sqdist_rows": main_counts["sqdist_rows"],
+             "topm_merge": main_counts["topm_merge"]}, k6r)
+
+
+def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
+    """Where one planned_search batch (persistent backend) spends its
+    time: device-busy ms, idle share against the unprofiled median, kernel
+    launches per lockstep step, top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dispatch_counters, planned_search
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        d0 = dispatch_counters()
+        t = time.perf_counter()
+        res = planned_search(eng, planner, plan_cfg("persistent"),
+                             wl.queries, wl.exprs, probe_budget=probe)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        d1 = dispatch_counters()
+    evs = _kernel_events(prof)
+    busy = sum(us for _, us in evs) / 1e3
+    launches = sum(e.count for e, _ in evs)
+    steps = d1["steps"] - d0["steps"]
+    top = sorted(evs, key=lambda x: x[1], reverse=True)[:10]
+    emit({"phase": "profile", "path": "planned_search",
+          "backend": "persistent", "workload": "mixed",
+          "wall_ms_profiled": wall, "wall_ms": wall_unprofiled_ms,
+          "plan_share": {p: float((res.plan == i).mean())
+                         for i, p in enumerate(("scan", "traverse",
+                                                "widen"))},
+          "device_busy_ms": busy if evs else "not measured",
+          "device_idle_share": ((1.0 - busy / wall_unprofiled_ms) if evs
+                                else "not measured"),
+          "kernel_launches": launches, "lockstep_steps": steps,
+          "kernel_launches_per_step": launches / max(steps, 1),
+          "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                           "device_ms": us / 1e3} for e, us in top]})
 
 
 def run_quant(ds, graph, wl_train, evals, gts, probe, device):
@@ -1404,28 +1891,39 @@ def main(argv=None) -> int:
     k1 = check_step_kernel(device)
     k3 = check_step_kernel(device, "int8")
     k4 = check_step_kernel(device, "pq")
+    k1w = check_step_kernel(device, r=160)
     k2 = check_k2(device)
     k6 = check_k6(device)
+    check_k6_scan(device)
+    k7 = check_k7(device)
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
-    launches = run_pipeline(args, device)
+    launches, k6r = run_pipeline(args, device)
 
     def entry(name, source, replaces, chk, launches_of, why):
-        return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{source}",
-                "replaces": f"src/repro/kernels/{replaces}",
-                "launches": launches[launches_of],
-                "max_abs_err": chk["max_abs_err"], "ms": chk["ms"],
-                "plain_ms": chk["plain_ms"], "bound_ms": chk["bound_ms"],
-                "bound_by": chk["bound_by"], "library_ms": None,
-                "library_none_because": why, "call_ms": chk["call_ms"],
-                "plain_call_ms": chk["plain_call_ms"]}
+        out = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{source}",
+               "replaces": f"src/repro/kernels/{replaces}",
+               "launches": launches[launches_of],
+               "max_abs_err": chk["max_abs_err"], "ms": chk["ms"],
+               "plain_ms": chk["plain_ms"], "bound_ms": chk["bound_ms"],
+               "bound_by": chk["bound_by"],
+               "library_ms": chk.get("library_ms"),
+               "call_ms": chk["call_ms"],
+               "plain_call_ms": chk["plain_call_ms"]}
+        if why:
+            out["library_none_because"] = why
+        else:
+            out["library"] = "torch.sort(stable=True) + torch.gather"
+        return out
 
     step_why = "no single PyTorch call runs a traversal step"
     steps_why = "no single PyTorch call runs traversal steps"
     emit({"kernels": [
         entry("fused_step", "fused_step.cu", "fused_step.py:182", k1,
               "fused_step", step_why),
+        entry("fused_step (R'=160, pre/widen)", "fused_step.cu",
+              "fused_step.py:182", k1w, "fused_step_wide", step_why),
         entry("gbdt_predict", "gbdt.cu", "gbdt.py:22", k2, "gbdt_predict",
               "no single PyTorch call walks a tree ensemble"),
         entry("fused_step_int8", "fused_step.cu", "fused_step.py:209", k3,
@@ -1445,6 +1943,13 @@ def main(argv=None) -> int:
               "sqdist_masked", "no single PyTorch call computes a masked "
               "batched squared L2 (torch.cdist gives unsquared, unmasked "
               "distances)"),
+        entry("sqdist_rows (K6 row ids: scan, oracle)", "sqdist.cu",
+              "distance.py:76", k6r, "sqdist_rows",
+              "no single PyTorch call computes masked squared L2 to rows "
+              "given by id (torch.cdist gives unsquared, unmasked distances "
+              "of a gathered block)"),
+        entry("topm_merge", "topk.cu", "topk.py:63", k7, "topm_merge",
+              None),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import SearchEngine
+from repro_torch.core.estimator import CostEstimator
 from repro_torch.core.gbdt import GBDTModel
+from repro_torch.core.planner import Planner
 from repro_torch.core.state import SearchState
 from repro_torch.device import resolve_device
 from repro_torch.filters.compile import FilterProgram, program_to
@@ -132,3 +134,23 @@ def gbdt_from_arrays(feat: np.ndarray, thresh: np.ndarray, leaf: np.ndarray,
         leaf=np.asarray(leaf, np.float32), base=float(base), depth=int(depth),
         importances=(np.zeros(int(feat.max(initial=0)) + 1)
                      if importances is None else np.asarray(importances)))
+
+
+def estimator_to_torch(est) -> CostEstimator:
+    """A reference CostEstimator (its GBDTModel's numpy arrays) → the
+    port's."""
+    m = est.model
+    return CostEstimator(
+        gbdt_from_arrays(m.feat, m.thresh, m.leaf, m.base, m.depth,
+                         m.importances),
+        log_target=bool(est.log_target))
+
+
+def planner_to_torch(planner) -> Planner:
+    """A reference Planner → the port's: its three GBDT heads (traverse,
+    widen, static), the scan cost rate and the scan floor."""
+    return Planner(traverse=estimator_to_torch(planner.traverse),
+                   widen=estimator_to_torch(planner.widen),
+                   static=estimator_to_torch(planner.static),
+                   scan_dist_cost=float(planner.scan_dist_cost),
+                   scan_floor=int(planner.scan_floor))

@@ -1,5 +1,6 @@
 """The E2E pipeline on torch: state → step → backend → search → engine,
-and the probe → estimate → resume stages on top."""
+the probe → estimate → resume stages on top, and the planner (scan,
+traverse, widen) beside them."""
 from repro_torch.core.backends import available_backends, get_backend
 from repro_torch.core.e2e import (E2EResult, e2e_search, predict_budgets,
                                   probe_and_features)
@@ -9,11 +10,18 @@ from repro_torch.core.features import (FEATURE_NAMES, N_FEATURES,
                                        ablate_filter_features,
                                        extract_features, feature_names)
 from repro_torch.core.gbdt import GBDTModel, train_gbdt
+from repro_torch.core.planner import (PLANS, PlanResult, Planner,
+                                      PlanTrainingData, choose_plans,
+                                      fit_planner,
+                                      generate_plan_training_data,
+                                      planned_search, run_plan,
+                                      stage0_scan_mask, static_features)
+from repro_torch.core.plans import ScanStats, scan_search, scan_stats
 from repro_torch.core.search import (dispatch_counters, run_search,
                                      run_search_persistent)
-from repro_torch.core.state import (SearchConfig, SearchState, init_state,
-                                    prepare_resume, put_lanes, take_lanes,
-                                    topk_results)
+from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
+                                    init_state, pad_lanes, prepare_resume,
+                                    put_lanes, take_lanes, topk_results)
 from repro_torch.core.training import TrainingData, generate_training_data
 
 __all__ = [
@@ -21,8 +29,13 @@ __all__ = [
     "predict_budgets", "probe_and_features", "BIG_BUDGET", "SearchEngine",
     "CostEstimator", "FEATURE_NAMES", "N_FEATURES", "ablate_filter_features",
     "extract_features", "feature_names", "GBDTModel", "train_gbdt",
+    "PLANS", "PlanResult", "Planner", "PlanTrainingData", "choose_plans",
+    "fit_planner", "generate_plan_training_data", "planned_search",
+    "run_plan", "stage0_scan_mask", "static_features", "ScanStats",
+    "scan_search", "scan_stats",
     "dispatch_counters", "run_search", "run_search_persistent",
-    "SearchConfig", "SearchState", "init_state", "prepare_resume",
+    "SearchConfig", "SearchState", "concat_lanes", "init_state",
+    "pad_lanes", "prepare_resume",
     "put_lanes", "take_lanes", "topk_results", "TrainingData",
     "generate_training_data",
 ]

@@ -15,8 +15,14 @@ Registered backends:
               registered as "pallas" so reference configurations carry over.
   persistent  the fused per-step merge, with `persistent = True`: the
               engine runs it through `core.search.run_search_persistent`,
-              whose launches are kernel K5 (`kernels.persistent_step`);
+              whose launches are kernel K5 (`kernels.persistent_step`) in
+              post mode and groups of fused steps in pre and widen mode;
               also registered as "pallas_persistent".
+
+In pre mode the backends score only predicate-valid new nodes (the
+distance mask is `valid`, K1 with `pre=True`); post and widen score every
+new node. Pre and widen hand them the widened frontier [B, R'], R' = R +
+R·⌈R / two_hop_stride⌉ (160 at R=32, stride 8).
 """
 from __future__ import annotations
 

@@ -98,7 +98,8 @@ class SearchEngine:
         return int(self.value_attrs.shape[1])
 
     def compile(self, filt) -> FilterProgram:
-        """Lower a FilterSpec (or carry a FilterProgram) onto the device."""
+        """Lower a FilterSpec, an Expr or a list of Exprs (or carry a
+        FilterProgram) onto the device."""
         return program_to(as_program(filt, self.n_words, self.n_values),
                           self.device)
 
@@ -134,7 +135,7 @@ class SearchEngine:
         self,
         cfg: SearchConfig,
         queries,                      # [B, d] numpy or torch
-        filt,                         # FilterSpec | FilterProgram
+        filt,                         # FilterSpec | Expr(s) | FilterProgram
         budgets,                      # scalar or [B]
         state: SearchState | None = None,
         gt_dist=None,                 # [B, K] for convergence tracking

@@ -11,14 +11,17 @@ Counterpart of `repro/core/search.py`. Two loops over one carry:
                            once every lane has stopped (inactive lanes keep
                            their arrays, and the convergence update is
                            idempotent), so the result is the reference's.
-  `run_search_persistent`  persistent backends. Each launch of kernel K5
-                           advances the state by up to
-                           `cfg.steps_per_launch` steps; between launches
-                           the loop reads back `hops` and `active` only,
-                           and compacts to the active lanes on the
-                           reference's power-of-two width ladder. Every
-                           launch boundary is a step boundary, so the
-                           returned state equals `run_search`'s bit for bit.
+  `run_search_persistent`  persistent backends. Each launch advances the
+                           state by up to `cfg.steps_per_launch` steps —
+                           one launch of kernel K5 in post mode, a group
+                           of fused steps (kernel K1) in pre and widen
+                           mode, as the reference does (`use_kernel` only
+                           in post mode); between launches the loop reads
+                           back `hops` and `active` only, and compacts to
+                           the active lanes on the reference's
+                           power-of-two width ladder. Every launch boundary
+                           is a step boundary, so the returned state
+                           equals `run_search`'s bit for bit.
 
 Under `cfg.precision` "int8" or "pq" both loops take the quant index
 (`quant`); the per-query ADC state is prepared once per call
@@ -114,16 +117,32 @@ def _persistent_launch(cfg, queries, prog, base_vectors, attrs, neighbors,
           "resume"  incoming probe carry — reactivate budget-stopped lanes
           "cont"    mid-search launch — lanes that stopped in an earlier
                     launch of the same search stay stopped
+
+    Post mode is one launch of kernel K5. Pre and widen mode step the
+    backend's fused per-step merge (kernel K1 per step) up to
+    min(steps_per_launch, rem) times, none once no lane is active: the
+    reference runs its multi-step kernel in post mode only and its launch
+    body elsewhere (`repro/core/search.py:318`), and K5 keeps the same
+    post-only guard.
     """
     if mode == "init":
         state = init_state(cfg, queries, prog, base_vectors, attrs,
                            entry_point, quant=quant, qprep=qprep)
     elif mode == "resume":
         state = prepare_resume(state)
-    return persistent_multi_step(
-        cfg, queries, prog, base_vectors, attrs, neighbors, budgets, state,
-        rem, gt_dist, steps=max(1, cfg.steps_per_launch), quant=quant,
-        qprep=qprep)
+    spl = max(1, cfg.steps_per_launch)
+    if cfg.mode == "post":
+        return persistent_multi_step(
+            cfg, queries, prog, base_vectors, attrs, neighbors, budgets,
+            state, rem, gt_dist, steps=spl, quant=quant, qprep=qprep)
+    step = make_step(cfg, get_backend(cfg.backend or "persistent"), queries,
+                     prog, base_vectors, attrs, neighbors, budgets, gt_dist,
+                     quant=quant, qprep=qprep)
+    for _ in range(max(0, min(spl, int(rem)))):
+        if not bool(state.active.any()):
+            break
+        state = step(state)
+    return state
 
 
 def _hops_active(state: SearchState) -> tuple[np.ndarray, np.ndarray]:

@@ -11,8 +11,9 @@ and the same 18 `SearchState` leaves, as torch tensors:
                     n_clause_valid (per clause slot), hops, q_err_sum
 
 Lane surgery (`take_lanes`, `put_lanes`) serves the persistent loop's
-lane compaction; `concat_lanes`, `pad_lanes` and shard surgery wait for
-the serving and scale-out slices. Under a compressed precision ("int8",
+lane compaction, `concat_lanes` the planner's merge of its per-plan
+parts, and `pad_lanes` inert lane padding; shard surgery waits for the
+scale-out slice. Under a compressed precision ("int8",
 "pq") the entry distance, and every distance after it, is the codec's
 ADC distance (`repro_torch.quant`).
 """
@@ -39,7 +40,7 @@ class SearchConfig:
     queue_size: int = 128      # M — beam width / ef analogue
     degree: int = 32           # graph out-degree R (static)
     pred_kind: int = PRED_CONTAIN  # legacy tag; traversal ignores it
-    mode: str = "post"         # "post" | "pre" | "widen" (post only here)
+    mode: str = "post"         # "post" | "pre" | "widen"
     two_hop_stride: int = 8    # pre/widen: sample every s-th 2-hop neighbor
     max_steps: int = 100000
     greedy_stop: bool = False  # optional: stop when best cand > worst result
@@ -170,6 +171,13 @@ def _lane_index(idx, device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
+def _like(tree, parts):
+    """A tuple or NamedTuple of `tree`'s type holding `parts`."""
+    if hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*parts)
+    return type(tree)(parts)
+
+
 def take_lanes(tree, idx):
     """Select lanes `idx` along axis 0 of every tensor of `tree`: a
     tensor, a SearchState, a FilterProgram or a tuple of them (None passes
@@ -178,10 +186,32 @@ def take_lanes(tree, idx):
         return None
     if isinstance(tree, torch.Tensor):
         return tree.index_select(0, _lane_index(idx, tree.device))
-    parts = [take_lanes(a, idx) for a in tree]
-    if hasattr(tree, "_fields"):  # a NamedTuple
-        return type(tree)(*parts)
-    return type(tree)(parts)
+    return _like(tree, [take_lanes(a, idx) for a in tree])
+
+
+def concat_lanes(trees):
+    """Stack trees of the same structure ([b_i, ...] tensor leaves; None
+    passes through) into one batch along axis 0."""
+    if len(trees) == 1:
+        return trees[0]
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat(list(trees), dim=0)
+    return _like(first, [concat_lanes([t[i] for t in trees])
+                         for i in range(len(first))])
+
+
+def pad_lanes(tree, pad: int):
+    """Zero-pad every tensor leaf along axis 0 by `pad` lanes. Padded lanes
+    are inert: the caller gives them a 0 NDC budget, so they stop on their
+    first step and the zeros never reach a real lane."""
+    if pad == 0 or tree is None:
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return torch.cat([tree, tree.new_zeros((pad, *tree.shape[1:]))])
+    return _like(tree, [pad_lanes(a, pad) for a in tree])
 
 
 def put_lanes(tree, sub, idx):

@@ -1,13 +1,21 @@
 """Traversal-step layer: the backend-agnostic per-step logic.
 
-Counterpart of `repro/core/step.py::make_step`, post mode: pop → gather
-the 1-hop frontier → visited test and set → (backend: filter program +
-distances + queue/result merge) → counters, convergence and lane masking.
+Counterpart of `repro/core/step.py::make_step`: pop → gather the frontier
+→ visited test and set → (backend: filter program + distances +
+queue/result merge) → counters, convergence and lane masking.
+
+Three traversal modes, as in the reference:
+  post   the 1-hop frontier; every new node gets a distance (NDC).
+  pre    the 1-hop list plus the strided 2-hop list, deduplicated
+         (`gather_frontier`); only predicate-valid new nodes get a
+         distance and enter the queue, and only they count as NDC.
+  widen  the pre frontier with post accounting and scoring (the
+         planner's filtered-expansion plan).
 
 Under a compressed precision ("int8", "pq") the step gathers the quant
 index's codes, norms and reconstruction errors instead of the float
-vectors, and hands the backend a `QuantGather`. Pre and widen modes (and
-the 2-hop frontier they gather) wait for the planning slice of the port.
+vectors, and hands the backend a `QuantGather` — post mode only: the
+widened frontier under a codec comes with the quantized planning slice.
 """
 from __future__ import annotations
 
@@ -30,6 +38,33 @@ def tree_sum(e: torch.Tensor) -> torch.Tensor:
     return e[:, 0]
 
 
+def gather_frontier(cfg: SearchConfig, neighbors: torch.Tensor,
+                    u_safe: torch.Tensor) -> torch.Tensor:
+    """Neighbor ids to inspect for the popped nodes u_safe [B] (>= 0).
+
+    post: the 1-hop list [B, R]. pre/widen: the 1-hop list followed by the
+    2-hop lists of its nodes, every `two_hop_stride`-th entry, [B, R + R·⌈R
+    / stride⌉]; an id met again later in the row is blanked to -1, so the
+    first occurrence in `[1-hop | 2-hop]` survives (the reference's stable
+    argsort and its inverse, `repro/core/step.py:33-60`).
+    """
+    nb = neighbors[u_safe.long()]                            # [B, R]
+    if cfg.mode not in ("pre", "widen"):
+        return nb
+    b, r = nb.shape
+    hop2 = neighbors[nb.clamp(min=0).long()]                 # [B, R, R]
+    hop2 = hop2[:, :, ::cfg.two_hop_stride].reshape(b, -1)
+    hop2 = torch.where(
+        torch.repeat_interleave(nb >= 0, hop2.shape[1] // r, dim=1), hop2, -1)
+    nb = torch.cat([nb, hop2], dim=1)
+    s, order = torch.sort(nb, dim=1, stable=True)
+    dup_sorted = torch.cat([torch.zeros((b, 1), dtype=torch.bool,
+                                        device=nb.device),
+                            s[:, 1:] == s[:, :-1]], dim=1)
+    dup = torch.empty_like(dup_sorted).scatter_(1, order, dup_sorted)
+    return torch.where(dup, -1, nb)
+
+
 def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
               neighbors, budgets, gt_dist, quant=None, qprep=None):
     """Build the step function closed over static data and per-lane budgets.
@@ -39,12 +74,15 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
     compressed mode `quant` is the Int8Index / PQIndex and `qprep` its
     per-query ADC state; the float vectors are not read.
     """
-    if cfg.mode != "post":
-        raise ValueError(
-            f"mode {cfg.mode!r} is not ported yet: pre/widen traversal comes "
-            "with the planning slice of the port (post mode only here)")
+    if cfg.mode not in ("post", "pre", "widen"):
+        raise ValueError(f"unknown traversal mode {cfg.mode!r}")
     label_attrs, value_attrs = attrs
     compressed = (cfg.precision or "float32") != "float32"
+    if compressed and cfg.mode != "post":
+        raise ValueError(
+            f"mode {cfg.mode!r} under precision {cfg.precision!r} is not "
+            "ported yet: the widened frontier under a codec comes with the "
+            "quantized planning slice of the port")
 
     def step(state: SearchState) -> SearchState:
         # ---- pop best unexpanded candidate per lane ----
@@ -66,8 +104,8 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
         cand_exp = state.cand_exp.scatter(
             1, p, torch.gather(state.cand_exp, 1, p) | act[:, None])
 
-        # ---- gather frontier neighbor ids (post: the 1-hop list) ----
-        nb = neighbors[u.clamp(min=0).long()]                 # [B, R]
+        # ---- gather frontier neighbor ids ----
+        nb = gather_frontier(cfg, neighbors, u.clamp(min=0))  # [B, R']
         nb_ok = (nb >= 0) & act[:, None]
         nb_safe = nb.clamp(min=0)
         nb_long = nb_safe.long()
@@ -103,12 +141,15 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
             state.cand_dist, state.cand_idx, cand_exp, state.cand_valid,
             state.res_dist, state.res_idx, quant=qg)
 
-        # ---- counters (post: every new node gets a distance) ----
+        # ---- counters (post/widen: every new node gets a distance; pre:
+        # the valid ones) ----
         zero = torch.zeros_like(state.cnt)
-        ndc_add = is_new.sum(dim=1).to(torch.int32)
+        dist_mask = valid if cfg.mode == "pre" else is_new
+        ndc_add = dist_mask.sum(dim=1).to(torch.int32)
+        insp_add = is_new.sum(dim=1).to(torch.int32)
         valid_add = valid.sum(dim=1).to(torch.int32)
         cnt = state.cnt + torch.where(act, ndc_add, zero)
-        n_inspected = state.n_inspected + torch.where(act, ndc_add, zero)
+        n_inspected = state.n_inspected + torch.where(act, insp_add, zero)
         n_valid_visited = state.n_valid_visited + torch.where(act, valid_add,
                                                               zero)
         n_clause_valid = state.n_clause_valid + torch.where(

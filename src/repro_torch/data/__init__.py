@@ -2,6 +2,7 @@ from repro_torch.data.synthetic import (
     DATASET_PRESETS,
     AttributedDataset,
     QueryWorkload,
+    make_composite_workload,
     make_dataset,
     make_label_workload,
     make_preset,
@@ -12,6 +13,7 @@ __all__ = [
     "DATASET_PRESETS",
     "AttributedDataset",
     "QueryWorkload",
+    "make_composite_workload",
     "make_dataset",
     "make_label_workload",
     "make_preset",

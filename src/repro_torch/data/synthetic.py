@@ -3,8 +3,8 @@ correlation — host-side numpy, copied from `repro/data/synthetic.py`.
 
 The generators draw with numpy `default_rng` exactly as `repro` does, so
 the same seed gives bit-identical arrays in both packages (the parity
-tests pin it). See `repro/data/synthetic.py` for the construction.
-Composite (filter-algebra) workloads wait for a later slice of the port.
+tests pin it), and `make_composite_workload` the same expressions. See
+`repro/data/synthetic.py` for the construction.
 """
 from __future__ import annotations
 
@@ -81,14 +81,17 @@ class AttributedDataset:
 class QueryWorkload:
     """A batch of filtered queries q = (x_q, f_q) plus generation metadata.
 
-    Filters are carried as a single-kind `FilterSpec` batch (`spec`);
-    filter-algebra expressions wait for a later slice of the port.
+    Filters are carried either as a single-kind `FilterSpec` batch
+    (`spec`) or as per-query filter-algebra expressions (`exprs`, from
+    `make_composite_workload`). `filters` is the form to hand to
+    `engine.search` and the exact oracle.
     """
 
     queries: np.ndarray       # [B, d] float32
     spec: FilterSpec | None   # batched single-kind filters (legacy form)
     sigma_global: np.ndarray  # [B] measured global selectivity
     hardness: np.ndarray      # [B] 0 = aligned/easy, 1 = anti-correlated/hard
+    exprs: list | None = None  # [B] filter-algebra expressions
 
     @property
     def batch(self) -> int:
@@ -96,10 +99,12 @@ class QueryWorkload:
 
     @property
     def filters(self):
-        return self.spec
+        return self.exprs if self.exprs is not None else self.spec
 
     def filter_slice(self, s: int, e: int):
-        """Filters of queries [s:e)."""
+        """Filters of queries [s:e), in whichever form the workload holds."""
+        if self.exprs is not None:
+            return self.exprs[s:e]
         return self.spec.slice(slice(s, e))
 
 
@@ -262,6 +267,109 @@ def make_range_workload(
 
     sig = selectivity(spec, ds.labels_packed, ds.values)
     return QueryWorkload(queries=q, spec=spec, sigma_global=sig, hardness=hard.astype(np.float32))
+
+
+def _window_on_cdf(sorted_vals: np.ndarray, center_rank: int, sel: float,
+                   ) -> tuple[float, float]:
+    """[lo, hi] covering `sel` of the empirical CDF around a rank."""
+    n = sorted_vals.shape[0]
+    width = max(2, int(round(sel * n)))
+    start = int(np.clip(center_rank - width // 2, 0, n - width))
+    return float(sorted_vals[start]), float(sorted_vals[start + width - 1])
+
+
+def make_composite_workload(
+    ds: AttributedDataset,
+    batch: int = 64,
+    structure: Literal["and", "or", "not", "mixed"] = "and",
+    hard_fraction: float = 0.5,
+    selectivities: tuple = (0.05, 0.10, 0.20),
+    seed: int = 3,
+) -> QueryWorkload:
+    """Composite-filter workloads over the filter algebra (PathFinder-style).
+
+    Per-leaf selectivity is controlled the same way as the single-kind
+    generators (label leaves borrow real item label sets; range leaves take
+    windows on the empirical value CDF), and the easy/hard axis is the
+    paper's correlation knob: easy leaves describe the query's own
+    neighborhood, hard leaves an anti-correlated one.
+
+      and    Contain(labels near query) ∧ Range(value window)   — the
+             canonical "tag AND price band" conjunction; σ_global is the
+             product-ish of the leaf selectivities, ρ_local diverges per
+             leaf (exactly what the per-clause rho features observe).
+      or     Contain(tags A) ∨ Contain(tags B from another cluster) — the
+             multi-tag disjunction; hard queries draw *both* tag sets from
+             foreign clusters.
+      not    Range(wide window) ∧ ¬In(blacklisted labels) — exclusion
+             filtering (negated any-of).
+      mixed  uniform mix of the above plus bare single-leaf filters —
+             the serving-layer stress shape (heterogeneous structure in
+             one batch).
+    """
+    from repro_torch.filters.expr import And, Contain, In, Not, Or, Range
+
+    rng = np.random.default_rng(seed)
+    q, src_idx = _sample_query_vectors(ds, batch, rng)
+    hard = (rng.random(batch) < hard_fraction).astype(np.int32)
+    n_chan = ds.n_value_attrs
+    vm = ds.value_matrix
+    sorted_by_chan = [np.sort(vm[:, c]) for c in range(n_chan)]
+    rank_by_chan = [np.searchsorted(sorted_by_chan[c], vm[:, c])
+                    for c in range(n_chan)]
+
+    def other_cluster_item(i):
+        while True:
+            j = int(rng.integers(0, ds.n))
+            if ds.cluster_ids[j] != ds.cluster_ids[src_idx[i]]:
+                return j
+
+    def label_subset(j):
+        labs = ds.label_sets[j]
+        ksub = int(rng.integers(1, len(labs) + 1))
+        return tuple(int(x) for x in rng.choice(labs, size=ksub, replace=False))
+
+    def contain_leaf(i):
+        j = other_cluster_item(i) if hard[i] else int(src_idx[i])
+        return Contain(label_subset(j))
+
+    def range_leaf(i, sel=None, chan=None):
+        c = int(rng.integers(0, n_chan)) if chan is None else chan
+        sel = float(rng.choice(selectivities)) if sel is None else sel
+        own_rank = int(rank_by_chan[c][src_idx[i]])
+        center = (ds.n - 1 - own_rank) if hard[i] else own_rank
+        lo, hi = _window_on_cdf(sorted_by_chan[c], center, sel)
+        return Range(lo, hi, attr=c)
+
+    def build(i, shape):
+        if shape == "and":
+            return And(contain_leaf(i), range_leaf(i))
+        if shape == "or":
+            a = Contain(label_subset(other_cluster_item(i) if hard[i]
+                                     else int(src_idx[i])))
+            b = Contain(label_subset(other_cluster_item(i)))
+            return Or(a, b)
+        if shape == "not":
+            # generous range minus a foreign cluster's tag blacklist
+            wide = range_leaf(i, sel=0.5)
+            block = In(label_subset(other_cluster_item(i)))
+            return And(wide, Not(block))
+        if shape == "contain":
+            return contain_leaf(i)
+        if shape == "range":
+            return range_leaf(i)
+        raise ValueError(shape)
+
+    shapes = (["and", "or", "not", "contain", "range"] if structure == "mixed"
+              else [structure])
+    exprs = [build(i, shapes[int(rng.integers(0, len(shapes)))])
+             for i in range(batch)]
+
+    from repro_torch.filters.predicates import selectivity
+
+    sig = selectivity(exprs, ds.labels_packed, vm)
+    return QueryWorkload(queries=q, spec=None, sigma_global=sig,
+                         hardness=hard.astype(np.float32), exprs=exprs)
 
 
 # Named presets standing in for the paper's four datasets, scaled to the

@@ -1,10 +1,11 @@
 """Filter predicates for attributed vector datasets (paper §2.1) — host side.
 
 Copy of `repro/filters/predicates.py` (PRED_* tags, `FilterSpec`,
-`pack_labels`, the naive `filter_matrix` oracle and `selectivity`) for
-`FilterSpec` batches. Filter-algebra expressions wait for a later slice of
-the port. Label sets are packed multi-hot uint32 words here, as in `repro`;
-the device side holds the same bits as int32 (see `filters.compile`).
+`pack_labels`, the naive `filter_matrix` oracle and `selectivity`), for
+`FilterSpec` batches and sequences of filter-algebra expressions
+(`filters.expr`). Label sets are packed multi-hot uint32 words here, as in
+`repro`; the device side holds the same bits as int32 (see
+`filters.compile`).
 
 `filter_matrix` is the host *oracle*: deliberately naive numpy broadcast,
 nothing like the compiled program path the traversal runs.
@@ -63,18 +64,39 @@ class FilterSpec:
             return FilterSpec(self.kind, None, self.range_lo[sl], self.range_hi[sl])
         return FilterSpec(self.kind, self.label_masks[sl], None, None)
 
+    def to_expr(self) -> list:
+        """The batch as per-query single-leaf filter-algebra expressions,
+        which compile to the same single-clause program."""
+        from repro_torch.filters.expr import (Contain, Equal, Range,
+                                              labels_from_mask)
 
-def filter_matrix(filt: FilterSpec, labels_packed: np.ndarray | None,
+        if self.kind == PRED_RANGE:
+            return [Range(float(lo), float(hi))
+                    for lo, hi in zip(self.range_lo, self.range_hi)]
+        leaf = Contain if self.kind == PRED_CONTAIN else Equal
+        return [leaf(labels_from_mask(m)) for m in self.label_masks]
+
+
+def slice_filter(filt, s: int, e: int):
+    """Queries [s:e) of a FilterSpec batch or a sequence of expressions."""
+    if isinstance(filt, FilterSpec):
+        return filt.slice(slice(s, e))
+    return list(filt)[s:e]
+
+
+def filter_matrix(filt, labels_packed: np.ndarray | None,
                   values: np.ndarray | None) -> np.ndarray:
     """[B, N] bool validity of every item under every query's filter.
 
+    `filt` is a FilterSpec batch or a sequence of filter-algebra
+    expressions (evaluated by the recursive `eval_expr`, per query).
     Materializes [B, N(, W)] intermediates — callers with large B chunk
     over queries (see `selectivity`).
     """
     if not isinstance(filt, FilterSpec):
-        raise TypeError(
-            f"filter_matrix takes a FilterSpec, got {type(filt).__name__}; "
-            "filter-algebra expressions are not ported yet")
+        from repro_torch.filters.expr import eval_expr
+
+        return np.stack([eval_expr(e, labels_packed, values) for e in filt])
     if filt.kind == PRED_RANGE:
         v = np.asarray(values)
         v = (v[:, 0] if v.ndim == 2 else v)[None, :]  # channel 0 [1, N]
@@ -86,16 +108,17 @@ def filter_matrix(filt: FilterSpec, labels_packed: np.ndarray | None,
     return (items == masks).all(axis=-1)
 
 
-def selectivity(filt: FilterSpec, labels_packed: np.ndarray | None,
+def selectivity(filt, labels_packed: np.ndarray | None,
                 values: np.ndarray | None, chunk: int = 64) -> np.ndarray:
     """Global selectivity σ_global per query (paper Def. 2.6), on host.
 
     Chunked over queries so the naive broadcast peaks at chunk·N·W.
     """
-    b = filt.batch
+    filt = filt if isinstance(filt, FilterSpec) else list(filt)
+    b = filt.batch if isinstance(filt, FilterSpec) else len(filt)
     out = np.empty(b, np.float64)
     for s in range(0, b, max(1, chunk)):
         e = min(s + chunk, b)
-        out[s:e] = filter_matrix(filt.slice(slice(s, e)), labels_packed,
+        out[s:e] = filter_matrix(slice_filter(filt, s, e), labels_packed,
                                  values).mean(axis=1)
     return out

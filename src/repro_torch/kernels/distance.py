@@ -10,6 +10,16 @@ row) pair with K1's code, so its distances equal the fused backend's bit
 for bit. Bound on an H100: bytes (each unmasked row is read once); see
 the note in `csrc/sqdist.cu`. On CPU tensors the wrapper runs the plain
 version; on CUDA tensors it launches the kernel or raises.
+
+`sqdist_rows` is K6's row-id variant, the distance of the pre-filter scan
+plan and of the exact oracle (`index.bruteforce.filtered_knn_exact`): it
+takes row ids into the `[N, d]` store instead of a gathered `[B, V, d]`
+block, which at N=1M would not fit the card. Its plain version,
+`sqdist_rows_plain`, evaluates each lane alone at the canonical
+`[1, V, d]` shape (`scan_sqdist_lanes`), as the reference's host path
+does, so a (query, row) pair gives the same bits whatever lanes share
+the batch and however wide the padded block is; the kernel gives the same
+bits by construction (one warp per pair, a fixed order).
 """
 from __future__ import annotations
 
@@ -21,6 +31,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 INF = float("inf")
+
+# Row-count alignment of the scan plan's distance blocks, as in the
+# reference (`repro/kernels/distance.py::SCAN_ALIGN`): scan widths are
+# multiples of it, so the padding a gather adds cannot change a value.
+SCAN_ALIGN = 64
 
 
 def sqdist_bdrd(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -43,6 +58,52 @@ def sqdist_masked_plain(q: torch.Tensor, x: torch.Tensor,
     return torch.where(mask, sqdist_bdrd(q, x), INF)
 
 
+def scan_sqdist_lanes(q: torch.Tensor, x: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Per-lane masked squared L2: q [B, d], x [B, V, d], mask [B, V] ->
+    [B, V] f32, +inf where ~mask.
+
+    Each lane is evaluated alone at the canonical [1, V, d] shape, so a
+    (query, row) pair's value does not depend on which lanes share the
+    batch (`repro/kernels/distance.py::scan_sqdist_lanes`). V must be a
+    multiple of SCAN_ALIGN.
+    """
+    if x.shape[1] % SCAN_ALIGN:
+        raise ValueError(
+            f"scan width {x.shape[1]} not a multiple of SCAN_ALIGN "
+            f"({SCAN_ALIGN}); pad the gathered block")
+    q = q.to(torch.float32)
+    out = torch.empty(mask.shape, dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        out[i] = sqdist_bdrd(q[i:i + 1], x[i:i + 1])[0]
+    return torch.where(mask, out, INF)
+
+
+# rows of a lane the plain row-id version gathers at once: a multiple of
+# SCAN_ALIGN, so the chunking cannot change a value
+_PLAIN_ROWS = 1 << 16
+
+
+def sqdist_rows_plain(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6's row-id variant: q [B, d], base [N, d], ids
+    [B, V] int32, mask [B, V] -> [B, V] f32, +inf where ~mask:
+    `scan_sqdist_lanes` per lane over its gathered rows, in chunks of
+    _PLAIN_ROWS."""
+    b, v = mask.shape
+    if ids.shape != mask.shape:
+        raise ValueError(f"sqdist_rows: ids {tuple(ids.shape)} and mask "
+                         f"{tuple(mask.shape)} differ in shape")
+    out = torch.empty((b, v), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        lane_ids = ids[i].long()
+        for s in range(0, v, _PLAIN_ROWS):
+            e = min(s + _PLAIN_ROWS, v)
+            out[i, s:e] = scan_sqdist_lanes(
+                q[i:i + 1], base[lane_ids[s:e]][None], mask[i:i + 1, s:e])[0]
+    return out
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sqdist")
     fn = lib.sqdist_f32
@@ -50,9 +111,19 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fr = lib.sqdist_rows_f32
+        fr.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fr.restype = ctypes.c_int
         sm = lib.sqdist_smem_bytes
         sm.argtypes, sm.restype = [ctypes.c_int], ctypes.c_size_t
     return lib
+
+
+def _check_smem(lib, name: str, d: int) -> None:
+    if lib.sqdist_smem_bytes(d) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: d={d} needs more than {MAX_SMEM_BYTES} B "
+                         "of shared memory")
 
 
 def sqdist_masked(q: torch.Tensor, x: torch.Tensor,
@@ -69,9 +140,7 @@ def sqdist_masked(q: torch.Tensor, x: torch.Tensor,
         (q, "q", torch.float32, (b, d)), (x, "x", torch.float32, (b, r, d)),
         (mask, "mask", torch.bool, (b, r))))
     lib = _lib()
-    if lib.sqdist_smem_bytes(d) > MAX_SMEM_BYTES:
-        raise ValueError(f"sqdist_masked: d={d} needs more than "
-                         f"{MAX_SMEM_BYTES} B of shared memory")
+    _check_smem(lib, "sqdist_masked", d)
     out = torch.empty((b, r), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sqdist_masked.launches += 1
@@ -82,3 +151,38 @@ def sqdist_masked(q: torch.Tensor, x: torch.Tensor,
 
 
 sqdist_masked.launches = 0  # kernel launches since the last reset
+
+
+def sqdist_rows(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """K6's row-id variant: q [B, d] f32, base [N, d] f32, ids [B, V]
+    int32, mask [B, V] bool -> [B, V] f32 squared L2 to rows base[ids],
+    +inf where masked (masked ids are not read). V must be a multiple of
+    SCAN_ALIGN."""
+    if q.device.type == "cpu":
+        return sqdist_rows_plain(q, base, ids, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"sqdist_rows runs on CUDA or CPU, not {q.device}")
+    b, d = q.shape
+    v = mask.shape[1]
+    if v % SCAN_ALIGN:
+        raise ValueError(f"scan width {v} not a multiple of SCAN_ALIGN "
+                         f"({SCAN_ALIGN}); pad the row ids")
+    _build.check_tensors("sqdist_rows", q.device, (
+        (q, "q", torch.float32, (b, d)),
+        (base, "base", torch.float32, (base.shape[0], d)),
+        (ids, "ids", torch.int32, (b, v)),
+        (mask, "mask", torch.bool, (b, v))))
+    lib = _lib()
+    _check_smem(lib, "sqdist_rows", d)
+    out = torch.empty((b, v), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sqdist_rows.launches += 1
+    err = lib.sqdist_rows_f32(q.data_ptr(), base.data_ptr(), ids.data_ptr(),
+                              mask.data_ptr(), out.data_ptr(), b, v, d,
+                              stream)
+    _build.check(err, "sqdist")
+    return out
+
+
+sqdist_rows.launches = 0  # kernel launches since the last reset

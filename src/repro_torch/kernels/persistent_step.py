@@ -123,8 +123,9 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
                          f"{queries.device}")
     if cfg.mode != "post":
         raise ValueError(
-            f"persistent_multi_step runs post mode; mode {cfg.mode!r} comes "
-            "with a later slice of the port")
+            f"persistent_multi_step runs post mode, as the reference's "
+            f"kernel does; mode {cfg.mode!r} launches step the fused "
+            "backend (core.search.run_search_persistent)")
     precision = cfg.precision or "float32"
     dev = queries.device
     labels, values = attrs

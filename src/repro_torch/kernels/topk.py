@@ -1,14 +1,29 @@
-"""Sorted-buffer helpers: payload packing and the plain stable top-m merge.
+"""Sorted-buffer helpers: payload packing, the plain stable top-m merge,
+and kernel K7.
 
 Counterpart of `repro/kernels/topk.py`'s `pack_payload`/`unpack_payload`
 and of the order its host merge (`bitonic_merge_sorted`, position lane)
 and the dense backend's stable argsort both give: entries ordered by
 (distance, position in `[old | new]`). The fused kernel (K1) sorts on the
 same pair, so all three agree on ties.
+
+`topm_merge` is K7, a wrapper over `csrc/topk.cu`, with its plain version
+`topm_merge_plain`. It replaces the TPU kernel
+`repro/kernels/topk.py::_merge_kernel` (`topm_merge`), which only
+`kernels/ops.py::queue_merge` reaches. A merge by rank: it relies on the
+buffer being sorted ascending, `queue_merge`'s stated contract. Bound on
+an H100: bytes (both runs read once, the best M written once); see the
+note in `csrc/topk.cu`. On CPU tensors the wrapper runs the plain version;
+on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 
 def pack_payload(idx: torch.Tensor, expanded: torch.Tensor,
@@ -39,3 +54,62 @@ def merge_stable(dist: torch.Tensor, lanes: tuple, new_dist: torch.Tensor,
     out = tuple(torch.gather(torch.cat([a, b], dim=1), 1, order)
                 for a, b in zip(lanes, new_lanes))
     return torch.gather(d, 1, order), out
+
+
+def topm_merge_plain(dist: torch.Tensor, payload: torch.Tensor,
+                     new_dist: torch.Tensor, new_payload: torch.Tensor):
+    """Plain version of K7: sorted [B, M] (dist, payload) + raw [B, R]
+    entries -> the best M, in stable-argsort order over `[old | new]`."""
+    d, (p,) = merge_stable(dist, (payload,), new_dist, (new_payload,),
+                           dist.shape[1])
+    return d, p
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("topk")
+    fn = lib.topm_merge_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        sm = lib.topm_merge_smem_bytes
+        sm.argtypes, sm.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+    return lib
+
+
+def topm_merge(dist: torch.Tensor, payload: torch.Tensor,
+               new_dist: torch.Tensor, new_payload: torch.Tensor):
+    """K7: dist [B, M] f32 sorted ascending + payload [B, M] i32, new_dist
+    [B, R] f32 + new_payload [B, R] i32 (any order, no NaN) -> the best M
+    (dist [B, M], payload [B, M]) of `[old | new]`, ties in stable order.
+
+    The buffer must be sorted ascending: the kernel merges by rank and
+    does not check it."""
+    if dist.device.type == "cpu":
+        return topm_merge_plain(dist, payload, new_dist, new_payload)
+    if dist.device.type != "cuda":
+        raise ValueError(f"topm_merge runs on CUDA or CPU, not {dist.device}")
+    b, m = dist.shape
+    r = new_dist.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _build.check_tensors("topm_merge", dist.device, (
+        (dist, "dist", f32, (b, m)), (payload, "payload", i32, (b, m)),
+        (new_dist, "new_dist", f32, (b, r)),
+        (new_payload, "new_payload", i32, (b, r))))
+    lib = _lib()
+    smem = lib.topm_merge_smem_bytes(m, r)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"topm_merge needs {smem} B of shared memory at "
+                         f"M={m}, R={r}; a block has {MAX_SMEM_BYTES}")
+    od = torch.empty((b, m), dtype=f32, device=dist.device)
+    op = torch.empty((b, m), dtype=i32, device=dist.device)
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    topm_merge.launches += 1
+    err = lib.topm_merge_f32(dist.data_ptr(), payload.data_ptr(),
+                             new_dist.data_ptr(), new_payload.data_ptr(),
+                             od.data_ptr(), op.data_ptr(), b, m, r, stream)
+    _build.check(err, "topk")
+    return od, op
+
+
+topm_merge.launches = 0  # kernel launches since the last reset

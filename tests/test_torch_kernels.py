@@ -1,10 +1,10 @@
 """Kernel parity of the PyTorch port against the JAX reference, on CPU.
 
 The plain PyTorch versions of K1 (`fused_step_plain`; K3 and K4 are its
-int8 and PQ heads), K2 (`gbdt_predict_plain`) and K6
-(`sqdist_masked_plain`) take the same numpy-made inputs as the
-reference's host path / interpret-mode kernels and `kernels/ref.py`
-oracles. The CUDA kernels themselves are held
+int8 and PQ heads), K2 (`gbdt_predict_plain`), K6 (`sqdist_masked_plain`;
+its row-id variant `sqdist_rows_plain`) and K7 (`topm_merge_plain`) take
+the same numpy-made inputs as the reference's host path / interpret-mode
+kernels and `kernels/ref.py` oracles. The CUDA kernels themselves are held
 against the plain versions by the `cuda`-marked tests (and by
 chip_smoke.py on the card). K5 has its own file,
 tests/test_torch_persistent.py.
@@ -24,10 +24,14 @@ from repro_torch.convert import gbdt_from_arrays, program_to_torch
 from repro_torch.core.gbdt import train_gbdt
 from repro_torch.filters.compile import FilterProgram
 from repro_torch.kernels import _build
-from repro_torch.kernels.distance import sqdist_masked, sqdist_masked_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.distance import (SCAN_ALIGN, sqdist_masked,
+                                          sqdist_masked_plain, sqdist_rows,
+                                          sqdist_rows_plain)
 from repro_torch.kernels.fused_step import fused_step, fused_step_plain
 from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
-from repro_torch.kernels.topk import pack_payload, unpack_payload
+from repro_torch.kernels.topk import (pack_payload, topm_merge,
+                                      topm_merge_plain, unpack_payload)
 
 # The reference (JAX) is imported inside the parity tests, so that the
 # `cuda`-marked tests also run on a machine without JAX:
@@ -521,6 +525,210 @@ def test_persistent_kernel_codecs_match_plain_on_cuda(precision):
         for name, g, w in zip(got._fields, state_to_numpy(got),
                               state_to_numpy(want)):
             np.testing.assert_array_equal(g, w, f"steps={steps}: {name}")
+
+
+# ---------------------------------------------------------------- K7 ----
+def _merge_inputs(rng, b, m, r, ties: bool):
+    """A sorted [b, m] buffer with +inf tails (payload -1 there) and raw
+    [b, r] entries. ties=True draws integer distances, so equal keys fall
+    within the new entries, within the old ones and across the two."""
+    draw = ((lambda shape: rng.integers(0, 6, shape).astype(np.float32))
+            if ties else (lambda shape: rng.random(shape).astype(np.float32)))
+    dist = np.sort(draw((b, m)), axis=1)
+    dist[:, 3 * m // 4:] = np.inf
+    pay = rng.integers(0, 1 << 20, (b, m)).astype(np.int32)
+    pay[np.isinf(dist)] = -1
+    nd = draw((b, r))
+    npay = rng.integers(0, 1 << 20, (b, r)).astype(np.int32)
+    return dist, pay, nd, npay
+
+
+def _stable_merge_np(dist, pay, nd, npay):
+    d = np.concatenate([dist, nd], axis=1)
+    p = np.concatenate([pay, npay], axis=1)
+    order = np.argsort(d, axis=1, kind="stable")[:, :dist.shape[1]]
+    return np.take_along_axis(d, order, axis=1), np.take_along_axis(
+        p, order, axis=1)
+
+
+@pytest.mark.parametrize("b,m,r", [(6, 32, 16), (4, 512, 32), (3, 40, 1),
+                                   (2, 100, 160)])
+@pytest.mark.parametrize("ties", [True, False])
+def test_topm_merge_plain_matches_reference_host(b, m, r, ties):
+    """K7's plain version (and its CPU wrapper) == the reference's
+    `ops.queue_merge` host path, a stable argsort over [old | new]: ties
+    within new, within old and across both included, R=1, and an M that
+    is not a power of two."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(b * 1000 + m + r)
+    dist, pay, nd, npay = _merge_inputs(rng, b, m, r, ties)
+    wd, wp = jops.queue_merge(*(jnp.asarray(a) for a in (dist, pay, nd,
+                                                         npay)))
+    args = [torch.from_numpy(a) for a in (dist, pay, nd, npay)]
+    for fn in (topm_merge_plain, topm_merge, ops.queue_merge):
+        gd, gp = fn(*args)
+        np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    sd, sp = _stable_merge_np(dist, pay, nd, npay)
+    np.testing.assert_array_equal(gd.numpy(), sd)
+    np.testing.assert_array_equal(gp.numpy(), sp)
+    if ties:
+        with np.errstate(invalid="ignore"):  # inf - inf tails
+            assert (np.diff(sd, axis=1) == 0).any(), "no ties exercised"
+
+
+def test_topm_merge_plain_matches_reference_kernel_interpret():
+    """K7's plain version == the reference kernel body in interpret mode,
+    at a width XLA:CPU compiles (its unrolled network blows up beyond).
+    Keys are distinct: the reference kernel's network breaks ties by no
+    position, so on ties its payload order is not a stable one."""
+    import jax.numpy as jnp
+
+    from repro.kernels.topk import topm_merge as j_topm_merge
+
+    rng = np.random.default_rng(3)
+    dist, pay, nd, npay = _merge_inputs(rng, 4, 8, 4, ties=False)
+    wd, wp = j_topm_merge(*(jnp.asarray(a) for a in (dist, pay, nd, npay)),
+                          interpret=True)
+    gd, gp = topm_merge_plain(*(torch.from_numpy(a)
+                                for a in (dist, pay, nd, npay)))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,r", [(64, 512, 32), (8, 40, 1), (5, 100, 160)])
+def test_topm_merge_kernel_matches_plain_on_cuda(b, m, r):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K7 has no CPU mode)")
+    rng = np.random.default_rng(m + r)
+    for ties in (True, False):
+        args = [torch.from_numpy(a).cuda()
+                for a in _merge_inputs(rng, b, m, r, ties)]
+        gd, gp = topm_merge(*args)
+        wd, wp = topm_merge_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(gd, wd) and torch.equal(gp, wp)
+
+
+# ------------------------------------------------------- K6 row ids ----
+def test_sqdist_rows_plain_matches_reference_scan_lanes():
+    """K6's row-id plain version == the reference's per-lane scan path
+    (`scan_sqdist_lanes`) on the gathered rows; +inf where masked; V off
+    SCAN_ALIGN raises in both, and ids not shaped like the mask raise."""
+    import jax.numpy as jnp
+
+    from repro.kernels.distance import scan_sqdist_lanes as j_lanes
+
+    rng = np.random.default_rng(5)
+    n, d, b, v = 700, 24, 5, 2 * SCAN_ALIGN
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    ids = rng.integers(0, n, (b, v)).astype(np.int32)
+    mask = rng.random((b, v)) < 0.7
+    want = np.asarray(j_lanes(jnp.asarray(q), jnp.asarray(base[ids]),
+                              jnp.asarray(mask)))
+    got = sqdist_rows(*(torch.from_numpy(a) for a in (q, base, ids, mask)))
+    assert np.isinf(got.numpy()[~mask]).all()
+    np.testing.assert_allclose(got.numpy()[mask], want[mask], rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="differ in shape"):
+        sqdist_rows_plain(*(torch.from_numpy(a) for a in (
+            q, base, ids[0], mask)))
+    with pytest.raises(ValueError, match="SCAN_ALIGN"):
+        sqdist_rows(*(torch.from_numpy(a) for a in (
+            q, base, ids[:, :SCAN_ALIGN + 1], mask[:, :SCAN_ALIGN + 1])))
+
+
+@pytest.mark.parametrize("name", ["batched_sqdist", "masked_scan_dist",
+                                  "fused_traversal_step",
+                                  "estimator_predict"])
+def test_ops_dispatch_matches_reference_ops(name):
+    """Each dispatcher of `kernels/ops.py` on CPU tensors == the
+    reference's `repro.kernels.ops` function of the same name on the same
+    inputs (`queue_merge` is held to it in the K7 tests above): exact on
+    grid distances, the step's tolerance otherwise."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(11)
+    t = torch.from_numpy
+    if name == "batched_sqdist":
+        q, x, mask = _sqdist_inputs(rng, 5, 17, 40, grid=True)
+        for m in (mask, None):
+            got = ops.batched_sqdist(t(q), t(x), None if m is None else t(m))
+            want = jops.batched_sqdist(jnp.asarray(q), jnp.asarray(x),
+                                       None if m is None else jnp.asarray(m))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    elif name == "masked_scan_dist":
+        n, d, b, v = 300, 24, 4, 2 * SCAN_ALIGN
+        base = np.round(rng.normal(size=(n, d)) * 64).astype(np.float32) / 64
+        q = np.round(rng.normal(size=(b, d)) * 64).astype(np.float32) / 64
+        ids = rng.integers(0, n, (b, v)).astype(np.int32)
+        mask = rng.random((b, v)) < 0.6
+        got = ops.masked_scan_dist(t(q), t(base), t(ids), t(mask))
+        want = jops.masked_scan_dist(jnp.asarray(q), jnp.asarray(base[ids]),
+                                     jnp.asarray(mask))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    elif name == "fused_traversal_step":
+        a = _inputs(rng, 4, 32, 8, 5, 12)
+        for pre in (False, True):
+            got = [z.numpy() for z in ops.fused_traversal_step(
+                *_torch_args(a), pre=pre)]
+            _assert_step_equal(got, jops.fused_traversal_step(
+                *_jax_args(a), pre=pre))
+    else:
+        from repro.core.gbdt import train_gbdt as j_train_gbdt
+
+        x, model = _forest(7, 64, 8, 20, 3, j_train_gbdt)
+        port = gbdt_from_arrays(model.feat, model.thresh, model.leaf,
+                                model.base, model.depth)
+        got = ops.estimator_predict(t(x), port.packed("cpu"), 3).numpy()
+        want = jops.estimator_predict(jnp.asarray(x), (
+            jnp.asarray(model.feat), jnp.asarray(model.thresh),
+            jnp.asarray(model.leaf), model.base), 3)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sqdist_rows_kernel_matches_plain_on_cuda():
+    """The row-id kernel against its plain version (rtol 1e-5; equal on
+    grid data) and against the gathered K6 on the same rows (bitwise),
+    one lane alone against the batch (bitwise) and V against V + 64
+    padded rows (bitwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K6 has no CPU mode)")
+    rng = np.random.default_rng(6)
+    n, d, b, v = 5000, 96, 6, 4 * SCAN_ALIGN
+    for grid in (True, False):
+        base = rng.standard_normal((n, d))
+        q = rng.standard_normal((b, d))
+        if grid:
+            base, q = (np.clip(np.round(a * 4) / 8, -2, 2) for a in (base, q))
+        ids = rng.integers(0, n, (b, v)).astype(np.int32)
+        mask = rng.random((b, v)) < 0.7
+        qt, bt, it, mt = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                          for a in (q.astype(np.float32),
+                                    base.astype(np.float32), ids, mask))
+        got = sqdist_rows(qt, bt, it, mt)
+        want = sqdist_rows_plain(qt, bt, it, mt)
+        gathered = sqdist_masked(qt, bt[it.long()], mt)
+        one = sqdist_rows(qt[2:3], bt, it[2:3], mt[2:3])
+        wide = sqdist_rows(qt, bt, torch.cat([it, it[:, :SCAN_ALIGN]], 1),
+                           torch.cat([mt, mt[:, :SCAN_ALIGN]], 1))
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), ~mt)
+        if grid:
+            assert torch.equal(got, want)
+        else:
+            assert torch.allclose(got[mt], want[mt], rtol=1e-5, atol=0.0)
+        assert torch.equal(got, gathered)
+        assert torch.equal(one[0], got[2])
+        assert torch.equal(wide[:, :v], got)
 
 
 # ------------------------------------------------------------- build ----

@@ -150,11 +150,15 @@ def test_visited_repeated_id_carries_like_reference(world):
 
 
 def test_post_mode_only():
-    with pytest.raises(ValueError, match="not ported yet"):
-        from repro_torch.core.step import make_step
+    """Under a codec the step runs post mode only: the widened frontier of
+    pre and widen mode is float32 until the quantized planning slice
+    (float32 pre/widen: tests/test_torch_planner.py)."""
+    from repro_torch.core.step import make_step
 
-        make_step(SearchConfig(mode="pre"), None, None, None, None,
-                  (None, None), None, None, None)
+    for mode in ("pre", "widen"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            make_step(SearchConfig(mode=mode, precision="int8"), None, None,
+                      None, None, (None, None), None, None, None)
 
 
 def test_build_without_device_needs_cuda(world, monkeypatch):
