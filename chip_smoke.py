@@ -10,7 +10,9 @@ Phases, each printed as one JSON line with its wall seconds:
   3. K1 (fused traversal step) and its int8 and PQ heads K3 and K4
      against `fused_step_plain` on the card, at the main path's shapes,
      post and pre mode: exact-arithmetic inputs with injected ties and
-     duplicate ids (everything must be equal), and float inputs (K1:
+     duplicate ids, and a tie case (rows repeated 4 ways, old keys equal
+     to new ones, all-inf queues, runs with every new entry masked;
+     everything must be equal in both), and float inputs (K1:
      distances within rtol 1e-5; K3: everything equal; K4: distances
      within rtol 1e-5 plus the bound on the lookup sums' rounding); K1
      again at R'=160, the widened frontier of pre/widen mode
@@ -31,7 +33,10 @@ Phases, each printed as one JSON line with its wall seconds:
      every field equal on exact-arithmetic inputs; on float inputs each
      step replayed alone agrees up to near-tie moves, which must explain
      every lane whose 8-step trajectory differs; K5's int8 and PQ
-     branches after one 8-step launch: every field equal;
+     branches after one 8-step launch: every field equal; and each branch
+     on a tie case (4096 distinct rows over the N=1M store, all-inf
+     queues, lanes whose every neighbor is visited, fresh lanes): every
+     field equal;
   8. dataset, graph build, ground truth (the exact oracle on K6's row-id
      variant) and estimator training, with the share of training lanes
      whose exhaustive traversal reaches recall 10/10 beside the share
@@ -272,17 +277,28 @@ def step_head(rng, b, r, d, exact: bool, device, precision):
 
 
 def step_inputs(rng, b, r, d, m, k, w, v, exact: bool, device,
-                precision="float32"):
+                precision="float32", ties: bool = False):
     """Inputs of one fused step at the main path's shapes: the head of
     `step_head`, then ids with duplicates, flags, attributes, a 4-slot
     program and sorted buffers whose old entries take values of the new
-    distances when exact (ties across old and new). Returns (args, quant)."""
+    distances when exact (ties across old and new). ties=True (with
+    exact) also repeats 4 rows over each lane's R, empties the queue and
+    result set of lanes 1 mod 3 (all inf) and masks every new entry of
+    lanes 2 mod 3 (none first-visit). Returns (args, quant)."""
     import torch
 
     from repro_torch.kernels.distance import sqdist_bdrd
-    from repro_torch.quant.codecs import quant_dist
+    from repro_torch.quant.codecs import QuantGather, quant_dist
 
     qt, xt, quant = step_head(rng, b, r, d, exact, device, precision)
+    if ties:
+        rows = torch.arange(r, device=device) % 4
+        if quant is None:
+            xt = xt[:, rows].contiguous()
+        else:
+            quant = QuantGather(prep=quant.prep,
+                                codes=quant.codes[:, rows].contiguous(),
+                                norms=quant.norms[:, rows].contiguous())
     nb = rng.integers(0, 1 << 20, (b, r)).astype(np.int32)
     nb[:, 7] = nb[:, 6]                         # duplicate ids
     is_new = rng.random((b, r)) < 0.8
@@ -310,6 +326,10 @@ def step_inputs(rng, b, r, d, m, k, w, v, exact: bool, device,
         rd[:, k // 2:] = np.inf
     cd = cd.astype(np.float32)
     rd = rd.astype(np.float32)
+    if ties:
+        cd[1::3] = np.inf
+        rd[1::3] = np.inf
+        is_new[2::3] = False
     cp = rng.integers(0, 1 << 29, (b, m)).astype(np.int32)
     cp[np.isinf(cd)] = -1
     ri = rng.integers(0, 1 << 29, (b, k)).astype(np.int32)
@@ -341,7 +361,9 @@ def pq_sum_atol(quant) -> np.ndarray:
 def check_step_kernel(device, precision="float32", r=32):
     """K1 (float32), K3 (int8) or K4 (pq) against `fused_step_plain` at
     B=64, R=r, d=768, M=512, K=10, post and pre mode: exact inputs (every
-    output equal) and float inputs. On float inputs K3 must be equal too
+    output equal), the tie case of `step_inputs` (repeated rows, all-inf
+    queues, all-masked runs: every output equal, bit for bit) and float
+    inputs. On float inputs K3 must be equal too
     (an exact integer dot, the same tail); K1's distances must lie within
     rtol 1e-5 and K4's within rtol 1e-5 plus the lookup sums' rounding
     bound (`pq_sum_atol`), payloads moving only between entries that
@@ -353,13 +375,17 @@ def check_step_kernel(device, precision="float32", r=32):
 
     b, d, m, k, w, v = 64, 768, 512, 10, 2, 2
     kid = HEADS[precision]
-    rng = np.random.default_rng({"float32": 0, "int8": 3, "pq": 4}[precision])
+    seed = {"float32": 0, "int8": 3, "pq": 4}[precision]
+    rng = np.random.default_rng(seed)
+    tie_rng = np.random.default_rng(seed + 10)
     names = ("cand_dist", "cand_pay", "res_dist", "res_idx", "valid",
              "clause_add")
-    max_err, err_over_atol, n_near, bitwise = 0.0, 0.0, 0, True
-    for exact in (True, False):
-        args, quant = step_inputs(rng, b, r, d, m, k, w, v, exact, device,
-                                  precision)
+    max_err, err_over_atol, n_near, bitwise, n_ties = 0.0, 0.0, 0, True, 0
+    for case in ("exact", "float", "ties"):
+        exact = case != "float"
+        args, quant = step_inputs(tie_rng if case == "ties" else rng, b, r,
+                                  d, m, k, w, v, exact, device, precision,
+                                  ties=case == "ties")
         kw = dict(quant=quant, precision=precision)
         strict = exact or precision == "int8"
         atol = (pq_sum_atol(quant) if precision == "pq" and not exact
@@ -370,6 +396,9 @@ def check_step_kernel(device, precision="float32", r=32):
             torch.cuda.synchronize()
             got = [a.cpu().numpy() for a in got]
             want = [a.cpu().numpy() for a in want]
+            if case == "ties":
+                with np.errstate(invalid="ignore"):  # inf - inf pads
+                    n_ties += int((np.diff(want[0], axis=1) == 0).sum())
             for name, g, wa in zip(names, got, want):
                 if g.dtype != np.float32:
                     continue
@@ -389,16 +418,16 @@ def check_step_kernel(device, precision="float32", r=32):
                 if strict:
                     require(np.array_equal(g[fin], wa[fin]),
                             f"{kid} {name}: distances differ (pre={pre}, "
-                            f"exact={exact})")
+                            f"{case} case)")
             for name in ("valid", "clause_add"):
                 i = names.index(name)
                 require(np.array_equal(got[i], want[i]),
-                        f"{kid} {name} differs (pre={pre}, exact={exact})")
+                        f"{kid} {name} differs (pre={pre}, {case} case)")
             for di, pi in ((0, 1), (2, 3)):
                 same = got[pi] == want[pi]
                 if strict:
                     require(same.all(), f"{kid} {names[pi]} differs "
-                            f"(pre={pre}, exact={exact})")
+                            f"(pre={pre}, {case} case)")
                 else:
                     # float inputs: a payload may move only between entries
                     # whose distances are within the stated tolerance
@@ -452,7 +481,8 @@ def check_step_kernel(device, precision="float32", r=32):
     phase = f"{kid.lower()}_check" if r == 32 else f"{kid.lower()}_wide_check"
     emit({"phase": phase, "ok": True, "precision": precision,
           "shapes": shapes, "modes": ["post", "pre"],
-          "float_case_bitwise": bitwise, **out_pq,
+          "float_case_bitwise": bitwise, "tie_case_bitwise": True,
+          "tie_case_equal_adjacent_queue_keys": n_ties, **out_pq,
           "float_case_payload_moves_at_near_ties": n_near, "bytes": nbytes,
           **out})
     return out
@@ -703,6 +733,7 @@ def check_k6_scan(device):
 # ---------------------------------------------------------------- K5 ----
 K5_STEPS = 8  # SearchConfig.steps_per_launch's default
 K5_N = 1_000_000  # rows of K5's synthetic index: the main path's N
+K5_TIE_ROWS = 4096  # distinct rows of its tie case
 TRAJ_FIELDS = ("visited", "cnt", "n_inspected", "n_valid_visited",
                "n_clause_valid", "n_pop_valid", "hops", "active",
                "conv_cnt", "res_full_cnt")
@@ -747,7 +778,8 @@ def k5_quant(g, n, b, d, precision, exact: bool, device):
     return index, PQPrep(lut=lut, qn=qn)
 
 
-def k5_world(seed, exact: bool, device, precision="float32"):
+def k5_world(seed, exact: bool, device, precision="float32",
+             ties: bool = False):
     """A synthetic index at the main path's shapes on the card — N=1M
     rows of d=768 (and, under a codec, the index of `k5_quant`), a random
     graph of degree 32 with a repeated id in every row and some -1
@@ -758,6 +790,11 @@ def k5_world(seed, exact: bool, device, precision="float32"):
 
     exact=True puts vectors on the grid 1/8 in [-2, 2] (every squared
     distance exact in float32, ties frequent); otherwise N(0, 1).
+    ties=True repeats K5_TIE_ROWS distinct rows (vectors, or codes, norms
+    and errors) over the N, so queued and new distances are often equal,
+    and then gives lanes 1 mod 4 an all-inf queue and result set, lanes
+    2 mod 4 a visited set holding every node (each new run all masked)
+    and lanes 3 mod 4 the state of init_state.
     """
     import torch
 
@@ -775,6 +812,9 @@ def k5_world(seed, exact: bool, device, precision="float32"):
     else:
         base = torch.randn((n, d), generator=g, device=device)
         queries = torch.randn((b, d), generator=g, device=device)
+    if ties:
+        rows = torch.randint(0, K5_TIE_ROWS, (n,), generator=g, device=device)
+        base = base[rows]
     nbrs = torch.randint(0, n, (n, r), generator=g, device=device,
                          dtype=torch.int32)
     nbrs[:, 7] = nbrs[:, 6]                     # repeated ids
@@ -790,12 +830,24 @@ def k5_world(seed, exact: bool, device, precision="float32"):
     kw = {}
     if precision != "float32":
         quant, qprep = k5_quant(g, n, b, d, precision, exact, device)
+        if ties:
+            quant = quant._replace(codes=quant.codes[rows],
+                                   norms=quant.norms[rows],
+                                   err=quant.err[rows])
         kw = dict(quant=quant, qprep=qprep)
     big = torch.full((b,), 1 << 30, dtype=torch.int32, device=device)
-    state = init_state(cfg, queries, prog, base, attrs, 0, **kw)
+    fresh = init_state(cfg, queries, prog, base, attrs, 0, **kw)
     state = persistent_multi_step_plain(cfg, queries, prog, base, attrs, nbrs,
-                                        big, state, 1 << 30, None, steps=24,
-                                        **kw)
+                                        big, copy_state(fresh), 1 << 30, None,
+                                        steps=24, **kw)
+    if ties:
+        for f in state._fields:
+            getattr(state, f)[3::4] = getattr(fresh, f)[3::4]
+        for f, empty in (("cand_dist", float("inf")), ("cand_idx", -1),
+                         ("cand_exp", False), ("cand_valid", False),
+                         ("res_dist", float("inf")), ("res_idx", -1)):
+            getattr(state, f)[1::4] = empty
+        state.visited[2::4] = -1
     cnt = state.cnt.cpu().numpy()
     budgets = torch.from_numpy(
         (cnt + rng.integers(0, K5_STEPS * r, b)).astype(np.int32)).to(device)
@@ -847,6 +899,37 @@ def k5_compare(got, want, what):
     return traj, moved, max_err, n_near
 
 
+def k5_tie_check(device, precision, seed):
+    """K5 against its plain version on the tie world of `k5_world` (exact
+    arithmetic, K5_TIE_ROWS distinct rows, all-inf queues, all-masked
+    runs, fresh lanes), one 8-step launch: every field equal, bit for bit.
+    Returns the equal adjacent finite queue keys of the result, a count of
+    the ties the merges met."""
+    import torch
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    args, state, kw = k5_world(seed, True, device, precision, ties=True)
+    got = persistent_multi_step(*args, copy_state(state), 1 << 30, None,
+                                steps=K5_STEPS, **kw)
+    want = persistent_multi_step_plain(*args, copy_state(state), 1 << 30,
+                                       None, steps=K5_STEPS, **kw)
+    torch.cuda.synchronize()
+    for f, a, b_ in zip(got._fields, state_to_numpy(got),
+                        state_to_numpy(want)):
+        require(np.array_equal(a, b_), f"K5 {precision} {f} differs on the "
+                "tie case")
+    with np.errstate(invalid="ignore"):  # inf - inf pads
+        n_ties = int((np.diff(want.cand_dist.cpu().numpy(), axis=1) == 0)
+                     .sum())
+    require(n_ties > 0, f"K5 {precision}: the tie case met no tie")
+    del args, state, got, want, kw
+    torch.cuda.empty_cache()
+    return n_ties
+
+
 def check_k5(device):
     """K5 against persistent_multi_step_plain at N=1M, 8 steps a launch."""
     import torch
@@ -874,6 +957,7 @@ def check_k5(device):
     conv = int((got.conv_cnt.cpu().numpy() > 0).sum())
     del args, state, got, want, gt
     torch.cuda.empty_cache()
+    n_ties = k5_tie_check(device, "float32", 9)
 
     # float data: every step replayed alone explains any lane that moved
     args, state, _ = k5_world(6, False, device)
@@ -906,7 +990,8 @@ def check_k5(device):
     emit({"phase": "k5_check", "ok": True, "shapes": dict(
         B=b, N=base.shape[0], d=d, M=m, K=k, R=r, W=w, V=v, S=4, T=2,
         steps=K5_STEPS), "exact_case_lanes_stopped": stopped,
-        "exact_case_lanes_converged": conv,
+        "exact_case_lanes_converged": conv, "tie_case_all_fields_equal": True,
+        "tie_case_equal_adjacent_queue_keys": n_ties,
         "float_case_lanes_moved_at_near_ties": int(moved.sum()),
         "float_case_payload_moves_at_near_ties": n_near,
         "timed_launch": timed, **out})
@@ -976,7 +1061,7 @@ def check_k5_codec(device, precision):
     """K5's int8 or PQ branch against persistent_multi_step_plain after one
     8-step launch over the N=1M synthetic index: every field equal, float
     fields and q_err_sum included (int8 on float data — its dot is exact
-    — and PQ on exact data)."""
+    — and PQ on exact data), then on the tie case of `k5_tie_check`."""
     import torch
 
     from repro_torch.convert import state_to_numpy
@@ -1005,14 +1090,18 @@ def check_k5_codec(device, precision):
                                 steps=K5_STEPS, **kw)
     out, timed = k5_time_and_bound(args, state, kw, got)
     out = dict(max_abs_err=0.0, **out)  # every field equal
-    emit({"phase": f"k5_{precision}_check", "ok": True,
-          "data": "exact" if exact else "float", "shapes": dict(
-              B=EVAL_LANES, N=K5_N, row_width=int(kw["quant"].codes.shape[1]),
-              M=512, K=10, R=32, steps=K5_STEPS),
-          "all_fields_equal": True, "lanes_stopped": stopped,
-          "lanes_converged": conv, "timed_launch": timed, **out})
+    width = int(kw["quant"].codes.shape[1])
     del args, state, got, want, gt, kw
     torch.cuda.empty_cache()
+    n_ties = k5_tie_check(device, precision, 10)
+    emit({"phase": f"k5_{precision}_check", "ok": True,
+          "data": "exact" if exact else "float", "shapes": dict(
+              B=EVAL_LANES, N=K5_N, row_width=width,
+              M=512, K=10, R=32, steps=K5_STEPS),
+          "all_fields_equal": True, "lanes_stopped": stopped,
+          "lanes_converged": conv, "tie_case_all_fields_equal": True,
+          "tie_case_equal_adjacent_queue_keys": n_ties,
+          "timed_launch": timed, **out})
     return out
 
 

@@ -16,6 +16,17 @@
 // neighbouring lanes on neighbouring addresses; everything else (program
 // evaluation, both merges) stays in shared memory and writes only the
 // merged buffers, the valid mask and four counters.
+//   The merges are one merge by rank (step_common.cuh::merge_by_rank), not
+// the reference's bitonic networks: the old queue's M keys and the old
+// result set's K keys are staged in shared memory at the start (2 KB at
+// M=512), the R new entries are rank-sorted by warp shuffles, and every
+// entry of either run finds its output slot by binary search in the
+// other, writing straight to the output tensors. That is one barrier for
+// both merges where the 1024- and 64-wide bitonic sorts took 76 barrier
+// stages (91 at R'=160, where the result sort is 256 wide). What is left
+// on the critical path is the distance head and its barriers, with one
+// block per lane on 64 of 132 SMs at B=64; the distance and staging code
+// is unchanged.
 //   K3 reads the int8 codes [B, R, d] (1.6 MB) once, one warp per row as
 // packed 4-byte words into __dp4a, with the quantized query in shared
 // memory. K4 reads the uint8 codes [B, R, S·L] and, per row, S·L entries
@@ -28,13 +39,13 @@
 // agree bit for bit.
 //
 // The per-lane building blocks (query norm, row distances, filter program,
-// bitonic merges) live in step_common.cuh, shared with K5 and K6.
+// the merge by rank) live in step_common.cuh, shared with K5 and K6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "step_common.cuh"
 
-extern "C" size_t fused_step_smem_bytes(int R, int QW, int wq, int wr);
+extern "C" size_t fused_step_smem_bytes(int R, int QW, int M, int K);
 
 namespace {
 
@@ -69,7 +80,7 @@ struct StepArgs {
   int* out_res_idx;        // [B, K]
   uint8_t* out_valid;      // [B, R] bool
   int* out_counts;         // [B, 4]
-  int R, D, M, K, wq, wr, pre;
+  int R, D, M, K, pre;
   int QW, Kc;              // shared-memory words of the head; PQ Kc
 };
 
@@ -77,18 +88,25 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wmax = a.wq > a.wr ? a.wq : a.wr;
   const int W = a.prog.W, V = a.prog.V;
   float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
   float* dist = qs + a.QW;                   // [R]
   int* vld = reinterpret_cast<int*>(dist + a.R);   // [R]
   int* dmask = vld + a.R;                    // [R]
-  float* key = reinterpret_cast<float*>(dmask + a.R);  // [wmax]
-  int* pos = reinterpret_cast<int*>(key + wmax);        // [wmax]
-  int* cnt = pos + wmax;                     // [4]
+  float* okq = reinterpret_cast<float*>(dmask + a.R);  // [M] old queue keys
+  float* okr = okq + a.M;                    // [K] old result keys
+  float* nkq = okr + a.K;                    // [R] new keys, sorted
+  float* nkr = nkq + a.R;                    // [R]
+  int* cnt = reinterpret_cast<int*>(nkr + a.R);        // [4]
   float* red = reinterpret_cast<float*>(cnt + kClauseSlots);  // [kWarps + 1]
 
   if (tid < kClauseSlots) cnt[tid] = 0;
+  // the old keys, for the merge's binary searches (behind the head's
+  // barriers)
+  for (int i = tid; i < a.M; i += kThreads)
+    okq[i] = a.cand_dist[(size_t)b * a.M + i];
+  for (int i = tid; i < a.K; i += kThreads)
+    okr[i] = a.res_dist[(size_t)b * a.K + i];
   if (a.prec == kF32) {
     // ---- query row and its squared norm; squared L2, one warp per row ----
     const float qn = step::query_sqnorm(a.q + (size_t)b * a.D, qs, a.D, red);
@@ -142,17 +160,13 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   }
   __syncthreads();
 
-  const int* nb = a.nb + (size_t)b * a.R;
-  // ---- candidate queue: best M of [old | new] ----
-  step::queue_merge(a.cand_dist + (size_t)b * a.M, a.cand_pay + (size_t)b * a.M,
-                    dist, dmask, vld, nb, a.M, a.R, a.wq, key, pos,
-                    a.out_cand_dist + (size_t)b * a.M,
-                    a.out_cand_pay + (size_t)b * a.M);
-  // ---- result set: best K of [old | new valid] ----
-  step::result_merge(a.res_dist + (size_t)b * a.K, a.res_idx + (size_t)b * a.K,
-                     dist, dmask, vld, nb, a.K, a.R, a.wr, key, pos,
-                     a.out_res_dist + (size_t)b * a.K,
-                     a.out_res_idx + (size_t)b * a.K);
+  // ---- queue: best M of [old | new]; results: best K of [old | new
+  // valid] ----
+  const size_t bm = (size_t)b * a.M, bk = (size_t)b * a.K;
+  step::merge_by_rank(okq, a.cand_pay + bm, okr, a.res_idx + bk, dist, dmask,
+                      vld, a.nb + (size_t)b * a.R, a.M, a.K, a.R, nkq, nkr,
+                      a.out_cand_dist + bm, a.out_cand_pay + bm,
+                      a.out_res_dist + bk, a.out_res_idx + bk);
 
   for (int r = tid; r < a.R; r += kThreads)
     a.out_valid[(size_t)b * a.R + r] = (uint8_t)vld[r];
@@ -160,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
 }
 
 int launch(const StepArgs& a, int B, void* stream) {
-  const size_t smem = fused_step_smem_bytes(a.R, a.QW, a.wq, a.wr);
+  const size_t smem = fused_step_smem_bytes(a.R, a.QW, a.M, a.K);
   static bool opted_in[step::kMaxDevices] = {};
   cudaError_t err = step::opt_in_smem_once(fused_step_kernel, opted_in);
   if (err != cudaSuccess) return (int)err;
@@ -203,10 +217,9 @@ extern "C" {
 
 // Dynamic shared memory the kernel needs for these widths, in bytes; QW is
 // the distance head's words: D (K1), D / 4 (K3), R · (S·L | 1) (K4).
-size_t fused_step_smem_bytes(int R, int QW, int wq, int wr) {
-  const int wmax = wq > wr ? wq : wr;
-  return sizeof(float) * ((size_t)QW + 3 * (size_t)R + 2 * (size_t)wmax +
-                          kClauseSlots + kWarps + 1);
+size_t fused_step_smem_bytes(int R, int QW, int M, int K) {
+  return sizeof(float) * ((size_t)QW + 5 * (size_t)R + (size_t)M +
+                          (size_t)K + kClauseSlots + kWarps + 1);
 }
 
 int fused_step_f32(
@@ -219,8 +232,8 @@ int fused_step_f32(
     const void* res_idx,
     void* out_cand_dist, void* out_cand_pay, void* out_res_dist,
     void* out_res_idx, void* out_valid, void* out_counts,
-    int B, int R, int D, int M, int K, int W, int V, int S, int T,
-    int wq, int wr, int pre, void* stream) {
+    int B, int R, int D, int M, int K, int W, int V, int S, int T, int pre,
+    void* stream) {
   StepArgs a = {};
   a.prec = kF32;
   a.q = static_cast<const float*>(q);
@@ -238,16 +251,15 @@ int fused_step_f32(
       out_counts};
   set_tail(a, tail);
   a.prog.S = S; a.prog.T = T; a.prog.W = W; a.prog.V = V;
-  a.R = R; a.D = D; a.M = M; a.K = K;
-  a.wq = wq; a.wr = wr; a.pre = pre;
+  a.R = R; a.D = D; a.M = M; a.K = K; a.pre = pre;
   a.QW = D;
   return launch(a, B, stream);
 }
 
 // K3 / K4. ptrs: codes, xn, qq (K3) | lut (K4), sq (K3; null for K4), qn,
 // then the shared tail of set_tail (28 pointers); dims: B, R, D, M, K, W,
-// V, S, T, wq, wr, pre, prec (1 = int8, 2 = pq), Kc, where D is d (int8,
-// a multiple of 4) or S·L (pq).
+// V, S, T, pre, prec (1 = int8, 2 = pq), Kc, where D is d (int8, a
+// multiple of 4) or S·L (pq).
 int fused_step_quant(void* const* ptrs, const int* dims, void* stream) {
   StepArgs a = {};
   a.codes = ptrs[0];
@@ -257,8 +269,7 @@ int fused_step_quant(void* const* ptrs, const int* dims, void* stream) {
   const int B = dims[0];
   a.R = dims[1]; a.D = dims[2]; a.M = dims[3]; a.K = dims[4];
   a.prog.W = dims[5]; a.prog.V = dims[6]; a.prog.S = dims[7];
-  a.prog.T = dims[8]; a.wq = dims[9]; a.wr = dims[10]; a.pre = dims[11];
-  a.prec = dims[12]; a.Kc = dims[13];
+  a.prog.T = dims[8]; a.pre = dims[9]; a.prec = dims[10]; a.Kc = dims[11];
   if (a.prec == kInt8) {
     a.qq = static_cast<const int8_t*>(ptrs[2]);
     a.sq = static_cast<const float*>(ptrs[3]);

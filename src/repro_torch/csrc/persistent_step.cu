@@ -10,7 +10,7 @@
 // Design. One thread block per lane loops over the steps; lanes share
 // nothing, so no block waits for another. The candidate queue (distance +
 // packed payload, kernels/topk.py::pack_payload), the result set, the
-// counters and the query row stay in shared memory across steps (≈20 KB
+// counters and the query row stay in shared memory across steps (≈12 KB
 // at M=512, d=768); the merges write into a second pair of buffers, then
 // the two swap, since the old payloads now live in shared memory. The
 // visited bitset (⌈N/32⌉ words per lane, 125 KB at N=1M) stays in device
@@ -43,12 +43,19 @@
 // What bounds it on an H100: neither bytes nor operations but the latency
 // of each lane's serial step chain. The bytes a launch must move are the
 // new rows it gathers (≤ R·d·4 B = 98 KB per lane-step at R=32, d=768;
-// ≈15 µs for 8 steps of 64 lanes at 3.35 TB/s); each step, however, is a
-// chain of dependent reads (pop → id row → visited words → rows) and about
-// 60 barrier stages of bitonic merging, on 64 of the 132 SMs at B=64. The
-// design removes the host from the chain — one launch and one readback per
-// `steps` steps instead of ≈100 launches per step — and leaves the merge
-// network, K1's, for a later speed PR.
+// ≈15 µs for 8 steps of 64 lanes at 3.35 TB/s), but the steps of a lane
+// run one after another, each waiting on the last. The design removes the
+// host from that chain — one launch and one readback per `steps` steps
+// instead of ≈100 launches per step — and merges by rank
+// (step_common.cuh::merge_by_rank, K1's merge): the new run rank-sorted
+// by one warp's shuffles, every entry placed by binary search in the
+// other run, straight from and into the shared-memory buffers. That
+// replaces the 1024- and 64-wide bitonic sorts, 76 barrier stages a step,
+// with one barrier, and frees their 8 KB of key and position buffers.
+// What is left on a step's critical path is the chain of dependent reads
+// pop → id row → visited words → rows, with its barriers, on one block
+// per lane, 64 of the 132 SMs at B=64. The distance and staging code is
+// unchanged.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -119,7 +126,7 @@ struct PersistArgs {
   const float* lut;         // [B, SL, Kc] lookup table (pq)
   const float* q_err_sum;   // [B]
   float* o_q_err_sum;       // [B]
-  int B, R, D, M, K, NW, steps, greedy, wq, wr;
+  int B, R, D, M, K, NW, steps, greedy;
   int prec, Kc, QW, P;      // head; PQ Kc; query-head words; pow2 >= R
 };
 
@@ -128,7 +135,6 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M, K = a.K, R = a.R, D = a.D;
-  const int wmax = a.wq > a.wr ? a.wq : a.wr;
   const int W = a.prog.W, V = a.prog.V;
   float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
   float* cd = qs + a.QW;                                // [M] x 2
@@ -143,9 +149,9 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   int* vld = reinterpret_cast<int*>(dist + R);          // [R]
   int* isnew = vld + R;                                 // [R]
   int* nbs = isnew + R;                                 // [R]
-  float* key = reinterpret_cast<float*>(nbs + R);       // [wmax]
-  int* pos = reinterpret_cast<int*>(key + wmax);        // [wmax]
-  int* ccnt = pos + wmax;                               // [4]
+  float* nkq = reinterpret_cast<float*>(nbs + R);       // [R] new keys,
+  float* nkr = nkq + R;                                 // [R] sorted
+  int* ccnt = reinterpret_cast<int*>(nkr + R);          // [4]
   float* red = reinterpret_cast<float*>(ccnt + kClauseSlots);  // [kWarps + 1]
   float* popk = red + kWarps + 1;                       // [kWarps]
   int* pops = reinterpret_cast<int*>(popk + kWarps);    // [kWarps]
@@ -325,10 +331,9 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
         for (int i = 0; i < h; ++i) ebuf[i] = __fadd_rn(ebuf[i], ebuf[i + h]);
 
     // ---- merges into the second buffers, then swap ----
-    step::queue_merge(cd, cp, dist, isnew, vld, nbs, M, R, a.wq, key, pos,
-                      cd2, cp2);
-    step::result_merge(rd, ri, dist, isnew, vld, nbs, K, R, a.wr, key, pos,
-                       rd2, ri2);
+    step::merge_by_rank(cd, cp, rd, ri, dist, isnew, vld, nbs, M, K, R, nkq,
+                        nkr, cd2, cp2, rd2, ri2);
+    __syncthreads();
     { float* t = cd; cd = cd2; cd2 = t; }
     { int* t = cp; cp = cp2; cp2 = t; }
     { float* t = rd; rd = rd2; rd2 = t; }
@@ -383,17 +388,15 @@ extern "C" {
 // Dynamic shared memory the kernel needs for these widths, in bytes; QW is
 // the distance head's words: D (float32), D / 4 (int8), R · (S·L | 1)
 // (pq: the staged lookups); P the next power of 2 >= R.
-size_t persistent_step_smem_bytes(int R, int QW, int M, int K, int wq, int wr,
-                                  int P) {
-  const int wmax = wq > wr ? wq : wr;
+size_t persistent_step_smem_bytes(int R, int QW, int M, int K, int P) {
   return sizeof(float) * ((size_t)QW + 4 * (size_t)M + 4 * (size_t)K +
-                          4 * (size_t)R + 2 * (size_t)wmax + kClauseSlots +
-                          3 * kWarps + 1 + 4 + (size_t)P);
+                          6 * (size_t)R + kClauseSlots + 3 * kWarps + 1 + 4 +
+                          (size_t)P);
 }
 
 // ptrs: the 56 pointers of PersistArgs in declaration order (gt, and the
 // codec pointers under float32, may be null); dims: B, R, D, M, K, W, V, S,
-// T, NW, steps, greedy, wq, wr, prec (0 = float32, 1 = int8, 2 = pq), Kc,
+// T, NW, steps, greedy, prec (0 = float32, 1 = int8, 2 = pq), Kc,
 // where steps is the number of steps this launch may take and D is d
 // (float32; int8, a multiple of 4) or S·L (pq).
 int persistent_step_f32(void* const* ptrs, const int* dims, void* stream) {
@@ -459,13 +462,12 @@ int persistent_step_f32(void* const* ptrs, const int* dims, void* stream) {
   a.B = dims[0]; a.R = dims[1]; a.D = dims[2]; a.M = dims[3]; a.K = dims[4];
   a.prog.W = dims[5]; a.prog.V = dims[6]; a.prog.S = dims[7];
   a.prog.T = dims[8]; a.NW = dims[9]; a.steps = dims[10]; a.greedy = dims[11];
-  a.wq = dims[12]; a.wr = dims[13]; a.prec = dims[14]; a.Kc = dims[15];
+  a.prec = dims[12]; a.Kc = dims[13];
   if (a.prec < kF32 || a.prec > kPQ) return (int)cudaErrorInvalidValue;
   a.QW = a.prec == kF32 ? a.D : a.prec == kInt8 ? a.D / 4 : a.R * (a.D | 1);
   a.P = 1;
   while (a.P < a.R) a.P <<= 1;
-  const size_t smem = persistent_step_smem_bytes(a.R, a.QW, a.M, a.K, a.wq,
-                                                 a.wr, a.P);
+  const size_t smem = persistent_step_smem_bytes(a.R, a.QW, a.M, a.K, a.P);
   static bool opted_in[step::kMaxDevices] = {};
   cudaError_t err = step::opt_in_smem_once(persistent_step_kernel, opted_in);
   if (err != cudaSuccess) return (int)err;

@@ -7,10 +7,10 @@
 // thread-to-element mapping, so K1, K5 and K6 give bitwise-equal distances
 // for the same (query, row) pair; the codec distances `row_int8_dist` (K3
 // and K5's int8 branch) and `pq_dist_staged` (K4 and K5's pq branch)
-// likewise. The merges sort (distance, position in
-// [old | new | pad]) pairs; positions are distinct, so the bitonic network
-// realizes a total order equal to a stable argsort over [old | new] — the
-// order the reference's host path and dense backend give, ties included.
+// likewise. The merges (`merge_by_rank`) place every entry by its rank in
+// the stable argsort order over [old | new] — the order the reference's
+// host path and dense backend give, ties included — relying on the old
+// queue and result set being sorted ascending, as `SearchState` keeps them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -201,81 +201,109 @@ __device__ __forceinline__ bool program_eval(const Program& p, int b,
   return valid;
 }
 
-// Ascending bitonic sort of distinct (key, pos) pairs; width is a power of 2.
-__device__ void bitonic_sort(float* key, int* pos, int width) {
-  for (int k = 2; k <= width; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < width; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p > i) {
-          const float ka = key[i], kb = key[p];
-          const int pa = pos[i], pb = pos[p];
-          const bool greater = ka > kb || (ka == kb && pa > pb);
-          if (greater == ((i & k) == 0)) {
-            key[i] = kb; key[p] = ka;
-            pos[i] = pb; pos[p] = pa;
-          }
-        }
+// Number of entries of the ascending run a[0..n) that are < key (strict)
+// or <= key (!strict), by binary search.
+__device__ __forceinline__ int count_below(const float* a, int n, float key,
+                                           bool strict) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before = strict ? a[mid] < key : a[mid] <= key;
+    if (before) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Both merges of a step, by rank. Queue: best M of [old (cd, cp) | new],
+// the new entries being the R neighbors with key dmask ? dist : inf and
+// payload nb | vld << 30. Result set: best K of [old (rd, ri) | new], new
+// key vld && dmask ? dist : inf and payload nb. Old entries keep their
+// payloads. The output is the stable argsort order over [old | new]
+// (kernels/topk.py::merge_stable), ties included.
+//
+// cd [M] and rd [K] must be sorted ascending and lie in shared memory
+// (binary searches run in them); cp and ri may lie anywhere, and so may the
+// outputs, which must not alias the inputs. nkq, nkr [R] are shared
+// scratch. dist, dmask, vld and nb must be visible to the whole block on
+// entry. One barrier inside; none at the end, so a caller that reads the
+// outputs or reuses the inputs puts one after.
+//
+// 1. The new run is sorted by (key, position) through rank counting:
+//    warp w owns entries 32w..32w+31, one a lane, and takes the other
+//    entries' keys 32 at a time by __shfl_sync (one warp at R=32, five at
+//    R'=160). New entry r, of rank s in the new run, goes to
+//    s + #{old <= key_r}: old entries win ties. A masked entry's key is
+//    inf, so it lands at M (or K) or beyond and is never written.
+// 2. After the barrier, old entry i goes to i + #{new < d_i}, searched in
+//    the sorted new keys.
+// The ranks are a permutation of 0..M+R-1 (0..K+R-1), so every output
+// slot below M (K) is written exactly once.
+__device__ __forceinline__ void merge_by_rank(
+    const float* cd, const int* cp, const float* rd, const int* ri,
+    const float* dist, const int* dmask, const int* vld, const int* nb,
+    int M, int K, int R, float* nkq, float* nkr, float* out_cd, int* out_cp,
+    float* out_rd, int* out_ri) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int base = tid - lane; base < R; base += kThreads) {
+    const int r = base + lane;
+    const bool qm = r < R && dmask[r] != 0;
+    const bool rm = qm && vld[r] != 0;
+    const float d = qm ? dist[r] : inf_f();
+    const float kq = d, kr = rm ? d : inf_f();
+    int sq = 0, sr = 0;
+    for (int c = 0; c < R; c += 32) {
+      const int j = c + lane;
+      float cq = inf_f(), cr = inf_f();
+      if (j < R && dmask[j]) {
+        cq = dist[j];
+        if (vld[j]) cr = cq;
       }
-      __syncthreads();
+      for (int t = 0; t < 32; ++t) {
+        const float oq = __shfl_sync(0xffffffffu, cq, t);
+        const float orr = __shfl_sync(0xffffffffu, cr, t);
+        const bool first = c + t < r;  // position order among equal keys
+        sq += oq < kq || (oq == kq && first);
+        sr += orr < kr || (orr == kr && first);
+      }
+    }
+    if (r < R) {
+      nkq[sq] = kq;
+      nkr[sr] = kr;
+    }
+    if (qm) {
+      const int o = sq + count_below(cd, M, kq, false);
+      if (o < M) {
+        out_cd[o] = kq;
+        out_cp[o] = nb[r] | (vld[r] << 30);
+      }
+    }
+    if (rm) {
+      const int o = sr + count_below(rd, K, kr, false);
+      if (o < K) {
+        out_rd[o] = kr;
+        out_ri[o] = nb[r];
+      }
     }
   }
-}
-
-// Candidate queue: best M of [old (cd, cp) | new], new entries being the
-// R neighbors with dmask set (distance dist[r], payload nb | valid << 30).
-// wq = next power of 2 ≥ M + R. The outputs must not alias the inputs.
-// Starts and ends with the block in step (one barrier after the fill, one
-// at the end).
-__device__ __forceinline__ void queue_merge(
-    const float* cd, const int* cp, const float* dist, const int* dmask,
-    const int* vld, const int* nb, int M, int R, int wq, float* key, int* pos,
-    float* out_cd, int* out_cp) {
-  for (int i = threadIdx.x; i < wq; i += kThreads) {
-    float k = inf_f();
-    if (i < M) k = cd[i];
-    else if (i < M + R && dmask[i - M]) k = dist[i - M];
-    key[i] = k;
-    pos[i] = i;
-  }
   __syncthreads();
-  bitonic_sort(key, pos, wq);
-  for (int i = threadIdx.x; i < M; i += kThreads) {
-    const int p = pos[i];
-    int pay = -1;
-    if (p < M) pay = cp[p];
-    else if (p < M + R && dmask[p - M]) pay = nb[p - M] | (vld[p - M] << 30);
-    out_cd[i] = key[i];
-    out_cp[i] = pay;
+  for (int i = tid; i < M + K; i += kThreads) {
+    if (i < M) {
+      const float k = cd[i];
+      const int o = i + count_below(nkq, R, k, true);
+      if (o < M) {
+        out_cd[o] = k;
+        out_cp[o] = cp[i];
+      }
+    } else {
+      const int h = i - M;
+      const float k = rd[h];
+      const int o = h + count_below(nkr, R, k, true);
+      if (o < K) {
+        out_rd[o] = k;
+        out_ri[o] = ri[h];
+      }
+    }
   }
-  __syncthreads();
-}
-
-// Result set: best K of [old (rd, ri) | new valid], new entries being the
-// neighbors with vld and dmask set. wr = next power of 2 ≥ K + R. The
-// outputs must not alias the inputs. Ends with a barrier.
-__device__ __forceinline__ void result_merge(
-    const float* rd, const int* ri, const float* dist, const int* dmask,
-    const int* vld, const int* nb, int K, int R, int wr, float* key, int* pos,
-    float* out_rd, int* out_ri) {
-  for (int i = threadIdx.x; i < wr; i += kThreads) {
-    float k = inf_f();
-    if (i < K) k = rd[i];
-    else if (i < K + R && vld[i - K] && dmask[i - K]) k = dist[i - K];
-    key[i] = k;
-    pos[i] = i;
-  }
-  __syncthreads();
-  bitonic_sort(key, pos, wr);
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    const int p = pos[i];
-    int idx = -1;
-    if (p < K) idx = ri[p];
-    else if (p < K + R && vld[p - K] && dmask[p - K]) idx = nb[p - K];
-    out_rd[i] = key[i];
-    out_ri[i] = idx;
-  }
-  __syncthreads();
 }
 
 // Opt `kernel` into the device's largest dynamic shared memory, once per

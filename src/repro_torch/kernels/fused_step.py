@@ -12,6 +12,8 @@ per query lane:
   3. the post/pre distance mask and the payload `nb | valid << 30`;
   4. the top-M queue merge and the top-K result merge, ordered by
      (distance, position in `[old | new]`) — a stable argsort's order.
+     The kernel merges by rank, which relies on the old buffers being
+     sorted ascending (`SearchState`'s invariant); it does not check it.
 
 Under `precision="int8"` the same launch is K3 (replaces
 `_fused_step_int8_kernel`): step 2 becomes the int8 ADC distance
@@ -76,17 +78,11 @@ def fused_step_plain(q, x, nb, is_new, prog: FilterProgram, labels_g,
     return ocd, ocp, ordd, ori, valid, cadd
 
 
-def merge_widths(m: int, k: int, r: int) -> tuple[int, int]:
-    """Bitonic network widths of the queue and result merges: the next
-    powers of 2 ≥ M + R and ≥ K + R."""
-    return 1 << (m + r - 1).bit_length(), 1 << (k + r - 1).bit_length()
-
-
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_step")
     fn = lib.fused_step_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 12 + [
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fq = lib.fused_step_quant
@@ -176,9 +172,8 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
             (cand_pay, "cand_pay", i32, (b, m)),
             (res_dist, "res_dist", f32, (b, k)),
             (res_idx, "res_idx", i32, (b, k))))
-    wq, wr = merge_widths(m, k, r)
     lib = _lib()
-    smem = lib.fused_step_smem_bytes(r, qwords, wq, wr)
+    smem = lib.fused_step_smem_bytes(r, qwords, m, k)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused_step needs {smem} B of shared memory at d={d}, R={r}, "
@@ -194,17 +189,17 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
     stream = torch.cuda.current_stream(dev).cuda_stream
     fused_step.launches[precision] += 1
     if compressed:
-        # the 28 pointers and 14 sizes of csrc/fused_step.cu's
+        # the 28 pointers and 12 sizes of csrc/fused_step.cu's
         # fused_step_quant, in order
         ptrs = [0 if a is None else a.data_ptr() for a in (*head, *tail)]
-        dims = [b, r, d, m, k, w, v, s, t, wq, wr, int(pre),
+        dims = [b, r, d, m, k, w, v, s, t, int(pre),
                 1 if precision == "int8" else 2, kc]
         err = lib.fused_step_quant((ctypes.c_void_p * len(ptrs))(*ptrs),
                                    (ctypes.c_int * len(dims))(*dims), stream)
     else:
         ptrs = [a.data_ptr() for a in (q, x, *tail)]
-        err = lib.fused_step_f32(*ptrs, b, r, d, m, k, w, v, s, t, wq, wr,
-                                 int(pre), stream)
+        err = lib.fused_step_f32(*ptrs, b, r, d, m, k, w, v, s, t, int(pre),
+                                 stream)
     _build.check(err, "fused_step")
     return ocd, ocp, ordd, ori, valid, counts
 

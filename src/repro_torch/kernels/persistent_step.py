@@ -18,7 +18,9 @@ error), label words and values straight from `base_vectors` (or the
 quant index), `attrs[0]` and `attrs[1]`.
 
 The state passed in is consumed: its visited bitset is updated in place,
-as `run_search` documents. Bound on an H100: the latency of each lane's
+as `run_search` documents. Its candidate queue and result set must be
+sorted ascending (`SearchState`'s invariant): the kernel merges by rank
+and does not check it. Bound on an H100: the latency of each lane's
 serial step chain, not bytes or operations; the note in
 `csrc/persistent_step.cu` says what the design does about it. On CPU
 tensors the wrapper runs `persistent_multi_step_plain`; on CUDA tensors
@@ -34,7 +36,6 @@ import torch
 from repro_torch.filters.compile import CLAUSE_FEATURE_SLOTS, MAX_SLOTS
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
-from repro_torch.kernels.fused_step import merge_widths
 
 
 def _n_steps(steps: int, rem: int) -> int:
@@ -68,7 +69,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         sm = lib.persistent_step_smem_bytes
-        sm.argtypes, sm.restype = [ctypes.c_int] * 7, ctypes.c_size_t
+        sm.argtypes, sm.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     return lib
 
 
@@ -177,9 +178,8 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
             precision, quant, qprep, n, b, r)
         checks += specs + [(state.q_err_sum, "q_err_sum", f32, (b,))]
     _build.check_tensors("persistent_multi_step", dev, checks)
-    wq, wr = merge_widths(m, k, r)
     lib = _lib()
-    smem = lib.persistent_step_smem_bytes(r, qwords, m, k, wq, wr,
+    smem = lib.persistent_step_smem_bytes(r, qwords, m, k,
                                           1 << (r - 1).bit_length())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -203,7 +203,7 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
         None if precision == "float32" else state.q_err_sum,
         None if precision == "float32" else q_err)]
     dims = [b, r, row_d, m, k, w, v, s, t, nw, _n_steps(steps, rem),
-            int(cfg.greedy_stop), wq, wr, prec_id, kc]
+            int(cfg.greedy_stop), prec_id, kc]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_dims = (ctypes.c_int * len(dims))(*dims)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -6,8 +6,10 @@ its row-id variant `sqdist_rows_plain`) and K7 (`topm_merge_plain`) take
 the same numpy-made inputs as the reference's host path / interpret-mode
 kernels and `kernels/ref.py` oracles. The CUDA kernels themselves are held
 against the plain versions by the `cuda`-marked tests (and by
-chip_smoke.py on the card). K5 has its own file,
-tests/test_torch_persistent.py.
+chip_smoke.py on the card), tie cases included. K5's plain version has
+its own file, tests/test_torch_persistent.py. The merge by rank that
+K1/K3/K4 and K5 share has no CPU mode: a torch transcription of its rank
+formulas is held to `merge_stable` here, under heavy ties.
 
 Tolerances: ids, payloads, masks and counts must be equal; float32
 distances agree to rtol/atol 1e-5 (the two packages sum in different
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _hyp_compat import given, settings, st  # hypothesis or fallback
 from repro_torch.convert import gbdt_from_arrays, program_to_torch
 from repro_torch.core.gbdt import train_gbdt
 from repro_torch.filters.compile import FilterProgram
@@ -38,6 +41,7 @@ from repro_torch.kernels.topk import (pack_payload, topm_merge,
 #     python -m pytest -m cuda tests/test_torch_kernels.py
 
 NAMES = ("cand_dist", "cand_pay", "res_dist", "res_idx", "valid", "clause_add")
+INF = float("inf")
 
 
 def _program(rng, b, n_words, n_values, max_slots=3, max_terms=2):
@@ -190,17 +194,117 @@ def test_fused_step_kernel_matches_plain_on_cuda(pre):
         _assert_step_equal(got, want, exact_dist=integer)
 
 
+# ------------------------------------------- merge by rank (K1, K5) ----
+def _merge_by_rank(cd, cp, rd, ri, dist, dmask, vld, nb):
+    """A torch transcription of `csrc/step_common.cuh::merge_by_rank`, the
+    merge of K1/K3/K4 and K5, for lanes [B, ...]: the new run rank-sorted
+    by (key, position), new entry s of it placed at s + #{old <= key},
+    old entry i at i + #{new < d_i}, each written when its slot is below
+    M (K). Returns the merged queue and result set, and how many times
+    each output slot was written."""
+    b, m = cd.shape
+    k, r = rd.shape[1], dist.shape[1]
+    inf = torch.tensor(float("inf"))
+    kq = torch.where(dmask, dist, inf)
+    kr = torch.where(dmask & vld, dist, inf)
+    first = torch.arange(r)[:, None] < torch.arange(r)[None, :]  # j before r
+
+    def rank(key):  # [B, R]: #{j : (key_j, j) < (key_r, r)}
+        kj, kk = key[:, :, None], key[:, None, :]
+        return ((kj < kk) | ((kj == kk) & first)).sum(1)
+
+    def place(out_d, out_p, hits, o, keys, pays, write):
+        sel = write & (o < out_d.shape[1])
+        lane = torch.arange(b)[:, None].expand_as(o)[sel]
+        out_d[lane, o[sel]] = keys[sel]
+        out_p[lane, o[sel]] = pays[sel]
+        hits.index_put_((lane, o[sel]), torch.ones_like(lane), accumulate=True)
+
+    outs = []
+    for key, old_d, old_p, width, write, pay in (
+            (kq, cd, cp, m, dmask, nb | (vld.to(torch.int32) << 30)),
+            (kr, rd, ri, k, dmask & vld, nb)):
+        s = rank(key)
+        new_sorted = torch.full_like(key, float("inf")).scatter(1, s, key)
+        out_d = torch.full((b, width), float("nan"))
+        out_p = torch.full((b, width), -7, dtype=torch.int32)
+        hits = torch.zeros((b, width), dtype=torch.int64)
+        place(out_d, out_p, hits,
+              s + torch.searchsorted(old_d, key, right=True), key, pay, write)
+        place(out_d, out_p, hits,
+              torch.arange(width) + torch.searchsorted(new_sorted, old_d),
+              old_d, old_p, torch.ones_like(old_d, dtype=torch.bool))
+        outs.append((out_d, out_p, hits))
+    return outs
+
+
+@pytest.mark.parametrize("m,r,k", [(512, 32, 10), (512, 160, 10), (8, 3, 2)])
+def test_merge_by_rank_formulas_equal_merge_stable(m, r, k):
+    """The rank formulas K1/K3/K4 and K5 merge by == `merge_stable` (a
+    stable argsort over [old | new], the plain versions' merge) on both
+    buffers, payloads included, under heavy ties: keys from a handful of
+    values, new keys equal to old ones, all-inf new runs and inf-padded
+    (or all-inf) old runs; every output slot is written exactly once."""
+    from repro_torch.kernels.topk import merge_stable
+
+    b = 4
+
+    @settings(max_examples=40, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), n_vals=st.integers(1, 4),
+           old_frac=st.integers(0, 4), masked=st.integers(0, 4))
+    def check(seed, n_vals, old_frac, masked):
+        rng = np.random.default_rng(seed)
+        vals = np.sort(rng.choice([0.0, 0.25, 0.5, 1.0, 2.5, 7.0], n_vals,
+                                  replace=False)).astype(np.float32)
+        # old runs: sorted, the first old_frac/4 of each finite
+        cd = np.full((b, m), np.inf, np.float32)
+        rd = np.full((b, k), np.inf, np.float32)
+        fq, fr = m * old_frac // 4, k * old_frac // 4
+        cd[:, :fq] = np.sort(rng.choice(vals, (b, fq)), axis=1)
+        rd[:, :fr] = np.sort(rng.choice(vals, (b, fr)), axis=1)
+        cp = np.where(np.isinf(cd), -1, rng.integers(0, 1 << 29, (b, m)))
+        ri = np.where(np.isinf(rd), -1, rng.integers(0, 1 << 29, (b, k)))
+        # new runs: keys from the same values (ties with the old run), on
+        # masked/4 of them dmask is off (masked=4: an all-inf new run)
+        dist = rng.choice(vals, (b, r)).astype(np.float32)
+        dmask = rng.random((b, r)) >= masked / 4
+        vld = rng.random((b, r)) < 0.6
+        nb = rng.integers(0, 1 << 29, (b, r))
+        t = lambda a, dt=None: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a if dt is None else a.astype(dt)))
+        cd, rd, dist = t(cd), t(rd), t(dist)
+        cp, ri, nb = t(cp, np.int32), t(ri, np.int32), t(nb, np.int32)
+        dmask, vld = t(dmask), t(vld)
+        (qd, qp, qh), (rdd, rp, rh) = _merge_by_rank(cd, cp, rd, ri, dist,
+                                                     dmask, vld, nb)
+        inf = torch.tensor(float("inf"))
+        pay = torch.where(dmask, nb | (vld.to(torch.int32) << 30), -1)
+        wd, (wp,) = merge_stable(cd, (cp,), torch.where(dmask, dist, inf),
+                                 (pay.to(torch.int32),), m)
+        take = dmask & vld
+        wrd, (wri,) = merge_stable(rd, (ri,), torch.where(take, dist, inf),
+                                   (torch.where(take, nb, -1),), k)
+        assert (qh == 1).all() and (rh == 1).all()
+        assert torch.equal(qd, wd) and torch.equal(qp, wp)
+        assert torch.equal(rdd, wrd) and torch.equal(rp, wri)
+
+    check()
+
+
 # ------------------------------------------------------------ K3, K4 ----
 def _quant_step_inputs(rng, precision, b, m, r, k, n=600, d=24,
-                       device="cpu"):
+                       device="cpu", distinct=None):
     """A port quant index over grid vectors (int8: scale 1/32; PQ: trained
     codebooks rounded to the grid 1/64, 2 levels), grid queries, and one
-    step's gathered inputs: every ADC distance exact in float32."""
+    step's gathered inputs: every ADC distance exact in float32.
+    `distinct` rows, repeated over the n, make equal distances common."""
     from repro_torch.quant import codecs as P
 
     grid = lambda a: np.round(a * 64) / 64  # noqa: E731
-    vecs = torch.from_numpy(grid(rng.normal(size=(n, d)) * 0.3)
-                            .astype(np.float32))
+    vecs = grid(rng.normal(size=(distinct or n, d)) * 0.3)
+    if distinct:
+        vecs = vecs[rng.integers(0, distinct, n)]
+    vecs = torch.from_numpy(vecs.astype(np.float32))
     q = np.clip(grid(rng.normal(size=(b, d)) * 0.3), -127 / 64, 127 / 64)
     if precision == "int8":
         q[:, 0] = 127 / 64  # query step sq = 1/2048
@@ -281,6 +385,68 @@ def test_fused_step_quant_kernel_matches_plain_on_cuda(precision, pre):
     want = [t.cpu().numpy() for t in fused_step_plain(
         *args, pre=pre, quant=qg, precision=precision)]
     _assert_step_equal(got, want, exact_dist=True)
+
+
+def _with_ties(args, dnew, rng):
+    """One step's inputs rebuilt for ties in the merges: old queue and
+    result keys taken from the new distances `dnew` [B, R] (equal keys
+    across old and new), an all-inf queue and result set in lanes 1 mod 3,
+    every new entry masked (none first-visit) in lanes 2 mod 3."""
+    q, x, nb, is_new, prog, labels, values, cd, cp, rd, ri = args
+    b, m = cd.shape
+    k, r = rd.shape[1], dnew.shape[1]
+    base = torch.sort(dnew.cpu(), dim=1).values
+    half = base.repeat(1, (m // 2 + r - 1) // r)[:, : m // 2]
+    cd = torch.sort(torch.cat([half, torch.full((b, m - m // 2), INF)], 1),
+                    dim=1).values
+    rd = torch.sort(torch.cat([base[:, : k // 2].repeat(1, 2)[:, : k // 2],
+                               torch.full((b, k - k // 2), INF)], 1),
+                    dim=1).values
+    cd[1::3] = INF
+    rd[1::3] = INF
+    cp = torch.from_numpy(rng.integers(0, 1 << 29, (b, m)).astype(np.int32))
+    ri = torch.from_numpy(rng.integers(0, 1 << 29, (b, k)).astype(np.int32))
+    cp[torch.isinf(cd)] = -1
+    ri[torch.isinf(rd)] = -1
+    is_new = is_new.clone()
+    is_new[2::3] = False
+    dev = nb.device
+    return (q, x, nb, is_new.to(dev), prog, labels, values, cd.to(dev),
+            cp.to(dev), rd.to(dev), ri.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,r", [("float32", 32), ("float32", 160),
+                                         ("int8", 32), ("pq", 32)])
+@pytest.mark.parametrize("pre", [False, True])
+def test_fused_step_merge_ties_match_plain_on_cuda(precision, r, pre):
+    """K1 (R=32 and the widened R'=160), K3 and K4 on the card == their
+    plain version in every field, bit for bit, on grid data whose rows
+    repeat: new distances equal to queued ones, all-inf queues and runs
+    with every new entry masked (`_with_ties`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels K1/K3/K4 have no CPU mode)")
+    from repro_torch.kernels.distance import sqdist_bdrd
+    from repro_torch.quant.codecs import quant_dist
+
+    rng = np.random.default_rng(23 + r)
+    b, m, k, d = 12, 128, 10, 64
+    if precision == "float32":
+        a = _inputs(rng, b, m, r, k, d, integer=True, compiled=False)
+        a[1][:] = a[1][:, np.arange(r) % 4]   # 4 distinct rows a lane
+        args, kw = _torch_args(a, "cuda"), {}
+        dnew = sqdist_bdrd(args[0], args[1])
+    else:
+        args, qg, _, _ = _quant_step_inputs(rng, precision, b, m, r, k,
+                                            d=d, device="cuda", distinct=6)
+        kw = dict(quant=qg, precision=precision)
+        dnew = quant_dist(precision, qg)
+    args = _with_ties(args, dnew, rng)
+    got = [t.cpu().numpy() for t in fused_step(*args, pre=pre, **kw)]
+    want = [t.cpu().numpy() for t in fused_step_plain(*args, pre=pre, **kw)]
+    _assert_step_equal(got, want, exact_dist=True)
+    with np.errstate(invalid="ignore"):  # inf - inf pads
+        assert (np.diff(want[0][0::3], axis=1) == 0).any(), "no ties"
 
 
 def test_payload_pack_roundtrip():
@@ -525,6 +691,78 @@ def test_persistent_kernel_codecs_match_plain_on_cuda(precision):
         for name, g, w in zip(got._fields, state_to_numpy(got),
                               state_to_numpy(want)):
             np.testing.assert_array_equal(g, w, f"steps={steps}: {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "int8", "pq"])
+def test_persistent_kernel_merge_ties_match_plain_on_cuda(precision):
+    """K5's three branches on the card == the plain version in every field
+    on grid data with 16 distinct rows (queued and new distances equal),
+    with lanes whose queue is all inf (1 mod 4), lanes whose every
+    neighbor is already visited, so each new run is all masked (2 mod 4),
+    and lanes fresh from init_state (3 mod 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K5 has no CPU mode)")
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import SearchConfig, init_state
+    from repro_torch.filters import FilterSpec
+    from repro_torch.filters.compile import compile_spec
+    from repro_torch.filters.predicates import PRED_RANGE
+    from repro_torch.kernels.persistent_step import (
+        persistent_multi_step, persistent_multi_step_plain)
+
+    rng = np.random.default_rng(8)
+    n, dim, r, b, m, k = 2048, 64, 16, 24, 64, 8
+    dev = "cuda"
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    kw = {}
+    if precision == "float32":
+        pool = np.clip(np.round(rng.normal(size=(16, dim)) * 4) / 8, -2, 2)
+        vecs = t(pool[rng.integers(0, 16, n)].astype(np.float32))
+        queries = t((np.round(rng.normal(size=(b, dim)) * 4) / 8)
+                    .astype(np.float32))
+    else:
+        _, _, index, prep = _quant_step_inputs(rng, precision, b, m, r, k,
+                                               n=n, d=dim, device=dev,
+                                               distinct=16)
+        vecs = torch.zeros((n, dim), device=dev)  # unread under a codec
+        queries = torch.zeros((b, dim), device=dev)
+        kw = dict(quant=index, qprep=prep)
+    nbrs = rng.integers(0, n, size=(n, r)).astype(np.int32)
+    nbrs[::3, 2] = nbrs[::3, 1]
+    labels = rng.integers(0, 1 << 16, size=(n, 1)).astype(np.int32)
+    values = rng.random((n, 1)).astype(np.float32)
+    spec = FilterSpec(PRED_RANGE, None, np.full(b, 0.1, np.float32),
+                      np.full(b, 0.8, np.float32))
+    cfg = SearchConfig(k=k, queue_size=m, degree=r, precision=precision)
+    prog = program_to_torch(compile_spec(spec, 1), dev)
+    args = (cfg, queries, prog, vecs, (t(labels), t(values)), t(nbrs),
+            t(rng.integers(30, 400, size=b).astype(np.int32)))
+    fresh = init_state(cfg, queries, prog, vecs, args[4], 0, **kw)
+    copy = lambda s: type(s)(*(a.clone() for a in s))  # noqa: E731
+    state = persistent_multi_step_plain(*args, copy(fresh), 10 ** 6, None,
+                                        steps=4, **kw)
+    for f in state._fields:
+        getattr(state, f)[3::4] = getattr(fresh, f)[3::4]
+    state.cand_dist[1::4] = INF
+    state.cand_idx[1::4] = -1
+    state.cand_exp[1::4] = False
+    state.cand_valid[1::4] = False
+    state.res_dist[1::4] = INF
+    state.res_idx[1::4] = -1
+    state.visited[2::4] = -1
+    for steps in (1, 8, 40):
+        got = persistent_multi_step(*args, copy(state), 10 ** 6, None,
+                                    steps=steps, **kw)
+        want = persistent_multi_step_plain(*args, copy(state), 10 ** 6, None,
+                                           steps=steps, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(got._fields, state_to_numpy(got),
+                              state_to_numpy(want)):
+            np.testing.assert_array_equal(g, w, f"steps={steps}: {name}")
+    cd = state_to_numpy(want)[0]
+    with np.errstate(invalid="ignore"):  # inf - inf pads
+        assert (np.diff(cd[0::4], axis=1) == 0).any(), "no ties"
 
 
 # ---------------------------------------------------------------- K7 ----

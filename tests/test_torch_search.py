@@ -149,6 +149,81 @@ def test_visited_repeated_id_carries_like_reference(world):
     assert_state_equal(got, ref, "repeated ids")
 
 
+PRODUCERS = ["init", "scan", "planned"] + [
+    f"{mode}/{backend}" for mode in ("post", "pre", "widen", "int8", "pq")
+    for backend in ("dense", "fused", "persistent")]
+
+
+def _planner():
+    """A small port planner: heads fitted to random labels, so lanes go
+    to more than one plan."""
+    from repro_torch.core.estimator import CostEstimator
+    from repro_torch.core.features import N_FEATURES
+    from repro_torch.core.planner import STATIC_FEATURE_NAMES, Planner
+
+    rng = np.random.default_rng(0)
+    fit = lambda f, lo, hi: CostEstimator.fit(  # noqa: E731
+        rng.random((64, f)).astype(np.float32), rng.integers(lo, hi, 64),
+        n_trees=4, depth=2)
+    return Planner(traverse=fit(N_FEATURES, 50, 400),
+                   widen=fit(N_FEATURES, 50, 400),
+                   static=fit(len(STATIC_FEATURE_NAMES), 20, 60),
+                   scan_floor=64)
+
+
+@pytest.mark.parametrize("producer", PRODUCERS)
+def test_states_keep_buffers_sorted(world, producer):
+    """`cand_dist` and `res_dist` are non-decreasing in every lane of every
+    SearchState the port produces — init_state, probe and resume on each
+    backend (plain versions here), pre and widen, the scan, the planner,
+    the int8 and PQ engines. K1/K3/K4 and K5 merge by rank and rely on
+    it."""
+    from repro_torch.core.planner import planned_search
+    from repro_torch.core.plans import scan_search
+    from repro_torch.quant import build_quant_index
+
+    ds, graph, _, eng = world
+    wl = _workload(ds, "contain")
+    filt = pspec(wl.spec)
+    cfg = SearchConfig(k=5, queue_size=32)
+    states = []
+    if producer == "init":
+        for kind in ("contain", "range"):
+            w = _workload(ds, kind)
+            states.append(init_state(
+                cfg, torch.from_numpy(w.queries), eng.compile(pspec(w.spec)),
+                eng.base_vectors, (eng.label_attrs, eng.value_attrs),
+                graph.entry_point))
+    elif producer == "scan":
+        states.append(scan_search(eng, cfg, wl.queries, filt))
+    elif producer == "planned":
+        res = planned_search(eng, _planner(), cfg, wl.queries, filt,
+                             probe_budget=32)
+        assert len(set(res.plan.tolist())) >= 2
+        states.append(res.state)
+    else:
+        mode, backend = producer.split("/")
+        if mode in ("int8", "pq"):
+            quant = build_quant_index(mode, ds.vectors, device="cpu",
+                                      pq_subspaces=4, pq_centroids=16,
+                                      pq_iters=4)
+            eng = engine_from_arrays(ds.vectors, ds.labels_packed,
+                                     ds.value_matrix, graph.neighbors,
+                                     graph.entry_point, device="cpu",
+                                     precision=mode, quant=quant)
+            mode = "post"
+        cfg = SearchConfig(k=5, queue_size=32, mode=mode, backend=backend)
+        budgets = np.linspace(20, 60, wl.batch).astype(np.int32)
+        states.append(eng.search(cfg, wl.queries, filt, budgets))
+        states.append(eng.search(cfg, wl.queries, filt, budgets * 8,
+                                 state=states[-1]))
+    for st in states:
+        for name in ("cand_dist", "res_dist"):
+            d = getattr(st, name)
+            assert bool((d[:, 1:] >= d[:, :-1]).all()), (producer, name)
+        assert torch.isfinite(st.cand_dist[:, 0]).any(), producer
+
+
 def test_post_mode_only():
     """Under a codec the step runs post mode only: the widened frontier of
     pre and widen mode is float32 until the quantized planning slice
