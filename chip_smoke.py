@@ -19,11 +19,15 @@ Phases, each printed as one JSON line with its wall seconds:
      (`k1_wide_check`, the same tolerances);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
   5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
-     d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones;
+     d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones,
+     and each pair bit for bit K1's (one K1 step from an all-inf queue);
      K6's row-id variant (the scan's and the oracle's distance) over an
-     N=1M store at V ∈ {4096, 65536} against its plain per-lane version,
-     and bit for bit against itself alone, padded and gathered
-     (`k6_scan_check`);
+     N=1M store at V ∈ {4096, 65536, 2^18}, and at B=130 (three lane
+     groups) over N=999,983 with unpassed rows and lanes, against its
+     plain per-lane version, and bit for bit against itself alone, padded,
+     reordered and gathered (`k6_scan_check`); the row-id variant timed
+     without the planner at the "mixed" scan's shape (B=64, V=2^19,
+     ≈11.1 M pairs) and the oracle's (`k6_rows_timing`);
   6. K7 (sorted-buffer merge) against `topm_merge_plain`, bit for bit,
      ties, R=1 and M=500 included, with the library call pair's time
      (`k7_check`);
@@ -157,6 +161,26 @@ def _kernel_events(prof):
     return [(e, e.self_device_time_total) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
+
+
+def kernel_breakdown(fn, iters: int = 3) -> dict:
+    """Device ms per call of each kernel (and memset) that `fn` launches,
+    by name, from one profile of `iters` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e, us in _kernel_events(prof):
+        name = e.key.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "").split("(")[0]
+        out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -560,6 +584,7 @@ def check_k6(device):
         else:
             require(np.allclose(got[mask], want[mask], rtol=1e-5, atol=0.0),
                     f"K6: distances beyond rtol 1e-5 (max abs err {err})")
+    k1_pairs = k6_equals_k1(device)
     ms = device_ms(lambda: sqdist_masked(qt, xt, mt))
     plain_ms = device_ms(lambda: sqdist_masked_plain(qt, xt, mt))
     call_ms = time_cuda(lambda: sqdist_masked(qt, xt, mt))
@@ -573,8 +598,45 @@ def check_k6(device):
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     emit({"phase": "k6_check", "ok": True,
-          "shapes": dict(B=b, R=r, d=d, unmasked_rows=rows), **out})
+          "shapes": dict(B=b, R=r, d=d, unmasked_rows=rows),
+          "equals_k1_bitwise_pairs": k1_pairs, **out})
     return out
+
+
+def k6_equals_k1(device) -> int:
+    """K6's value for each (query, row) pair == K1's, bit for bit, at B=64,
+    R=32, d=768, M=512 on exact and float inputs: one K1 step from an
+    all-inf queue stores every new pair's distance (M >= R), found again
+    by its payload (the row's position). Returns the pairs compared."""
+    import torch
+
+    from repro_torch.kernels.distance import sqdist_masked
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.topk import unpack_payload
+
+    b, r, d, m, k = EVAL_LANES, 32, DIM, 512, 10
+    rng = np.random.default_rng(16)
+    pairs = 0
+    for exact in (True, False):
+        args, _ = step_inputs(rng, b, r, d, m, k, 2, 2, exact, device)
+        args = list(args)
+        q, x = args[0], args[1]
+        args[2] = torch.arange(r, dtype=torch.int32,
+                               device=device).repeat(b, 1)
+        args[3] = torch.ones((b, r), dtype=torch.bool, device=device)
+        args[7] = torch.full_like(args[7], float("inf"))
+        args[8] = torch.full_like(args[8], -1)
+        cd, cp = fused_step(*args)[:2]
+        k6 = sqdist_masked(q, x, args[3])
+        pos = unpack_payload(cp[:, :r])[0].long()
+        torch.cuda.synchronize()
+        require(bool(torch.isinf(cd[:, r:]).all())
+                and torch.equal(torch.sort(pos, dim=1)[0], args[2].long()),
+                "K6 = K1: the step did not store every new pair")
+        require(torch.equal(cd[:, :r], torch.gather(k6, 1, pos)),
+                f"K6 = K1: a pair's distance differs (exact={exact})")
+        pairs += b * r
+    return pairs
 
 
 # ---------------------------------------------------------------- K7 ----
@@ -655,30 +717,40 @@ def check_k6_scan(device):
     N=1M, d=768 store: against its plain per-lane version (equal on grid
     data, rtol 1e-5 on float data), and bit for bit against itself with
     one lane alone, with 64·j padded rows, and against the gathered K6 on
-    the same rows. Layouts: the scan's (sorted ids, a masked tail) at
-    V ∈ {4096, 65536}, and the oracle's (one block of consecutive ids in
-    every lane, masked by validity) at its block width V = 2^18."""
+    the same rows, and with its lanes in another order. Layouts: the
+    scan's (sorted ids, a masked tail) at V ∈ {4096, 65536}, and the
+    oracle's (one block of consecutive ids in every lane, masked by
+    validity) at its block width V = 2^18, with B=64 (one lane group);
+    and the scan's at V=4096 with B=130 (three lane groups) over the first
+    N=999,983 rows (a multiple of no tile), ids below 0.8·N (rows that no
+    lane passes) and two lanes that pass no row."""
     import torch
 
     from repro_torch.kernels.distance import (SCAN_ALIGN, sqdist_masked,
                                               sqdist_rows, sqdist_rows_plain)
 
-    n, d, b = K5_N, DIM, EVAL_LANES
+    n_full, d, b_max = K5_N, DIM, 130
     g = torch.Generator(device=device).manual_seed(9)
     max_err, checked = 0.0, []
     for exact in (True, False):
         if exact:  # grid 1/8 in [-2, 2]: every distance exact in float32
-            base = torch.randint(-16, 17, (n, d), generator=g, device=device,
-                                 dtype=torch.int32).to(torch.float32) / 8
-            q = torch.randint(-16, 17, (b, d), generator=g, device=device,
-                              dtype=torch.int32).to(torch.float32) / 8
+            store = torch.randint(-16, 17, (n_full, d), generator=g,
+                                  device=device,
+                                  dtype=torch.int32).to(torch.float32) / 8
+            q_all = torch.randint(-16, 17, (b_max, d), generator=g,
+                                  device=device,
+                                  dtype=torch.int32).to(torch.float32) / 8
         else:
-            base = torch.randn((n, d), generator=g, device=device)
-            q = torch.randn((b, d), generator=g, device=device)
-        for v, layout in ((4096, "scan"), (65536, "scan"),
-                          (ORACLE_BLOCK, "oracle")):
+            store = torch.randn((n_full, d), generator=g, device=device)
+            q_all = torch.randn((b_max, d), generator=g, device=device)
+        for v, layout, b, n in ((4096, "scan", EVAL_LANES, n_full),
+                                (65536, "scan", EVAL_LANES, n_full),
+                                (ORACLE_BLOCK, "oracle", EVAL_LANES, n_full),
+                                (4096, "scan", b_max, n_full - 17)):
+            base, q = store[:n], q_all[:b]
+            hi = n if b == EVAL_LANES else int(0.8 * n)
             if layout == "scan":
-                ids = torch.sort(torch.randint(0, n, (b, v), generator=g,
+                ids = torch.sort(torch.randint(0, hi, (b, v), generator=g,
                                                device=device), dim=1)[0]
                 counts = torch.randint(v // 2, v + 1, (b, 1), generator=g,
                                        device=device)
@@ -688,6 +760,8 @@ def check_k6_scan(device):
                 ids = ids.expand(b, v)
                 sel = torch.rand((b, 1), generator=g, device=device) * 0.3
                 mask = torch.rand((b, v), generator=g, device=device) < sel
+            if b != EVAL_LANES:
+                mask[[1, b - 1]] = False
             ids = ids.to(torch.int32).contiguous()
             got = sqdist_rows(q, base, ids, mask)
             want = sqdist_rows_plain(q, base, ids, mask)
@@ -698,9 +772,11 @@ def check_k6_scan(device):
             lanes = (0, b // 3, b - 1)
             ones = [sqdist_rows(q[i:i + 1], base, ids[i:i + 1],
                                 mask[i:i + 1]) for i in lanes]
-            gl = b * 4096 // v  # gathered rows: 0.8 GB in every case
+            gl = EVAL_LANES * 4096 // v  # gathered rows: 0.8 GB a case
             gathered = sqdist_masked(q[:gl], base[ids[:gl].long()],
                                      mask[:gl])
+            perm = torch.randperm(b, generator=g, device=device)
+            moved = sqdist_rows(q[perm], base, ids[perm], mask[perm])
             torch.cuda.synchronize()
             require(torch.equal(torch.isinf(got), ~mask),
                     "K6 rows: +inf pattern is not the mask's complement")
@@ -720,14 +796,80 @@ def check_k6_scan(device):
                     f"K6 rows: a lane alone differs from the batch at V={v}")
             require(torch.equal(gathered, got[:gl]),
                     f"K6 rows: differs from the gathered K6 at V={v}")
-            checked.append(dict(V=v, layout=layout, exact=exact,
+            require(torch.equal(moved, got[perm]),
+                    f"K6 rows: reordered lanes differ at V={v}, B={b}")
+            checked.append(dict(V=v, layout=layout, B=b, N=n, exact=exact,
                                 max_abs_err=err))
-        del base
+            del got, want, wide, gathered, moved
+        del store, base
         torch.cuda.empty_cache()
-    emit({"phase": "k6_scan_check", "ok": True,
-          "shapes": dict(B=b, N=n, d=d), "cases": checked,
-          "max_abs_err": max_err, "lane_invariant": True,
-          "width_invariant": True, "equals_gathered_k6": True})
+    emit({"phase": "k6_scan_check", "ok": True, "shapes": dict(d=d),
+          "cases": checked, "max_abs_err": max_err, "lane_invariant": True,
+          "width_invariant": True, "lane_order_invariant": True,
+          "equals_gathered_k6": True})
+
+
+K6_ROWS_V = 1 << 19  # the "mixed" forced scan's width at N=1M
+
+
+def time_k6_rows(device, layout="scan"):
+    """K6's row-id variant timed without the planner at B=64, N=1M, d=768:
+    layout "scan" at V=2^19 with per-lane σ from 3e-06 to 0.48 like the
+    "mixed" forced scan's (each lane's passing rows ascending, a masked
+    tail; ≈11.1 M pairs), or "oracle" at V = ORACLE_BLOCK (rows 2^19 ..
+    2^19 + 2^18 in every lane, masked at the same σ). Held against the
+    plain version (+inf where masked, rtol 1e-5); device and call ms, the
+    device ms of each kernel the call launches, and the bound: each
+    distinct passing row once plus query, ids, mask and output, or 4·d
+    flops a pair."""
+    import torch
+
+    from repro_torch.kernels.distance import sqdist_rows, sqdist_rows_plain
+
+    n, d, b = K5_N, DIM, EVAL_LANES
+    g = torch.Generator(device=device).manual_seed(17)
+    base = torch.randn((n, d), generator=g, device=device)
+    q = torch.randn((b, d), generator=g, device=device)
+    sigma = np.maximum(3e-06, 0.48 * (np.arange(b) / (b - 1)) ** 1.76)
+    sig = torch.from_numpy(sigma.astype(np.float32)).to(device)[:, None]
+    if layout == "scan":
+        v = K6_ROWS_V
+        passing = torch.rand((b, n), generator=g, device=device) < sig
+        order = torch.argsort((~passing).to(torch.uint8), dim=1,
+                              stable=True)[:, :v]
+        mask = (torch.arange(v, device=device)[None]
+                < passing.sum(1, keepdim=True))
+        ids = torch.where(mask, order, 0).to(torch.int32).contiguous()
+        del passing, order
+    else:
+        v = ORACLE_BLOCK
+        ids = torch.arange(2 * v, 3 * v, dtype=torch.int32,
+                           device=device)[None].expand(b, v).contiguous()
+        mask = torch.rand((b, v), generator=g, device=device) < sig
+    got = sqdist_rows(q, base, ids, mask)
+    want = sqdist_rows_plain(q, base, ids, mask)
+    require(torch.equal(torch.isinf(got), ~mask)
+            and torch.equal(torch.isinf(want), ~mask),
+            f"K6 rows ({layout}): +inf pattern is not the mask's complement")
+    err = float((got[mask] - want[mask]).abs().max())
+    require(torch.allclose(got[mask], want[mask], rtol=1e-5, atol=0.0),
+            f"K6 rows ({layout}): beyond rtol 1e-5 (max abs err {err})")
+    del got, want
+    rows = int(mask.sum())
+    distinct = int(torch.unique(ids[mask]).numel())
+    nbytes = 4 * b * d + 9 * b * v + 4 * distinct * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * rows * d / FP32_FLOP_PER_S
+    call = lambda: sqdist_rows(q, base, ids, mask)  # noqa: E731
+    out = dict(max_abs_err=err, ms=device_ms(call, iters=5),
+               call_ms=time_cuda(call, iters=5, warmup=1),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "k6_rows_timing", "ok": True, "layout": layout,
+          "shapes": dict(B=b, N=n, d=d, V=v, passing_pairs=rows,
+                         distinct_rows=distinct, bytes=nbytes), **out,
+          "kernel_ms": kernel_breakdown(call)})
+    return out
 
 
 # ---------------------------------------------------------------- K5 ----
@@ -1984,6 +2126,8 @@ def main(argv=None) -> int:
     k2 = check_k2(device)
     k6 = check_k6(device)
     check_k6_scan(device)
+    for layout in ("scan", "oracle"):
+        time_k6_rows(device, layout)
     k7 = check_k7(device)
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}

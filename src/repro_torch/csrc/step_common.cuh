@@ -52,9 +52,18 @@ __device__ __forceinline__ float query_sqnorm(const float* q, float* qs, int D,
   return red[kWarps];
 }
 
+// max(qn + xx − 2·qx, 0), each operation rounded once: the squared L2 of a
+// (query, row) pair from the query's squared norm and the warp-summed ‖x‖²
+// and q·x. Every float32 traversal distance ends here.
+__device__ __forceinline__ float sqdist_of_sums(float qn, float xx, float qx) {
+  return fmaxf(__fsub_rn(__fadd_rn(qn, xx), __fmul_rn(2.f, qx)), 0.f);
+}
+
 // Squared L2 between the query (in shared memory, squared norm qn) and one
-// row, computed by one warp: max(qn + ‖x‖² − 2 q·x, 0). The value is valid
-// on lane 0.
+// row, computed by one warp: element i on lane i mod 32 in ascending i
+// (`xx += v * v; qx += qs[i] * v`, which nvcc contracts into FMAs), then
+// warp_sum. The value is valid on lane 0. K6 (sqdist.cu) keeps the row in
+// registers but sums in exactly this order.
 __device__ __forceinline__ float row_sqdist(const float* qs, const float* xr,
                                             int D, float qn, int lane) {
   float xx = 0.f, qx = 0.f;
@@ -63,9 +72,7 @@ __device__ __forceinline__ float row_sqdist(const float* qs, const float* xr,
     xx += v * v;
     qx += qs[i] * v;
   }
-  xx = warp_sum(xx);
-  qx = warp_sum(qx);
-  return fmaxf(__fsub_rn(__fadd_rn(qn, xx), __fmul_rn(2.f, qx)), 0.f);
+  return sqdist_of_sums(qn, warp_sum(xx), warp_sum(qx));
 }
 
 // int8 ADC distance between a lane's quantized query (qq4: the int8 query

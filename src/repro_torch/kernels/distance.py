@@ -6,7 +6,7 @@
 replaces the TPU kernel `repro/kernels/distance.py::_sqdist_kernel`; the
 dense backend sends its distances through it under
 `SearchConfig(use_pallas=True)`. On the card it computes each (query,
-row) pair with K1's code, so its distances equal the fused backend's bit
+row) pair in K1's order, so its distances equal the fused backend's bit
 for bit. Bound on an H100: bytes (each unmasked row is read once); see
 the note in `csrc/sqdist.cu`. On CPU tensors the wrapper runs the plain
 version; on CUDA tensors it launches the kernel or raises.
@@ -18,8 +18,10 @@ block, which at N=1M would not fit the card. Its plain version,
 `sqdist_rows_plain`, evaluates each lane alone at the canonical
 `[1, V, d]` shape (`scan_sqdist_lanes`), as the reference's host path
 does, so a (query, row) pair gives the same bits whatever lanes share
-the batch and however wide the padded block is; the kernel gives the same
-bits by construction (one warp per pair, a fixed order).
+the batch and however wide the padded block is. The kernel gives the same
+bits by construction: it buckets the unmasked (lane, position) pairs by
+(lane group, row), reads each row once per group of up to 64 lanes, and
+computes each pair alone in K1's order (`csrc/sqdist.cu`).
 """
 from __future__ import annotations
 
@@ -112,9 +114,11 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fr = lib.sqdist_rows_f32
-        fr.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fr.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fr.restype = ctypes.c_int
+        fs = lib.sqdist_rows_scratch_bytes
+        fs.argtypes, fs.restype = [ctypes.c_int] * 4, ctypes.c_size_t
         sm = lib.sqdist_smem_bytes
         sm.argtypes, sm.restype = [ctypes.c_int], ctypes.c_size_t
     return lib
@@ -158,7 +162,7 @@ def sqdist_rows(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
     """K6's row-id variant: q [B, d] f32, base [N, d] f32, ids [B, V]
     int32, mask [B, V] bool -> [B, V] f32 squared L2 to rows base[ids],
     +inf where masked (masked ids are not read). V must be a multiple of
-    SCAN_ALIGN."""
+    SCAN_ALIGN. On the card an unmasked id outside [0, N) gives NaN."""
     if q.device.type == "cpu":
         return sqdist_rows_plain(q, base, ids, mask)
     if q.device.type != "cuda":
@@ -175,12 +179,20 @@ def sqdist_rows(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
         (mask, "mask", torch.bool, (b, v))))
     lib = _lib()
     _check_smem(lib, "sqdist_rows", d)
+    # the kernel reads ids 16 and mask 4 bytes at a time
+    if ids.data_ptr() % 16:
+        ids = ids.clone()
+    if mask.data_ptr() % 4:
+        mask = mask.clone()
+    n = base.shape[0]
     out = torch.empty((b, v), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(lib.sqdist_rows_scratch_bytes(b, v, d, n),
+                          dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sqdist_rows.launches += 1
     err = lib.sqdist_rows_f32(q.data_ptr(), base.data_ptr(), ids.data_ptr(),
-                              mask.data_ptr(), out.data_ptr(), b, v, d,
-                              stream)
+                              mask.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), b, v, d, n, stream)
     _build.check(err, "sqdist")
     return out
 

@@ -28,9 +28,9 @@ from repro_torch.core.gbdt import train_gbdt
 from repro_torch.filters.compile import FilterProgram
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
-from repro_torch.kernels.distance import (SCAN_ALIGN, sqdist_masked,
-                                          sqdist_masked_plain, sqdist_rows,
-                                          sqdist_rows_plain)
+from repro_torch.kernels.distance import (SCAN_ALIGN, sqdist_bdrd,
+                                          sqdist_masked, sqdist_masked_plain,
+                                          sqdist_rows, sqdist_rows_plain)
 from repro_torch.kernels.fused_step import fused_step, fused_step_plain
 from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
 from repro_torch.kernels.topk import (pack_payload, topm_merge,
@@ -565,6 +565,32 @@ def test_sqdist_kernel_matches_plain_on_cuda():
             torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
 
 
+@pytest.mark.cuda
+def test_sqdist_kernel_equals_fused_step_on_cuda():
+    """K6's value for each (query, row) pair == K1's, bit for bit: one K1
+    step from an all-inf queue with M >= R stores every new pair's
+    distance, found again by its payload (the row's position)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels K1 and K6 have no CPU mode)")
+    rng = np.random.default_rng(13)
+    b, m, r, k, d = 16, 128, 32, 10, 768
+    for integer in (True, False):
+        a = list(_torch_args(_inputs(rng, b, m, r, k, d, integer,
+                                     compiled=False), "cuda"))
+        q, x = a[0], a[1]
+        a[2] = torch.arange(r, dtype=torch.int32, device="cuda").repeat(b, 1)
+        a[3] = torch.ones((b, r), dtype=torch.bool, device="cuda")
+        a[7] = torch.full_like(a[7], INF)
+        a[8] = torch.full_like(a[8], -1)
+        cd, cp = fused_step(*a)[:2]
+        k6 = sqdist_masked(q, x, a[3])
+        pos = unpack_payload(cp[:, :r])[0].long()
+        torch.cuda.synchronize()
+        assert torch.isinf(cd[:, r:]).all()
+        assert torch.equal(torch.sort(pos, dim=1)[0], a[2].long())
+        assert torch.equal(cd[:, :r], torch.gather(k6, 1, pos))
+
+
 # ---------------------------------------------------------------- K5 ----
 @pytest.mark.cuda
 @pytest.mark.parametrize("greedy", [False, True])
@@ -881,6 +907,112 @@ def test_sqdist_rows_plain_matches_reference_scan_lanes():
             q, base, ids[:, :SCAN_ALIGN + 1], mask[:, :SCAN_ALIGN + 1])))
 
 
+def _rows_by_bucket(q, base, ids, mask, g, rng):
+    """A torch transcription of `csrc/sqdist.cu`'s row-id variant with
+    lanes in groups of g: count the unmasked (lane group, row) pairs into
+    groups·N bins, scan them, place each pair's flat output index in its
+    bin in a random order (the kernel's atomic cursor), then walk every bin
+    that has pairs: its row once, each pair's distance alone, by the plain
+    arithmetic. Returns the [B, V] output (+inf where masked) and how many
+    times each position was written."""
+    b, v = mask.shape
+    n, d = base.shape
+    groups = -(-b // g)
+    lane = torch.arange(b)[:, None].expand(b, v)
+    key = ((lane // g) * n + ids.long())[mask]
+    flat = torch.arange(b * v).reshape(b, v)[mask]
+    counts = torch.bincount(key, minlength=groups * n)
+    ends = torch.zeros(groups * n + 1, dtype=torch.int64)
+    ends[1:] = torch.cumsum(counts, 0)  # bin k: pairs[ends[k]:ends[k + 1]]
+    perm = torch.from_numpy(rng.permutation(key.numel()))
+    pairs = flat[perm[torch.argsort(key[perm], stable=True)]]
+    out = torch.full((b * v,), INF)
+    hits = torch.zeros(b * v, dtype=torch.int64)
+    for k in torch.nonzero(counts)[:, 0].tolist():
+        grp, row = divmod(k, n)
+        po = pairs[ends[k]:ends[k + 1]]
+        pl = po // v
+        assert (pl // g == grp).all()
+        x = base[row].expand(po.numel(), 1, d)
+        out[po] = sqdist_bdrd(q[pl], x)[:, 0]
+        hits[po] += 1
+    return out.reshape(b, v), hits.reshape(b, v)
+
+
+def _rows_case(rng, layout, b, v, n, d, dead):
+    """Row-id inputs on the 1/8 grid (every distance exact in float32):
+    layout 0 random unsorted ids with duplicates, 1 the scan's (each lane's
+    passing rows ascending, padded with row 0 behind a masked tail), 2 the
+    oracle's (ids c .. c+V clamped to N-1 in every lane, an interleaved
+    mask); the first `dead` lanes pass no row."""
+    base = np.clip(np.round(rng.normal(size=(n, d)) * 4) / 8, -2, 2)
+    q = np.clip(np.round(rng.normal(size=(b, d)) * 4) / 8, -2, 2)
+    if layout == 0:
+        ids = rng.integers(0, n, (b, v))
+        ids[:, 1::7] = ids[:, ::7][:, :ids[:, 1::7].shape[1]]
+        mask = rng.random((b, v)) < 0.7
+    elif layout == 1:
+        ids = np.zeros((b, v), np.int64)
+        mask = np.zeros((b, v), bool)
+        for i in range(b):
+            rows = np.flatnonzero(rng.random(n) < rng.random())[:v]
+            ids[i, :rows.size] = rows
+            mask[i, :rows.size] = True
+    else:
+        c = int(rng.integers(0, n))
+        ids = np.minimum(np.arange(c, c + v), n - 1)[None].repeat(b, 0)
+        mask = ((rng.random((b, v)) < rng.random((b, 1)))
+                & (np.arange(c, c + v) < n)[None])
+    mask[:dead] = False
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt))  # noqa: E731
+    return (t(q, np.float32), t(base, np.float32), t(ids, np.int32),
+            t(mask, bool))
+
+
+def test_sqdist_rows_bucket_walk_equals_plain():
+    """The row-id kernel's algorithm (`_rows_by_bucket`: bins by (lane
+    group, row), each row read once per group) == `sqdist_rows_plain` bit
+    for bit, every unmasked position written once and no masked one: random
+    unsorted ids with duplicates, the scan's and the oracle's layouts,
+    lanes with no passing row, more lanes than a group holds, and d not a
+    multiple of 32."""
+
+    @settings(max_examples=40, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), layout=st.integers(0, 2),
+           b=st.integers(1, 9), g=st.integers(1, 4), di=st.integers(0, 2),
+           vi=st.integers(1, 2), dead=st.integers(0, 2))
+    def check(seed, layout, b, g, di, vi, dead):
+        rng = np.random.default_rng(seed)
+        d, v = (24, 40, 96)[di], vi * SCAN_ALIGN
+        n = int(rng.integers(v // 2, 3 * v))
+        q, base, ids, mask = _rows_case(rng, layout, b, v, n, d,
+                                        min(dead, b))
+        got, hits = _rows_by_bucket(q, base, ids, mask, g, rng)
+        assert torch.equal(hits, mask.long())
+        assert torch.equal(got, sqdist_rows_plain(q, base, ids, mask))
+
+    check()
+
+
+@pytest.mark.parametrize("layout", [0, 1, 2])
+def test_sqdist_rows_bucket_walk_matches_reference_scan_lanes(layout):
+    """On grid data, `_rows_by_bucket` == the reference's
+    `scan_sqdist_lanes` on the gathered rows, bit for bit, with 11 lanes in
+    groups of 4 and d=40."""
+    import jax.numpy as jnp
+
+    from repro.kernels.distance import scan_sqdist_lanes as j_lanes
+
+    rng = np.random.default_rng(20 + layout)
+    q, base, ids, mask = _rows_case(rng, layout, 11, 2 * SCAN_ALIGN, 300,
+                                    40, 1)
+    got, _ = _rows_by_bucket(q, base, ids, mask, 4, rng)
+    want = np.asarray(j_lanes(jnp.asarray(q.numpy()),
+                              jnp.asarray(base.numpy()[ids.numpy()]),
+                              jnp.asarray(mask.numpy())))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("name", ["batched_sqdist", "masked_scan_dist",
                                   "fused_traversal_step",
                                   "estimator_predict"])
@@ -936,37 +1068,51 @@ def test_ops_dispatch_matches_reference_ops(name):
 def test_sqdist_rows_kernel_matches_plain_on_cuda():
     """The row-id kernel against its plain version (rtol 1e-5; equal on
     grid data) and against the gathered K6 on the same rows (bitwise),
-    one lane alone against the batch (bitwise) and V against V + 64
-    padded rows (bitwise)."""
+    one lane alone against the batch (bitwise), V against V + 64 padded
+    rows (bitwise) and the lanes in another order (bitwise). Random,
+    unsorted ids with duplicates; at B=130, d=768 (three lane groups) an N
+    that is a multiple of no tile, rows that no lane passes and lanes that
+    pass no row. An unmasked id outside [0, N) gives NaN."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel K6 has no CPU mode)")
     rng = np.random.default_rng(6)
-    n, d, b, v = 5000, 96, 6, 4 * SCAN_ALIGN
-    for grid in (True, False):
-        base = rng.standard_normal((n, d))
-        q = rng.standard_normal((b, d))
-        if grid:
-            base, q = (np.clip(np.round(a * 4) / 8, -2, 2) for a in (base, q))
-        ids = rng.integers(0, n, (b, v)).astype(np.int32)
-        mask = rng.random((b, v)) < 0.7
-        qt, bt, it, mt = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
-                          for a in (q.astype(np.float32),
-                                    base.astype(np.float32), ids, mask))
-        got = sqdist_rows(qt, bt, it, mt)
-        want = sqdist_rows_plain(qt, bt, it, mt)
-        gathered = sqdist_masked(qt, bt[it.long()], mt)
-        one = sqdist_rows(qt[2:3], bt, it[2:3], mt[2:3])
-        wide = sqdist_rows(qt, bt, torch.cat([it, it[:, :SCAN_ALIGN]], 1),
-                           torch.cat([mt, mt[:, :SCAN_ALIGN]], 1))
-        torch.cuda.synchronize()
-        assert torch.equal(torch.isinf(got), ~mt)
-        if grid:
-            assert torch.equal(got, want)
-        else:
-            assert torch.allclose(got[mt], want[mt], rtol=1e-5, atol=0.0)
-        assert torch.equal(got, gathered)
-        assert torch.equal(one[0], got[2])
-        assert torch.equal(wide[:, :v], got)
+    for n, d, b, v in ((5000, 96, 6, 4 * SCAN_ALIGN),
+                       (4099, 768, 130, 2 * SCAN_ALIGN)):
+        for grid in (True, False):
+            base = rng.standard_normal((n, d))
+            q = rng.standard_normal((b, d))
+            if grid:
+                base, q = (np.clip(np.round(a * 4) / 8, -2, 2)
+                           for a in (base, q))
+            ids = rng.integers(0, n - n // 5, (b, v)).astype(np.int32)
+            ids[:, 1::5] = ids[:, ::5][:, :ids[:, 1::5].shape[1]]
+            mask = rng.random((b, v)) < 0.7
+            mask[[1, b - 1]] = False
+            qt, bt, it, mt = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                              for a in (q.astype(np.float32),
+                                        base.astype(np.float32), ids, mask))
+            got = sqdist_rows(qt, bt, it, mt)
+            want = sqdist_rows_plain(qt, bt, it, mt)
+            gathered = sqdist_masked(qt, bt[it.long()], mt)
+            one = sqdist_rows(qt[2:3], bt, it[2:3], mt[2:3])
+            wide = sqdist_rows(qt, bt, torch.cat([it, it[:, :SCAN_ALIGN]], 1),
+                               torch.cat([mt, mt[:, :SCAN_ALIGN]], 1))
+            perm = torch.from_numpy(rng.permutation(b)).cuda()
+            moved = sqdist_rows(qt[perm], bt, it[perm], mt[perm])
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isinf(got), ~mt)
+            if grid:
+                assert torch.equal(got, want)
+            else:
+                assert torch.allclose(got[mt], want[mt], rtol=1e-5, atol=0.0)
+            assert torch.equal(got, gathered)
+            assert torch.equal(one[0], got[2])
+            assert torch.equal(wide[:, :v], got)
+            assert torch.equal(moved, got[perm])
+    bad = it[:1].clone()
+    bad[0, :2] = torch.tensor([-1, n], dtype=torch.int32)
+    out = sqdist_rows(qt[:1], bt, bad, torch.ones_like(mt[:1]))
+    assert torch.isnan(out[0, :2]).all() and not torch.isnan(out[0, 2:]).any()
 
 
 # ------------------------------------------------------------- build ----
