@@ -15,8 +15,8 @@ Phases, each printed as one JSON line with its wall seconds:
      everything must be equal in both), and float inputs (K1:
      distances within rtol 1e-5; K3: everything equal; K4: distances
      within rtol 1e-5 plus the bound on the lookup sums' rounding); K1
-     again at R'=160, the widened frontier of pre/widen mode
-     (`k1_wide_check`, the same tolerances);
+     and K4 again at R'=160, the widened frontier of pre/widen mode
+     (`k1_wide_check`, `k4_wide_check`, the same tolerances);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
   5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
      d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones,
@@ -391,8 +391,9 @@ def check_step_kernel(device, precision="float32", r=32):
     (an exact integer dot, the same tail); K1's distances must lie within
     rtol 1e-5 and K4's within rtol 1e-5 plus the lookup sums' rounding
     bound (`pq_sum_atol`), payloads moving only between entries that
-    close. R=32 is the 1-hop frontier; K1 also runs at R'=160, the widened
-    frontier of pre and widen mode (32 + 32·32/8 at two_hop_stride 8)."""
+    close. R=32 is the 1-hop frontier; K1 and K4 also run at R'=160, the
+    widened frontier of pre and widen mode (32 + 32·32/8 at
+    two_hop_stride 8)."""
     import torch
 
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
@@ -1768,7 +1769,10 @@ def run_planner(ds, eng, probe, device):
     profile_planned(eng, planner, evals["mixed"], probe,
                     e2e_rows[-1]["e2e_ms"]["persistent"])
     main_counts = plan_counts[("mixed", "fused")]
+    # the widen resume is where R'=160 steps run; it launches K4 only once
+    # the planner runs on a PQ engine
     return ({"fused_step_wide": widen_counts["fused_step"],
+             "fused_step_pq_wide": widen_counts["fused_step_pq"],
              "sqdist_rows": main_counts["sqdist_rows"],
              "topm_merge": main_counts["topm_merge"]}, k6r)
 
@@ -2123,6 +2127,7 @@ def main(argv=None) -> int:
     k3 = check_step_kernel(device, "int8")
     k4 = check_step_kernel(device, "pq")
     k1w = check_step_kernel(device, r=160)
+    k4w = check_step_kernel(device, "pq", r=160)
     k2 = check_k2(device)
     k6 = check_k6(device)
     check_k6_scan(device)
@@ -2163,6 +2168,8 @@ def main(argv=None) -> int:
               "fused_step_int8", step_why),
         entry("fused_step_pq", "fused_step.cu", "fused_step.py:243", k4,
               "fused_step_pq", step_why),
+        entry("fused_step_pq (R'=160, pre/widen)", "fused_step.cu",
+              "fused_step.py:243", k4w, "fused_step_pq_wide", step_why),
         entry("persistent_multi_step", "persistent_step.cu",
               "persistent_step.py:127", k5, "persistent_multi_step",
               steps_why),

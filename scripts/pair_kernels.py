@@ -16,12 +16,27 @@ JSON line per turn, {"root", "turn", "ms": {kernel: device ms},
 "call_ms": {...}}, then the card's `nvidia-smi` name and power limit.
 Needs a CUDA device and nvcc; the wrappers' signatures must be the same
 in both checkouts.
+
+    python3 scripts/pair_kernels.py --stamps ROOT [ROOT ...]
+
+breaks the PQ head of K4 and K5's pq branch down by in-kernel `clock64()`
+stamps, for each checkout in turn: a copy of ROOT's `src/` under
+`build/stamps/` gets the stamps inserted at fixed points of its head
+(either the whole-row staging `pq_stage` or the chunked `pq_head`), is
+built, and runs K4 at B=64, R=32 (and R'=160 where the head takes it) and
+one 8-step K5 pq launch over the N=1M synthetic index of `chip_smoke.py`.
+Thread 0 of each block adds the cycles between stamps into a device
+array, so each phase reads as cycles per lane-step; barrier-to-barrier
+phases are the block's, and the rest thread 0's own. Prints one JSON line
+per checkout and kernel, with the SM clock `nvidia-smi` read under load.
+The committed sources carry no stamps.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -69,9 +84,291 @@ def one_turn(root: str) -> dict:
             "ms": ms, "call_ms": call_ms}
 
 
+# ------------------------------------------------------------ stamps ----
+STAMP_PRELUDE = """namespace step {
+__device__ unsigned long long g_stamp[16];
+__device__ __forceinline__ void stamp_lap(int slot, long long* t) {
+  const long long now = clock64();
+  if (threadIdx.x == 0)
+    atomicAdd(&g_stamp[slot], (unsigned long long)(now - *t));
+  *t = now;
+}
+template <typename T>
+__device__ __forceinline__ void stamp_wait(const T* a, int n) {
+  if (threadIdx.x == 0) {  // consume the loaded values: wait for them
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc += (float)a[i];
+    asm volatile("mov.b32 %0, %0;" : "+f"(acc));
+  }
+}
+"""
+STAMP_READER = """
+extern "C" int stamps_io(unsigned long long* host, int clear) {
+  if (clear) {
+    unsigned long long z[16] = {};
+    return (int)cudaMemcpyToSymbol(step::g_stamp, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(host, step::g_stamp,
+                                   16 * sizeof(unsigned long long));
+}
+"""
+
+# the head's count of lane-steps, by thread 0 ({} is the indent)
+COUNT_HEAD = "{}if (tid == 0) atomicAdd(&step::g_stamp[0], 1ull);\n"
+# (file, text, stamped text) for both heads: the K4 kernel and the K5 step
+# from start to end, under PQ.
+STAMP_COMMON = [
+    ("step_common.cuh", "namespace step {\n", STAMP_PRELUDE),
+    ("fused_step.cu", "  if (tid < kClauseSlots) cnt[tid] = 0;\n",
+     "  long long k_ = clock64(), h_ = 0, s_ = 0;\n"
+     "  if (tid < kClauseSlots) cnt[tid] = 0;\n"),
+    ("fused_step.cu",
+     "  if (tid < kClauseSlots) a.out_counts[b * kClauseSlots + tid] = "
+     "cnt[tid];\n}\n",
+     "  if (tid < kClauseSlots) a.out_counts[b * kClauseSlots + tid] = "
+     "cnt[tid];\n  if (a.prec == kPQ) step::stamp_lap(7, &k_);\n}\n"),
+    ("fused_step.cu",
+     "  }\n  __syncthreads();\n\n  // ---- filter program",
+     "  }\n  __syncthreads();\n  if (a.prec == kPQ) {\n"
+     "    step::stamp_lap(6, &s_);\n    step::stamp_lap(1, &h_);\n  }\n\n"
+     "  // ---- filter program"),
+    ("persistent_step.cu",
+     "    // ---- pop: first minimum over unexpanded slots",
+     "    long long k_ = clock64();\n"
+     "    // ---- pop: first minimum over unexpanded slots"),
+    ("persistent_step.cu",
+     "      if (rfull < 0 && isfinite(rd[K - 1])) rfull = cnt;\n    }\n",
+     "      if (rfull < 0 && isfinite(rd[K - 1])) rfull = cnt;\n    }\n"
+     "    if (a.prec == kPQ) step::stamp_lap(7, &k_);\n"),
+]
+STAMP_HEADS = {
+    # the whole-row staging: every thread stages rounds of 8 lookups (code
+    # loads, table loads, stores), then one thread per row sums
+    "pq_stage": {
+        "phases": {1: "head", 2: "code loads (thread 0)",
+                   3: "table loads (thread 0)", 4: "stores (thread 0)",
+                   5: "staging barrier", 6: "sum and barrier",
+                   7: "kernel (K4) or step (K5)"},
+        "patches": [
+            ("step_common.cuh",
+             "  const int total = R * SL, ld = pq_stage_ld(SL);\n",
+             "  const int total = R * SL, ld = pq_stage_ld(SL);\n"
+             "  long long t_ = clock64();\n"),
+            ("step_common.cuh", "    float v[kStageLoads];\n",
+             "    stamp_wait(code, kStageLoads);\n    stamp_lap(2, &t_);\n"
+             "    float v[kStageLoads];\n"),
+            ("step_common.cuh",
+             "      v[u] = code[u] >= 0 ? __ldg(lut + (size_t)slot[u] * Kc + "
+             "code[u]) : 0.f;\n",
+             "      v[u] = code[u] >= 0 ? __ldg(lut + (size_t)slot[u] * Kc + "
+             "code[u]) : 0.f;\n"
+             "    stamp_wait(v, kStageLoads);\n    stamp_lap(3, &t_);\n"),
+            ("step_common.cuh",
+             "      if (code[u] >= 0) vals[dst[u]] = v[u];\n",
+             "      if (code[u] >= 0) vals[dst[u]] = v[u];\n"
+             "    stamp_lap(4, &t_);\n"),
+            ("fused_step.cu", "    const int ld = step::pq_stage_ld(a.D);\n",
+             "    h_ = clock64();\n" + COUNT_HEAD.format("    ") +
+             "    const int ld = step::pq_stage_ld(a.D);\n"),
+            ("fused_step.cu",
+             "                   b * a.R, nullptr);\n    __syncthreads();\n",
+             "                   b * a.R, nullptr);\n    s_ = clock64();\n"
+             "    __syncthreads();\n    step::stamp_lap(5, &s_);\n"),
+            ("persistent_step.cu",
+             "      const int ld = step::pq_stage_ld(D);\n",
+             "      long long h_ = clock64(), s_ = 0;\n" +
+             COUNT_HEAD.format("      ") +
+             "      const int ld = step::pq_stage_ld(D);\n"),
+            ("persistent_step.cu",
+             "                     R, nbs, 0, isnew);\n      __syncthreads();\n",
+             "                     R, nbs, 0, isnew);\n      s_ = clock64();\n"
+             "      __syncthreads();\n      step::stamp_lap(5, &s_);\n"),
+            ("persistent_step.cu",
+             "                                         a.qnorms[nbs[r]]);\n"
+             "    }\n",
+             "                                         a.qnorms[nbs[r]]);\n"
+             "      __syncthreads();\n      step::stamp_lap(6, &s_);\n"
+             "      step::stamp_lap(1, &h_);\n    }\n"),
+        ]},
+    # the chunked head: per chunk the next chunk's table rows issued (one
+    # bulk copy, by the block's last thread), this chunk's wait and
+    # barrier, its sum
+    "pq_head": {
+        "phases": {1: "head", 2: "first copy issued, codes (thread 0)",
+                   3: "next copy issued", 4: "wait and barrier",
+                   5: "sum and barrier", 6: "barrier after the head",
+                   7: "kernel (K4) or step (K5)"},
+        "patches": [
+            ("step_common.cuh",
+             "  const int tid = threadIdx.x, ld = pq_code_words(SL);\n",
+             "  const int tid = threadIdx.x, ld = pq_code_words(SL);\n"
+             "  long long t_ = clock64();\n"),
+            ("step_common.cuh",
+             "  for (int r = tid; r < R; r += kThreads) dist[r] = 0.f;\n",
+             "  for (int r = tid; r < R; r += kThreads) dist[r] = 0.f;\n"
+             "  stamp_lap(2, &t_);\n"),
+            ("step_common.cuh", "    start(c + kPQStages - 1);\n",
+             "    start(c + kPQStages - 1);\n    stamp_lap(3, &t_);\n"),
+            ("step_common.cuh",
+             "    __syncthreads();           // everyone's; and the codes\n",
+             "    __syncthreads();           // everyone's; and the codes\n"
+             "    stamp_lap(4, &t_);\n"),
+            ("step_common.cuh",
+             "    if (c + kPQStages < nch) __syncthreads();  // buffer b "
+             "refills next\n",
+             "    if (c + kPQStages < nch) __syncthreads();  // buffer b "
+             "refills next\n    stamp_lap(5, &t_);\n"),
+            ("fused_step.cu", "    step::pq_head(dist, qs, a.lut",
+             "    h_ = clock64();\n" + COUNT_HEAD.format("    ") +
+             "    step::pq_head(dist, qs, a.lut"),
+            ("fused_step.cu",
+             "                  nullptr, b * a.R, nullptr, a.qn[b], 0);\n",
+             "                  nullptr, b * a.R, nullptr, a.qn[b], 0);\n"
+             "    s_ = clock64();\n"),
+            ("persistent_step.cu", "      step::pq_head(dist, qs, lut",
+             "      long long h_ = clock64(), s_ = 0;\n" +
+             COUNT_HEAD.format("      ") + "      step::pq_head(dist, qs, lut"),
+            ("persistent_step.cu",
+             "                    a.qnorms, D, R, nbs, 0, isnew, qn, "
+             "pq_heads++);\n",
+             "                    a.qnorms, D, R, nbs, 0, isnew, qn, "
+             "pq_heads++);\n"
+             "      s_ = clock64();\n      __syncthreads();\n"
+             "      step::stamp_lap(6, &s_);\n"
+             "      step::stamp_lap(1, &h_);\n"),
+        ]},
+}
+
+
+def stamped_copy(root: str, dest: str) -> str:
+    """Copy `root`'s src/ to `dest` with the stamps inserted; returns the
+    head's name. Every stamped text must occur exactly once."""
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "src"), os.path.join(dest, "src"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(dest, "src", "repro_torch", "csrc")
+    common = open(os.path.join(csrc, "step_common.cuh")).read()
+    head = "pq_head" if "void pq_head(" in common else "pq_stage"
+    texts = {}
+    for fname, old, new in STAMP_COMMON + STAMP_HEADS[head]["patches"]:
+        path = os.path.join(csrc, fname)
+        text = texts.get(path) or open(path).read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"stamp point not found once in {fname}: "
+                               f"{old!r}")
+        texts[path] = text.replace(old, new)
+    for name in ("fused_step.cu", "persistent_step.cu"):
+        texts[os.path.join(csrc, name)] += STAMP_READER
+    for path, text in texts.items():
+        with open(path, "w") as f:
+            f.write(text)
+    return head
+
+
+def sm_clock_under(fn) -> float:
+    """The SM clock (MHz) `nvidia-smi` reads while `fn` runs."""
+    import threading
+
+    import torch
+
+    mhz = []
+    reader = threading.Thread(target=lambda: mhz.append(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]))
+    reader.start()
+    fn()
+    reader.join()
+    torch.cuda.synchronize()
+    return float(mhz[0])
+
+
+def stamp_turn(root: str) -> list:
+    """Stamp `root`'s PQ head and return one breakdown per kernel."""
+    import ctypes
+    import contextlib
+    import io
+
+    import numpy as np
+
+    root = os.path.abspath(root)
+    dest = os.path.join(HERE, "build", "stamps",
+                        os.path.basename(root.rstrip("/")) or "root")
+    head = stamped_copy(root, dest)
+    sys.path.insert(0, os.path.join(dest, "src"))
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.persistent_step import persistent_multi_step
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _build.build_all()
+    device = torch.device("cuda")
+    buf = (ctypes.c_ulonglong * 16)()
+
+    def measure(lib_name, run, iters):
+        io_ = _build.load(lib_name).stamps_io
+        io_.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        io_.restype = ctypes.c_int
+        run()
+        torch.cuda.synchronize()
+        _build.check(io_(None, 1), lib_name)
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        _build.check(io_(ctypes.addressof(buf), 0), lib_name)
+        n = max(int(buf[0]), 1)
+        phases = STAMP_HEADS[head]["phases"]
+        return {"heads": int(buf[0]), "cycles_per_lane_step": {
+            phases[i]: buf[i] / n for i in sorted(phases)}}
+
+    out = []
+    shapes = [32, 160] if head == "pq_head" else [32]
+    for r in shapes:
+        rng = np.random.default_rng(4)
+        args, quant = cs.step_inputs(rng, 64, r, cs.DIM, 512, 10, 2, 2, False,
+                                     device, "pq")
+        def run():
+            return fused_step(*args, quant=quant, precision="pq")
+
+        res = measure("fused_step", run, 20)
+        res["sm_mhz"] = sm_clock_under(lambda: [run() for _ in range(2000)])
+        out.append({"kernel": "K4", "R": r, **res})
+    with contextlib.redirect_stdout(io.StringIO()):
+        args, state, kw = cs.k5_world(7, True, device, "pq")
+    clones = iter([cs.copy_state(state) for _ in range(12)])
+    run = lambda: persistent_multi_step(  # noqa: E731
+        *args, next(clones), 1 << 30, None, steps=cs.K5_STEPS, **kw)
+    res = measure("persistent_step", run, 10)
+    out.append({"kernel": "K5 pq", "R": 32, **res})
+    return [{"root": root, "head": head, **o} for o in out]
+
+
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(one_turn(argv[1])), flush=True)
+        return 0
+    if len(argv) == 2 and argv[0] == "--stamp-one":
+        print(json.dumps(stamp_turn(argv[1])), flush=True)
+        return 0
+    if len(argv) >= 2 and argv[0] == "--stamps":
+        for root in argv[1:]:
+            out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--stamp-one", root], capture_output=True,
+                                 text=True, timeout=900)
+            if out.returncode != 0:
+                sys.stderr.write(out.stdout + out.stderr)
+                return out.returncode
+            for line in json.loads(out.stdout.strip().splitlines()[-1]):
+                print(json.dumps(line), flush=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout.strip()
+        print(smi, flush=True)
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)

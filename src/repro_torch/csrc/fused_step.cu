@@ -25,18 +25,22 @@
 // both merges where the 1024- and 64-wide bitonic sorts took 76 barrier
 // stages (91 at R'=160, where the result sort is 256 wide). What is left
 // on the critical path is the distance head and its barriers, with one
-// block per lane on 64 of 132 SMs at B=64; the distance and staging code
-// is unchanged.
+// block per lane on 64 of 132 SMs at B=64.
 //   K3 reads the int8 codes [B, R, d] (1.6 MB) once, one warp per row as
 // packed 4-byte words into __dp4a, with the quantized query in shared
 // memory. K4 reads the uint8 codes [B, R, S·L] and, per row, S·L entries
 // of the lane's table lut [S·L, Kc] f32 (576 KB per lane at S·L=576,
 // Kc=256: too large for shared memory, so it stays in device memory; 64
-// lanes' tables, 37.7 MB, fit the 50 MB L2). All threads of the block
-// gather the R·S·L entries the rows look up into shared memory (74 KB at
-// R=32), so the loads overlap; then one thread per row sums its entries
-// in slot order, the reference kernels' order, so K4 and K5's pq branch
-// agree bit for bit.
+// lanes' tables, 37.7 MB, fit the 50 MB L2). Its head is
+// step_common.cuh::pq_head, shared with K5's pq branch: the table streams
+// into shared memory by bulk copies of 48 rows, two buffers deep, while
+// one thread per row sums the previous chunk's lookups in slot order, the
+// reference kernels' order, carrying its sum across chunks; so K4 and
+// K5's pq branch agree bit for bit. What bounds K4 is that stream into
+// one SM and the slot-order sum; its note says more. Shared memory grows
+// as R·S·L/4 + 2·48·Kc words (196 KB at R'=160), so K4 also runs at the
+// widened frontier. Each head is its own kernel (kHead), so K1's and
+// K3's code is compiled apart from K4's.
 //
 // The per-lane building blocks (query norm, row distances, filter program,
 // the merge by rank) live in step_common.cuh, shared with K5 and K6.
@@ -45,7 +49,8 @@
 
 #include "step_common.cuh"
 
-extern "C" size_t fused_step_smem_bytes(int R, int QW, int M, int K);
+extern "C" size_t fused_step_smem_bytes(int prec, int R, int D, int M, int K,
+                                        int Kc);
 
 namespace {
 
@@ -84,12 +89,15 @@ struct StepArgs {
   int QW, Kc;              // shared-memory words of the head; PQ Kc
 };
 
+// One kernel per distance head (kHead: kF32, kInt8 or kPQ), so that each
+// head's code is compiled and register-allocated alone.
+template <int kHead>
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = a.prog.W, V = a.prog.V;
-  float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
+  float* qs = smem;  // [QW]: query row | packed qq | PQ head
   float* dist = qs + a.QW;                   // [R]
   int* vld = reinterpret_cast<int*>(dist + a.R);   // [R]
   int* dmask = vld + a.R;                    // [R]
@@ -107,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
     okq[i] = a.cand_dist[(size_t)b * a.M + i];
   for (int i = tid; i < a.K; i += kThreads)
     okr[i] = a.res_dist[(size_t)b * a.K + i];
-  if (a.prec == kF32) {
+  if constexpr (kHead == kF32) {
     // ---- query row and its squared norm; squared L2, one warp per row ----
     const float qn = step::query_sqnorm(a.q + (size_t)b * a.D, qs, a.D, red);
     for (int r = warp; r < a.R; r += kWarps) {
@@ -115,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
           qs, a.x + ((size_t)b * a.R + r) * a.D, a.D, qn, lane);
       if (lane == 0) dist[r] = d;
     }
-  } else if (a.prec == kInt8) {
+  } else if constexpr (kHead == kInt8) {
     // ---- K3: packed query into shared memory; int8 ADC, one warp per row ----
     int* qq4 = reinterpret_cast<int*>(qs);
     const int* src = reinterpret_cast<const int*>(a.qq + (size_t)b * a.D);
@@ -130,17 +138,10 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
       if (lane == 0) dist[r] = d;
     }
   } else {
-    // ---- K4: every thread gathers table entries into shared memory (the
-    // loads overlap); then one thread per row sums them in slot order ----
-    const float qn = a.qn[b];
-    const int ld = step::pq_stage_ld(a.D);
-    step::pq_stage(qs, a.lut + (size_t)b * a.D * a.Kc, a.Kc,
-                   static_cast<const uint8_t*>(a.codes), a.D, a.R, nullptr,
-                   b * a.R, nullptr);
-    __syncthreads();
-    for (int r = tid; r < a.R; r += kThreads)
-      dist[r] = step::pq_dist_staged(qs + r * ld, a.D, qn,
-                                     a.xn[(size_t)b * a.R + r]);
+    // ---- K4: PQ ADC, the table streamed by chunks of rows ----
+    step::pq_head(dist, qs, a.lut + (size_t)b * a.D * a.Kc, a.Kc,
+                  static_cast<const uint8_t*>(a.codes), a.xn, a.D, a.R,
+                  nullptr, b * a.R, nullptr, a.qn[b], 0);
   }
   __syncthreads();
 
@@ -173,13 +174,29 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(StepArgs a) {
   if (tid < kClauseSlots) a.out_counts[b * kClauseSlots + tid] = cnt[tid];
 }
 
-int launch(const StepArgs& a, int B, void* stream) {
-  const size_t smem = fused_step_smem_bytes(a.R, a.QW, a.M, a.K);
+template <int kHead>
+int launch_head(const StepArgs& a, int B, size_t smem, void* stream) {
   static bool opted_in[step::kMaxDevices] = {};
-  cudaError_t err = step::opt_in_smem_once(fused_step_kernel, opted_in);
+  cudaError_t err = step::opt_in_smem_once(fused_step_kernel<kHead>, opted_in);
   if (err != cudaSuccess) return (int)err;
-  fused_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  fused_step_kernel<kHead>
+      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Shared-memory words of the distance head: the query row (K1), the
+// packed int8 query (K3), or step_common.cuh::pq_head_words (K4).
+int head_words(int prec, int R, int D, int Kc) {
+  return prec == kF32    ? D
+         : prec == kInt8 ? D / 4
+                         : (int)step::pq_head_words(R, D, Kc);
+}
+
+int launch(const StepArgs& a, int B, void* stream) {
+  const size_t smem = fused_step_smem_bytes(a.prec, a.R, a.D, a.M, a.K, a.Kc);
+  if (a.prec == kF32) return launch_head<kF32>(a, B, smem, stream);
+  if (a.prec == kInt8) return launch_head<kInt8>(a, B, smem, stream);
+  return launch_head<kPQ>(a, B, smem, stream);
 }
 
 // The shared tail of both entry points' pointer lists: nb, is_new, labels,
@@ -215,10 +232,12 @@ void set_tail(StepArgs& a, void* const* p) {
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these widths, in bytes; QW is
-// the distance head's words: D (K1), D / 4 (K3), R · (S·L | 1) (K4).
-size_t fused_step_smem_bytes(int R, int QW, int M, int K) {
-  return sizeof(float) * ((size_t)QW + 5 * (size_t)R + (size_t)M +
+// Dynamic shared memory the kernel needs for these widths, in bytes: the
+// head (prec: 0 = K1, 1 = K3, 2 = K4; D is d or S·L; Kc for K4), then the
+// distances, masks, old keys, sorted new keys, counts and the reduction.
+size_t fused_step_smem_bytes(int prec, int R, int D, int M, int K, int Kc) {
+  return sizeof(float) * ((size_t)head_words(prec, R, D, Kc) +
+                          5 * (size_t)R + (size_t)M +
                           (size_t)K + kClauseSlots + kWarps + 1);
 }
 
@@ -252,7 +271,7 @@ int fused_step_f32(
   set_tail(a, tail);
   a.prog.S = S; a.prog.T = T; a.prog.W = W; a.prog.V = V;
   a.R = R; a.D = D; a.M = M; a.K = K; a.pre = pre;
-  a.QW = D;
+  a.QW = head_words(kF32, R, D, 0);
   return launch(a, B, stream);
 }
 
@@ -273,13 +292,12 @@ int fused_step_quant(void* const* ptrs, const int* dims, void* stream) {
   if (a.prec == kInt8) {
     a.qq = static_cast<const int8_t*>(ptrs[2]);
     a.sq = static_cast<const float*>(ptrs[3]);
-    a.QW = a.D / 4;
   } else if (a.prec == kPQ) {
     a.lut = static_cast<const float*>(ptrs[2]);
-    a.QW = a.R * (a.D | 1);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  a.QW = head_words(a.prec, a.R, a.D, a.Kc);
   return launch(a, B, stream);
 }
 

@@ -27,10 +27,14 @@
 // blocks). The new neighbors' codes, ADC norms and reconstruction errors
 // are read straight from the quant index (codes [N, d] int8 or [N, S·L]
 // uint8, norms and err [N]); the int8 query (d bytes) sits in shared
-// memory, the PQ table lut [S·L, Kc] of the lane stays in device memory
-// and the new rows' lookups are staged in shared memory, as in K4. The step's reconstruction errors of new neighbors are summed
-// by the halving tree of core/step.py::tree_sum into q_err_sum, carried in
-// a register and written back.
+// memory, the PQ table lut [S·L, Kc] of the lane stays in device memory.
+// The PQ distances are K4's head (step_common.cuh::pq_head) over the new
+// rows only: their codes read by id into shared memory, the lane's table
+// streamed in by bulk copies of 48 rows while one thread per row sums the
+// previous chunk in slot order; its note says what bounds it. The step's
+// reconstruction errors of new neighbors are summed by the halving tree of
+// core/step.py::tree_sum into q_err_sum, carried in a register and written
+// back.
 //
 // Bit-exactness with the single-step path (core/step.py + K1/K3/K4): the
 // distance, program and merge code is theirs (step_common.cuh, same block
@@ -54,8 +58,8 @@
 // with one barrier, and frees their 8 KB of key and position buffers.
 // What is left on a step's critical path is the chain of dependent reads
 // pop → id row → visited words → rows, with its barriers, on one block
-// per lane, 64 of the 132 SMs at B=64. The distance and staging code is
-// unchanged.
+// per lane, 64 of the 132 SMs at B=64; under PQ, the head's table stream
+// and its slot-order sum come first.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -131,12 +135,12 @@ struct PersistArgs {
 };
 
 __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M, K = a.K, R = a.R, D = a.D;
   const int W = a.prog.W, V = a.prog.V;
-  float* qs = smem;  // [QW]: query row | packed qq | staged PQ lookups
+  float* qs = smem;  // [QW]: query row | packed qq | PQ head
   float* cd = qs + a.QW;                                // [M] x 2
   float* cd2 = cd + M;
   int* cp = reinterpret_cast<int*>(cd2 + M);            // [M] x 2
@@ -211,6 +215,7 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   const float* gt = a.gt ? a.gt + bk : nullptr;
   int* vis = a.visited + (size_t)b * a.NW;
   const int nc = a.prog.S < kClauseSlots ? a.prog.S : kClauseSlots;
+  int pq_heads = 0;  // PQ heads run so far (step_common.cuh::pq_head)
 
   for (int s = 0; s < nsteps; ++s) {
     // ---- pop: first minimum over unexpanded slots, on (key, slot) ----
@@ -297,15 +302,9 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
           if (lane == 0) dist[r] = d;
         }
       }
-    } else {  // PQ ADC: stage the new rows' lookups, then slot order
-      const int ld = step::pq_stage_ld(D);
-      step::pq_stage(qs, lut, a.Kc, static_cast<const uint8_t*>(a.codes), D,
-                     R, nbs, 0, isnew);
-      __syncthreads();
-      for (int r = tid; r < R; r += kThreads)
-        if (isnew[r])
-          dist[r] = step::pq_dist_staged(qs + r * ld, D, qn,
-                                         a.qnorms[nbs[r]]);
+    } else {  // PQ ADC of the new rows, the table streamed by chunks
+      step::pq_head(dist, qs, lut, a.Kc, static_cast<const uint8_t*>(a.codes),
+                    a.qnorms, D, R, nbs, 0, isnew, qn, pq_heads++);
     }
     // ---- reconstruction errors of the new rows, zero-padded to P ----
     if (a.prec != kF32)
@@ -381,17 +380,33 @@ __global__ void __launch_bounds__(kThreads) persistent_step_kernel(PersistArgs a
   }
 }
 
+// Shared-memory words of the query head: the query row (float32), the
+// packed int8 query, or step_common.cuh::pq_head_words (pq).
+int head_words(int prec, int R, int D, int Kc) {
+  return prec == kF32    ? D
+         : prec == kInt8 ? D / 4
+                         : (int)step::pq_head_words(R, D, Kc);
+}
+
+int pow2_at_least(int R) {
+  int P = 1;
+  while (P < R) P <<= 1;
+  return P;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs for these widths, in bytes; QW is
-// the distance head's words: D (float32), D / 4 (int8), R · (S·L | 1)
-// (pq: the staged lookups); P the next power of 2 >= R.
-size_t persistent_step_smem_bytes(int R, int QW, int M, int K, int P) {
-  return sizeof(float) * ((size_t)QW + 4 * (size_t)M + 4 * (size_t)K +
+// Dynamic shared memory the kernel needs for these widths, in bytes: the
+// head (prec: 0 = float32, 1 = int8, 2 = pq; D is d or S·L; Kc for pq),
+// both buffer pairs, the step's rows, counts, controls and the error sum.
+size_t persistent_step_smem_bytes(int prec, int R, int D, int M, int K,
+                                  int Kc) {
+  return sizeof(float) * ((size_t)head_words(prec, R, D, Kc) +
+                          4 * (size_t)M + 4 * (size_t)K +
                           6 * (size_t)R + kClauseSlots + 3 * kWarps + 1 + 4 +
-                          (size_t)P);
+                          (size_t)pow2_at_least(R));
 }
 
 // ptrs: the 56 pointers of PersistArgs in declaration order (gt, and the
@@ -464,10 +479,10 @@ int persistent_step_f32(void* const* ptrs, const int* dims, void* stream) {
   a.prog.T = dims[8]; a.NW = dims[9]; a.steps = dims[10]; a.greedy = dims[11];
   a.prec = dims[12]; a.Kc = dims[13];
   if (a.prec < kF32 || a.prec > kPQ) return (int)cudaErrorInvalidValue;
-  a.QW = a.prec == kF32 ? a.D : a.prec == kInt8 ? a.D / 4 : a.R * (a.D | 1);
-  a.P = 1;
-  while (a.P < a.R) a.P <<= 1;
-  const size_t smem = persistent_step_smem_bytes(a.R, a.QW, a.M, a.K, a.P);
+  a.QW = head_words(a.prec, a.R, a.D, a.Kc);
+  a.P = pow2_at_least(a.R);
+  const size_t smem =
+      persistent_step_smem_bytes(a.prec, a.R, a.D, a.M, a.K, a.Kc);
   static bool opted_in[step::kMaxDevices] = {};
   cudaError_t err = step::opt_in_smem_once(persistent_step_kernel, opted_in);
   if (err != cudaSuccess) return (int)err;

@@ -20,8 +20,9 @@ Under `precision="int8"` the same launch is K3 (replaces
 `max((qn + xn) − (2·sq)·(qq · c), 0)` over the gathered int8 codes, the
 dot as packed-int8 `__dp4a` words. Under `precision="pq"` it is K4
 (replaces `_fused_step_pq_kernel`): `max((qn + xn) − 2·Σ lut[slot, code],
-0)`, the lookups gathered from the per-lane table in device memory into
-shared memory, then summed in slot order. The float vectors are not read.
+0)`, the per-lane table streamed from device memory into shared memory
+by chunks of `PQ_CHUNK` rows while the previous chunk is summed, each
+code row in slot order. The float vectors are not read.
 
 Bound on an H100: bytes (the gathered rows or codes are read once); the
 source note in `csrc/fused_step.cu` says what the design does about it. On
@@ -48,6 +49,7 @@ from repro_torch.kernels.topk import merge_stable
 from repro_torch.quant.codecs import quant_dist
 
 INF = float("inf")
+HEAD_IDS = {"float32": 0, "int8": 1, "pq": 2}  # the entry points' `prec`
 
 
 def fused_step_plain(q, x, nb, is_new, prog: FilterProgram, labels_g,
@@ -89,14 +91,13 @@ def _lib() -> ctypes.CDLL:
         fq.argtypes = [ctypes.c_void_p] * 3
         fq.restype = ctypes.c_int
         sm = lib.fused_step_smem_bytes
-        sm.argtypes, sm.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+        sm.argtypes, sm.restype = [ctypes.c_int] * 6, ctypes.c_size_t
     return lib
 
 
 def _quant_head(quant, precision: str, b: int, r: int):
     """Checks and pointers of the K3/K4 distance head: (tensor specs,
-    pointers codes, xn, qq|lut, sq|None, qn; codes width; Kc; shared-memory
-    words of the head — K3's packed query, K4's staged lookups)."""
+    pointers codes, xn, qq|lut, sq|None, qn; codes width; Kc)."""
     u8, i8, f32 = torch.uint8, torch.int8, torch.float32
     prep = quant.prep
     width = quant.codes.shape[2]
@@ -110,13 +111,13 @@ def _quant_head(quant, precision: str, b: int, r: int):
                   (prep.qq, "prep.qq", i8, (b, width)),
                   (prep.sq, "prep.sq", f32, (b,))]
         return (specs, [quant.codes, quant.norms, prep.qq, prep.sq, prep.qn],
-                width, 0, width // 4)
+                width, 0)
     if precision == "pq":
         kc = prep.lut.shape[2]
         specs += [(quant.codes, "quant.codes", u8, (b, r, width)),
                   (prep.lut, "prep.lut", f32, (b, width, kc))]
         return (specs, [quant.codes, quant.norms, prep.lut, None, prep.qn],
-                width, kc, r * (width | 1))
+                width, kc)
     raise ValueError(f"unknown precision {precision!r}")
 
 
@@ -150,11 +151,10 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
     i32, f32, bl = torch.int32, torch.float32, torch.bool
     compressed = precision != "float32"
     if compressed:
-        head_specs, head, d, kc, qwords = _quant_head(quant, precision, b, r)
+        head_specs, head, d, kc = _quant_head(quant, precision, b, r)
     else:
-        d = q.shape[1]
+        d, kc = q.shape[1], 0
         head_specs = [(q, "q", f32, (b, d)), (x, "x", f32, (b, r, d))]
-        qwords = d
     _build.check_tensors("fused_step", dev, (
             *head_specs,
             (nb, "nb", i32, (b, r)), (is_new, "is_new", bl, (b, r)),
@@ -173,7 +173,7 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
             (res_dist, "res_dist", f32, (b, k)),
             (res_idx, "res_idx", i32, (b, k))))
     lib = _lib()
-    smem = lib.fused_step_smem_bytes(r, qwords, m, k)
+    smem = lib.fused_step_smem_bytes(HEAD_IDS[precision], r, d, m, k, kc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused_step needs {smem} B of shared memory at d={d}, R={r}, "
@@ -192,8 +192,8 @@ def fused_step(q, x, nb, is_new, prog: FilterProgram, labels_g, values_g,
         # the 28 pointers and 12 sizes of csrc/fused_step.cu's
         # fused_step_quant, in order
         ptrs = [0 if a is None else a.data_ptr() for a in (*head, *tail)]
-        dims = [b, r, d, m, k, w, v, s, t, int(pre),
-                1 if precision == "int8" else 2, kc]
+        dims = [b, r, d, m, k, w, v, s, t, int(pre), HEAD_IDS[precision],
+                kc]
         err = lib.fused_step_quant((ctypes.c_void_p * len(ptrs))(*ptrs),
                                    (ctypes.c_int * len(dims))(*dims), stream)
     else:

@@ -36,6 +36,7 @@ import torch
 from repro_torch.filters.compile import CLAUSE_FEATURE_SLOTS, MAX_SLOTS
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM_BYTES
+from repro_torch.kernels.fused_step import HEAD_IDS
 
 
 def _n_steps(steps: int, rem: int) -> int:
@@ -69,15 +70,14 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         sm = lib.persistent_step_smem_bytes
-        sm.argtypes, sm.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+        sm.argtypes, sm.restype = [ctypes.c_int] * 6, ctypes.c_size_t
     return lib
 
 
-def _codec_operands(precision: str, quant, qprep, n: int, b: int, r: int):
+def _codec_operands(precision: str, quant, qprep, n: int, b: int):
     """Checks, the 7 codec pointers' tensors (codes, norms, err, qq, sq,
-    qn, lut; None where the codec has none), the row width D, Kc and the
-    head's shared-memory words (the packed int8 query, or the staged PQ
-    lookups of R rows), for K5's int8 and PQ branches."""
+    qn, lut; None where the codec has none), the row width D and Kc, for
+    K5's int8 and PQ branches."""
     f32 = torch.float32
     width = quant.codes.shape[1]
     specs = [(quant.norms, "quant.norms", f32, (n,)),
@@ -92,14 +92,14 @@ def _codec_operands(precision: str, quant, qprep, n: int, b: int, r: int):
                   (qprep.sq, "qprep.sq", f32, (b,))]
         ops = (quant.codes, quant.norms, quant.err, qprep.qq, qprep.sq,
                qprep.qn, None)
-        return specs, ops, width, 0, width // 4
+        return specs, ops, width, 0
     if precision == "pq":
         kc = qprep.lut.shape[2]
         specs += [(quant.codes, "quant.codes", torch.uint8, (n, width)),
                   (qprep.lut, "qprep.lut", f32, (b, width, kc))]
         ops = (quant.codes, quant.norms, quant.err, None, None, qprep.qn,
                qprep.lut)
-        return specs, ops, width, kc, r * (width | 1)
+        return specs, ops, width, kc
     raise ValueError(f"unknown precision {precision!r}")
 
 
@@ -170,17 +170,16 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
         "conv_cnt", "res_full_cnt")]
     if gt_dist is not None:
         checks.append((gt_dist, "gt_dist", f32, (b, k)))
-    prec_id = {"float32": 0, "int8": 1, "pq": 2}[precision]
+    prec_id = HEAD_IDS[precision]
     if precision == "float32":
-        codec, row_d, kc, qwords = (None,) * 7, d, 0, d
+        codec, row_d, kc = (None,) * 7, d, 0
     else:
-        specs, codec, row_d, kc, qwords = _codec_operands(
-            precision, quant, qprep, n, b, r)
+        specs, codec, row_d, kc = _codec_operands(precision, quant, qprep, n,
+                                                  b)
         checks += specs + [(state.q_err_sum, "q_err_sum", f32, (b,))]
     _build.check_tensors("persistent_multi_step", dev, checks)
     lib = _lib()
-    smem = lib.persistent_step_smem_bytes(r, qwords, m, k,
-                                          1 << (r - 1).bit_length())
+    smem = lib.persistent_step_smem_bytes(prec_id, r, row_d, m, k, kc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"persistent_multi_step needs {smem} B of shared memory at "

@@ -387,6 +387,184 @@ def test_fused_step_quant_kernel_matches_plain_on_cuda(precision, pre):
     _assert_step_equal(got, want, exact_dist=True)
 
 
+# ------------------------------------------ the PQ head (K4, K5 pq) ----
+# Its layout, written out (`csrc/step_common.cuh`: kPQChunk table rows a
+# chunk, kPQStages chunk buffers and their mbarriers, codes rows padded to
+# an odd word count).
+PQ_CHUNK, PQ_STAGES = 48, 2
+
+
+def _pq_head_words(r, sl, kc):
+    bar_words = (2 * PQ_STAGES + 3) & ~3
+    return bar_words + PQ_STAGES * PQ_CHUNK * kc + r * (((sl + 3) >> 2) | 1)
+
+
+def _fused_smem_bytes(r, qw, m, k):
+    """`csrc/fused_step.cu::fused_step_smem_bytes` with head words qw."""
+    return 4 * (qw + 5 * r + m + k + 4 + 8 + 1)
+
+
+def _persistent_smem_bytes(r, qw, m, k):
+    """`csrc/persistent_step.cu::persistent_step_smem_bytes`."""
+    return 4 * (qw + 4 * m + 4 * k + 6 * r + 4 + 3 * 8 + 1 + 4
+                + (1 << (r - 1).bit_length()))
+
+
+def _pq_head_chunked(lut, codes, norms, qn, use=None):
+    """A torch transcription of `csrc/step_common.cuh::pq_head` for one
+    lane: lut [SL, Kc] f32, codes [R, SL] uint8, norms [R] f32, qn a 0-d
+    f32 tensor, use [R] bool (K5's isnew; None: every row, as K4). The used
+    rows' codes go into words, each row padded to an odd word count; the
+    table goes by chunks of PQ_CHUNK rows into PQ_STAGES buffers in turn; each
+    used row adds its lookups of a chunk, read from the buffer through its
+    code words, to its sum carried across chunks, in slot order. Returns
+    (ip [R], dist [R], how many times each (row, slot) was looked up, the
+    shared-memory words used)."""
+    r_, sl = codes.shape
+    kc = lut.shape[1]
+    use = torch.ones(r_, dtype=torch.bool) if use is None else use
+    ld = ((sl + 3) >> 2) | 1
+    padded = torch.full((r_, 4 * ld), 0xAB, dtype=torch.uint8)  # unused
+    padded[use, :sl] = codes[use]
+    cw = padded.view(torch.int32).to(torch.int64) & 0xFFFFFFFF   # [R, ld]
+    bufs = [torch.full((PQ_CHUNK, kc), float("nan"))
+            for _ in range(PQ_STAGES)]
+    rows = torch.nonzero(use)[:, 0]
+    ip = torch.zeros(r_, dtype=torch.float32)
+    hits = torch.zeros((r_, sl), dtype=torch.int64)
+    for c, j0 in enumerate(range(0, sl, PQ_CHUNK)):
+        n = min(PQ_CHUNK, sl - j0)
+        t = bufs[c % PQ_STAGES]
+        t[:n] = lut[j0:j0 + n]                     # the chunk's bulk copy
+        for jj in range(n):                        # one thread a row
+            j = j0 + jj
+            code = (cw[rows, j >> 2] >> (8 * (j & 3))) & 255
+            ip[rows] = ip[rows] + t[jj, code]
+            hits[rows, j] += 1
+    dist = torch.clamp((qn + norms) - 2.0 * ip, min=0.0)
+    return ip, dist, hits, _pq_head_words(r_, sl, kc)
+
+
+def _slot_order_sum(lut, codes):
+    """Row by row, ((0 + lut[0, c_0]) + lut[1, c_1]) + …: float32 adds in a
+    Python loop over the slots, each rounded once."""
+    vals = lut.numpy()[np.arange(codes.shape[1])[None, :], codes.numpy()]
+    acc = np.zeros(codes.shape[0], np.float32)
+    for j in range(codes.shape[1]):
+        acc = (acc + vals[:, j]).astype(np.float32)
+    return acc
+
+
+def test_pq_head_chunks_equal_slot_order_sum():
+    """The chunked PQ head (`_pq_head_chunked`) == the slot-order sum bit
+    for bit on float data, at R ∈ {1, 7, 32, 160}, S·L off a multiple of
+    PQ_CHUNK (and off 4) and rows masked as K5 masks visited ones; every
+    used (row, slot) looked up once, no masked row."""
+
+    @settings(max_examples=30, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), ri=st.integers(0, 3),
+           sl=st.sampled_from([1, 3, 13, 64, 100, 130, 191, 576]),
+           kc=st.sampled_from([2, 16, 256]), masked=st.integers(0, 3))
+    def check(seed, ri, sl, kc, masked):
+        rng = np.random.default_rng(seed)
+        r = (1, 7, 32, 160)[ri]
+        lut = torch.from_numpy((rng.normal(size=(sl, kc))
+                                * 10.0 ** rng.integers(-3, 3, (sl, 1)))
+                               .astype(np.float32))
+        codes = torch.from_numpy(rng.integers(0, kc, (r, sl)).astype(np.uint8))
+        norms = torch.from_numpy((rng.random(r) * 4).astype(np.float32))
+        qn = torch.tensor(np.float32(rng.random() * 4))
+        use = (torch.from_numpy(rng.random(r) >= masked / 4) if masked
+               else None)
+        ip, dist, hits, words = _pq_head_chunked(lut, codes, norms, qn, use)
+        used = torch.ones(r, dtype=torch.bool) if use is None else use
+        assert torch.equal(hits, used[:, None].long().expand(r, sl))
+        want = torch.from_numpy(_slot_order_sum(lut, codes))
+        assert torch.equal(ip[used].view(torch.int32),
+                           want[used].view(torch.int32))
+        assert torch.equal(dist[used], torch.clamp(
+            (qn + norms[used]) - 2.0 * want[used], min=0.0))
+
+    check()
+
+
+def test_pq_head_chunks_match_fused_step_plain_on_grid():
+    """On `tests/_quant_grid.py` data (S·L = 96: two chunks, the second
+    partial) `_pq_head_chunked` == `fused_step_plain`'s PQ distances (one
+    post-mode step from an empty queue: its queue is the R distances,
+    sorted) and `quant_dist`'s with K5's isnew mask, bit for bit."""
+    from _quant_grid import grid_index, grid_queries
+
+    from repro_torch.convert import quant_to_torch
+    from repro_torch.quant import codecs as P
+
+    rng = np.random.default_rng(31)
+    n, d, b, m, r, k = 300, 96, 4, 64, 32, 5
+    vecs = (np.round(rng.normal(size=(n, d)) * 0.3 * 64) / 64).astype(
+        np.float32)
+    index = quant_to_torch(grid_index("pq", vecs, pq_subspaces=48,
+                                      pq_centroids=16, pq_levels=2), "cpu")
+    q = torch.from_numpy(grid_queries(rng.normal(size=(b, d)) * 0.3, "pq"))
+    prep = P.prepare_query("pq", index, q)
+    assert prep.lut.shape[1] == 96
+    nb = torch.from_numpy(rng.integers(0, n, (b, r)).astype(np.int32))
+    nb[:, -1] = nb[:, 0]
+    qg = P.QuantGather(prep=prep, codes=index.codes[nb.long()],
+                       norms=index.norms[nb.long()])
+    a = list(_torch_args(_inputs(rng, b, m, r, k, d, compiled=False)))
+    a[0], a[1], a[2] = q, None, nb
+    a[3] = torch.ones((b, r), dtype=torch.bool)                 # all new
+    a[7] = torch.full((b, m), INF)                              # empty queue
+    a[8] = torch.full((b, m), -1, dtype=torch.int32)
+    ocd = fused_step_plain(*a, quant=qg, precision="pq")[0]
+    want = P.quant_dist("pq", qg)
+    for lane in range(b):
+        args = (prep.lut[lane], qg.codes[lane], qg.norms[lane], prep.qn[lane])
+        _, dist, _, _ = _pq_head_chunked(*args)
+        assert torch.equal(torch.sort(dist).values, ocd[lane, :r])
+        use = torch.from_numpy(rng.random(r) < 0.6)
+        _, dist, _, _ = _pq_head_chunked(*args, use=use)
+        assert torch.equal(dist[use], want[lane][use])
+
+
+@pytest.mark.parametrize("r,sl", [(160, 576), (32, 576)])
+def test_pq_head_shared_memory_fits_a_block(r, sl):
+    """`fused_step_smem_bytes` and `persistent_step_smem_bytes`, written
+    out, at M=512, K=10, Kc=256 with the PQ head's words: a row costs its
+    codes' words (S·L/4), not its S·L lookups, and both fit one H100 block
+    at the widened frontier R'=160 and the 1-hop R=32, where the whole-row
+    staging (R·(S·L | 1) words) took 369,280 B at R'=160."""
+    from repro_torch.kernels._build import MAX_SMEM_BYTES
+
+    m, k, kc = 512, 10, 256
+    qw = _pq_head_words(r, sl, kc)
+    assert _pq_head_words(r + 1, sl, kc) - qw == ((sl + 3) >> 2) | 1
+    fused = _fused_smem_bytes(r, qw, m, k)
+    persistent = _persistent_smem_bytes(r, qw, m, k)
+    assert fused <= MAX_SMEM_BYTES and persistent <= MAX_SMEM_BYTES
+    if r == 160:
+        assert 4 * r * (sl | 1) == 369_280 > MAX_SMEM_BYTES
+        assert fused == 196_460
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,sl,kc", [(160, 576, 256), (32, 576, 256),
+                                     (7, 99, 13)])
+def test_pq_head_shared_memory_formula_is_the_libraries_on_cuda(r, sl, kc):
+    """The written-out PQ shared-memory sizes above == what the built
+    libraries ask for (the wrappers check blocks against theirs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the built libraries)")
+    from repro_torch.kernels.fused_step import _lib as fused_lib
+    from repro_torch.kernels.persistent_step import _lib as persistent_lib
+
+    m, k, qw = 512, 10, _pq_head_words(r, sl, kc)
+    assert fused_lib().fused_step_smem_bytes(2, r, sl, m, k, kc) == \
+        _fused_smem_bytes(r, qw, m, k)
+    assert persistent_lib().persistent_step_smem_bytes(2, r, sl, m, k, kc) \
+        == _persistent_smem_bytes(r, qw, m, k)
+
+
 def _with_ties(args, dnew, rng):
     """One step's inputs rebuilt for ties in the merges: old queue and
     result keys taken from the new distances `dnew` [B, R] (equal keys
@@ -417,10 +595,11 @@ def _with_ties(args, dnew, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,r", [("float32", 32), ("float32", 160),
-                                         ("int8", 32), ("pq", 32)])
+                                         ("int8", 32), ("pq", 32),
+                                         ("pq", 160)])
 @pytest.mark.parametrize("pre", [False, True])
 def test_fused_step_merge_ties_match_plain_on_cuda(precision, r, pre):
-    """K1 (R=32 and the widened R'=160), K3 and K4 on the card == their
+    """K1 and K4 (R=32 and the widened R'=160) and K3 on the card == their
     plain version in every field, bit for bit, on grid data whose rows
     repeat: new distances equal to queued ones, all-inf queues and runs
     with every new entry masked (`_with_ties`)."""
@@ -447,6 +626,43 @@ def test_fused_step_merge_ties_match_plain_on_cuda(precision, r, pre):
     _assert_step_equal(got, want, exact_dist=True)
     with np.errstate(invalid="ignore"):  # inf - inf pads
         assert (np.diff(want[0][0::3], axis=1) == 0).any(), "no ties"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sl,kc,shift", [(576, 256, 1), (99, 13, 0),
+                                         (130, 12, 0)])
+def test_fused_step_pq_table_routes_match_plain_on_cuda(sl, kc, shift):
+    """K4 at R'=160 on the card == its plain version in every field, bit
+    for bit on grid data, whichever way the lane's table comes into shared
+    memory: a bulk copy a chunk (S·L·Kc a multiple of 4, 16-byte aligned;
+    S·L=130 ends on a partial chunk and takes its codes byte by byte) or
+    4-byte copies by every thread (a table shifted off 16-byte alignment,
+    or S·L·Kc odd)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K4 has no CPU mode)")
+    from repro_torch.quant.codecs import PQPrep, QuantGather
+
+    rng = np.random.default_rng(sl + kc)
+    b, m, r, k = 8, 128, 160, 10
+    a = list(_torch_args(_inputs(rng, b, m, r, k, 16, compiled=False),
+                         "cuda"))
+    grid = lambda z: torch.from_numpy(  # noqa: E731
+        (np.round(z * 64) / 64).astype(np.float32)).cuda()
+    flat = torch.zeros(b * sl * kc + shift, device="cuda")
+    flat[shift:] = grid(rng.normal(size=b * sl * kc) * 0.05)
+    lut = flat[shift:].view(b, sl, kc)
+    assert (lut.data_ptr() % 16 != 0) == (shift != 0)
+    codes = torch.from_numpy(rng.integers(0, kc, (b, r, sl)).astype(
+        np.uint8)).cuda()
+    qg = QuantGather(prep=PQPrep(lut=lut, qn=grid(rng.random(b) * 4)),
+                     codes=codes, norms=grid(rng.random((b, r)) * 4))
+    a[1] = None
+    for pre in (False, True):
+        got = [t.cpu().numpy() for t in fused_step(
+            *a, pre=pre, quant=qg, precision="pq")]
+        want = [t.cpu().numpy() for t in fused_step_plain(
+            *a, pre=pre, quant=qg, precision="pq")]
+        _assert_step_equal(got, want, exact_dist=True)
 
 
 def test_payload_pack_roundtrip():
