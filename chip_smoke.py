@@ -17,7 +17,12 @@ Phases, each printed as one JSON line with its wall seconds:
      within rtol 1e-5 plus the bound on the lookup sums' rounding); K1
      and K4 again at R'=160, the widened frontier of pre/widen mode
      (`k1_wide_check`, `k4_wide_check`, the same tolerances);
-  4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5);
+  4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5) and
+     bit for bit against the tree-order sum (each tree's leaf by the
+     plain walk, float32 adds in tree order, then base) over T ∈ {1, 7,
+     200, 401}, depth 1–6, B ∈ {1, 33, 64, 130} on random forests with
+     +inf thresholds and feature F − 1, and at the main path's shape;
+     then the launch floor (a one-element in-place add) on its own line;
   5. K6 (masked distance) against `sqdist_masked_plain` at B=64, R=32,
      d=768: equal on exact-arithmetic inputs, rtol 1e-5 on float ones,
      and each pair bit for bit K1's (one K1 step from an all-inf queue);
@@ -29,8 +34,8 @@ Phases, each printed as one JSON line with its wall seconds:
      without the planner at the "mixed" scan's shape (B=64, V=2^19,
      ≈11.1 M pairs) and the oracle's (`k6_rows_timing`);
   6. K7 (sorted-buffer merge) against `topm_merge_plain`, bit for bit,
-     ties, R=1 and M=500 included, with the library call pair's time
-     (`k7_check`);
+     ties, R=1, R'=160, M=500 and M=42 (4-byte loads) included, with the
+     library call pair's time (`k7_check`), then the launch floor;
   7. K5 (persistent multi-step) against `persistent_multi_step_plain`
      over an N=1M synthetic index, 8 steps a launch, with lanes stopping
      mid-launch, lanes already stopped, repeated ids and convergence:
@@ -44,7 +49,8 @@ Phases, each printed as one JSON line with its wall seconds:
   8. dataset, graph build, ground truth (the exact oracle on K6's row-id
      variant) and estimator training, with the share of training lanes
      whose exhaustive traversal reaches recall 10/10 beside the share
-     whose W_q label converged;
+     whose W_q label converged; K2 on the trained forest, bit for bit the
+     tree-order sum (`k2_trained_check`);
   9. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
      contain-label and a range workload of 64 lanes each: recall@10, mean
      NDC, e2e ms (median of 3 calls), per-stage ms (a separate stage-by-
@@ -58,7 +64,9 @@ Phases, each printed as one JSON line with its wall seconds:
      lanes equal to fused's. Each path runs with every kernel count set
      to 0 just before it, and each of its kernels must launch;
  11. a `profile` line per backend (fused, persistent) for one batch:
-     device busy ms, idle share, kernel launches per lockstep step;
+     device busy ms, idle share, kernel launches per lockstep step,
+     host-to-device copies, and forest uploads, which must be 0 (the
+     estimator keeps its forest on the card after its first call);
  12. the planner path on composite And/Or/Not workloads: `plan_training`
      (256 "mixed" queries: oracle, probe and the two exhaustion resumes'
      seconds, converged shares, fit seconds); `plan_forced` (each plan
@@ -77,7 +85,8 @@ Phases, each printed as one JSON line with its wall seconds:
      for bit) and dense (≥ 95% of lanes identical to fused, recall
      within 0.01), and a `profile` line for the persistent batch;
  14. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7
-     and K6's row-id variant).
+     and K6's row-id variant; K2 and K7 also their status and the launch
+     floor).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -203,6 +212,23 @@ def device_ms(fn, iters: int = 20) -> float:
         if total > 0:
             return total / 1e3 / iters
     raise AssertionError("the profiler recorded no device time")
+
+
+FOREST_UPLOADS = [0]  # GBDTModel.packed calls: forest copies to the card
+
+
+def count_forest_uploads() -> None:
+    """Count every upload of an estimator's forest (`GBDTModel.packed`,
+    three host-to-device copies) in FOREST_UPLOADS[0]."""
+    from repro_torch.core.gbdt import GBDTModel
+
+    real = GBDTModel.packed
+
+    def packed(self, device):
+        FOREST_UPLOADS[0] += 1
+        return real(self, device)
+
+    GBDTModel.packed = packed
 
 
 # ---------------------------------------------------------------- K1 ----
@@ -514,26 +540,100 @@ def check_step_kernel(device, precision="float32", r=32):
 
 
 # ---------------------------------------------------------------- K2 ----
-def check_k2(device):
+def launch_floor(device, kernel: str) -> dict:
+    """The card's floor for one launch, printed beside `kernel`'s check:
+    the time of a kernel that does next to nothing (a one-element in-place
+    add, one block), by the profiler and by CUDA events. A kernel near
+    this floor has little left to take."""
+    import torch
+
+    z = torch.zeros(1, device=device)
+    out = {"floor_ms": device_ms(lambda: z.add_(1.0)),
+           "floor_call_ms": time_cuda(lambda: z.add_(1.0))}
+    emit({"phase": "launch_floor", "kernel": kernel,
+          "op": "one-element in-place add_ (1 block)", **out})
+    return out
+
+
+K2_TREES, K2_DEPTHS, K2_LANES = (1, 7, 200, 401), range(1, 7), (1, 33, 64, 130)
+K2_STATUS = K7_STATUS = "redesigned"  # the kernels line's status
+
+
+def tree_order_sum(feats, feat, thresh, leaf, base, depth) -> np.ndarray:
+    """K2's bits by another route, in numpy: each tree's leaf by the heap
+    walk, then float32 adds in tree order from 0, each rounded once, then
+    base."""
+    x, feat, thresh, leaf = (a.cpu().numpy() for a in (feats, feat, thresh,
+                                                       leaf))
+    n, ni = x.shape[0], feat.shape[1]
+    acc = np.zeros(n, np.float32)
+    for t in range(feat.shape[0]):
+        idx = np.zeros(n, np.int64)
+        for _ in range(depth):
+            go_left = x[np.arange(n), feat[t, idx]] <= thresh[t, idx]
+            idx = 2 * idx + 1 + (~go_left)
+        acc = (acc + leaf[t, idx - ni]).astype(np.float32)
+    return (np.float32(base) + acc).astype(np.float32)
+
+
+def k2_bitwise(feats, feat, thresh, leaf, base, depth, what: str,
+               atol: float = 1e-5) -> None:
+    """K2 == the tree-order sum bit for bit, and within rtol 1e-5 (and
+    `atol`: leaf sums near 0 cancel) of `gbdt_predict_plain`."""
     import torch
 
     from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
 
+    got = gbdt_predict(feats, feat, thresh, leaf, base, depth)
+    want = tree_order_sum(feats, feat, thresh, leaf, base, depth)
+    require(np.array_equal(got.cpu().numpy().view(np.int32),
+                           want.view(np.int32)),
+            f"K2 differs from the tree-order sum ({what})")
+    plain = gbdt_predict_plain(feats, feat, thresh, leaf, base, depth)
+    require(torch.allclose(got, plain, rtol=1e-5, atol=atol),
+            f"K2 differs from plain beyond rtol 1e-5, atol {atol} ({what})")
+
+
+def check_k2(device, sweep: bool = True):
+    """K2 against `gbdt_predict_plain` (rtol 1e-5) and, bit for bit,
+    against the tree-order sum: at the main path's shape (B=64, F=68,
+    T=200, D=5) and (`sweep`) over T ∈ {1, 7, 200, 401}, D 1–6,
+    B ∈ {1, 33, 64, 130} on random forests with +inf thresholds and
+    feature F − 1; timed at the main path's shape, beside the launch
+    floor."""
+    import torch
+
+    from repro_torch.kernels.gbdt import gbdt_predict, gbdt_predict_plain
+
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    rng = np.random.default_rng(12)
+    for t in K2_TREES if sweep else ():
+        for depth in K2_DEPTHS:
+            for b in K2_LANES:
+                ni, nl, f = (1 << depth) - 1, 1 << depth, 68
+                thresh = rng.normal(size=(t, ni)).astype(np.float32)
+                thresh[rng.random((t, ni)) < 0.2] = np.inf
+                feat = rng.integers(0, f, (t, ni)).astype(np.int32)
+                feat[:, rng.integers(0, ni)] = f - 1
+                k2_bitwise(to(rng.normal(size=(b, f)).astype(np.float32)),
+                           to(feat), to(thresh),
+                           to(rng.normal(size=(t, nl)).astype(np.float32)),
+                           float(np.float32(rng.normal())), depth,
+                           f"random forest T={t} D={depth} B={b}")
     b, f, t, depth = 64, 68, 200, 5
     ni, nl = (1 << depth) - 1, 1 << depth
     rng = np.random.default_rng(1)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     feats = to(rng.normal(size=(b, f)).astype(np.float32))
     feat = to(rng.integers(0, f, (t, ni)).astype(np.int32))
     thresh = to(rng.normal(size=(t, ni)).astype(np.float32))
     leaf = to((0.1 * rng.normal(size=(t, nl))).astype(np.float32))
     base = 5.25
+    k2_bitwise(feats, feat, thresh, leaf, base, depth, "main path's shape",
+               atol=0.0)
     got = gbdt_predict(feats, feat, thresh, leaf, base, depth)
     want = gbdt_predict_plain(feats, feat, thresh, leaf, base, depth)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    require(torch.allclose(got, want, rtol=1e-5, atol=0.0),
-            f"K2 differs from plain beyond rtol 1e-5 (max abs err {err})")
     ms = device_ms(lambda: gbdt_predict(feats, feat, thresh, leaf, base,
                                         depth))
     plain_ms = device_ms(lambda: gbdt_predict_plain(feats, feat, thresh,
@@ -547,11 +647,32 @@ def check_k2(device):
     bound = max(nbytes / HBM_BYTES_PER_S, (ops + b * t) / FP32_FLOP_PER_S)
     emit({"phase": "k2_check", "ok": True,
           "shapes": dict(B=b, F=f, T=t, D=depth), "max_abs_err": err,
+          "bitwise_tree_order": {"T": K2_TREES, "D": list(K2_DEPTHS),
+                                 "B": K2_LANES} if sweep else "B=64 only",
           "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
           "plain_call_ms": plain_call_ms, "bound_ms": bound * 1e3})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, call_ms=call_ms,
                 plain_call_ms=plain_call_ms,
-                bound_ms=bound * 1e3, bound_by="bytes")
+                bound_ms=bound * 1e3, bound_by="bytes",
+                **launch_floor(device, "K2"))
+
+
+def k2_trained_check(est, feats, device) -> None:
+    """K2 on the e2e estimator's trained forest and the training lanes'
+    probe features, 64 lanes a batch and all lanes at once: bit for bit
+    the tree-order sum, within rtol 1e-5 and atol 1e-5 of plain."""
+    import torch
+
+    feat, thresh, leaf, base = est.packed(device)
+    z = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device)
+    for lo in range(0, z.shape[0], EVAL_LANES):
+        k2_bitwise(z[lo:lo + EVAL_LANES], feat, thresh, leaf, base,
+                   est.model.depth, f"trained forest, lanes {lo}+")
+    k2_bitwise(z, feat, thresh, leaf, base, est.model.depth,
+               "trained forest, all lanes")
+    emit({"phase": "k2_trained_check", "ok": True, "lanes": z.shape[0],
+          "T": int(feat.shape[0]), "D": est.model.depth,
+          "bitwise_tree_order": True})
 
 
 # ---------------------------------------------------------------- K6 ----
@@ -671,15 +792,18 @@ def library_merge(cat_d, cat_p, m):
 def check_k7(device):
     """K7 (merge by rank) against `topm_merge_plain`, bit for bit, at
     B=64, M=512, R=32 on sorted buffers with +inf tails: forced ties
-    within and across the runs, R=1, an M that is not a power of two, and
-    float distances; the library call pair must give the same order."""
+    within and across the runs, R=1, R'=160, an M that is not a power of
+    two, one off a multiple of 4 (4-byte loads, not vectors), and float
+    distances; the library call pair must give the same order. Timed
+    beside the launch floor."""
     import torch
 
     from repro_torch.kernels.topk import topm_merge, topm_merge_plain
 
     b, m, r = EVAL_LANES, 512, 32
     rng = np.random.default_rng(8)
-    cases = [(m, r, True), (m, 1, True), (500, r, True), (m, r, False)]
+    cases = [(m, r, True), (m, 1, True), (500, r, True), (m, r, False),
+             (m, 160, True), (42, r, True)]
     for cm, cr, ties in cases:
         args = merge_inputs(rng, b, cm, cr, ties, device)
         gd, gp = topm_merge(*args)
@@ -706,7 +830,7 @@ def check_k7(device):
           "cases": [dict(M=cm, R=cr, ties=t) for cm, cr, t in cases],
           "bitwise": True, "bytes": nbytes,
           "library": "torch.sort(stable=True) over [B, M+R] + gather", **out})
-    return out
+    return {**out, **launch_floor(device, "K7")}
 
 
 # ---------------------------------------------------------- K6 row ids ----
@@ -1356,6 +1480,7 @@ def run_pipeline(args, device):
               (td.w_q == td_plain.w_q).mean()),
           "features": int(td.features.shape[1]),
           **convergence_check(eng, wl_train, td, probe, chunk=128)})
+    k2_trained_check(est, td.features, device)
 
     cells = [(name, alpha) for name in evals for alpha in (1.0, 2.0)]
 
@@ -1787,6 +1912,7 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
     from repro_torch.core import dispatch_counters, planned_search
 
     torch.cuda.synchronize()
+    u0 = FOREST_UPLOADS[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         d0 = dispatch_counters()
@@ -1796,6 +1922,8 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
         d1 = dispatch_counters()
+    uploads = FOREST_UPLOADS[0] - u0
+    require(uploads == 0, f"a planned batch uploaded {uploads} forests")
     evs = _kernel_events(prof)
     busy = sum(us for _, us in evs) / 1e3
     launches = sum(e.count for e, _ in evs)
@@ -1812,6 +1940,8 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
                                 else "not measured"),
           "kernel_launches": launches, "lockstep_steps": steps,
           "kernel_launches_per_step": launches / max(steps, 1),
+          "htod_copies": sum(e.count for e, _ in evs if "HtoD" in e.key),
+          "forest_uploads": uploads,
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": us / 1e3} for e, us in top]})
 
@@ -2062,6 +2192,7 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
 
     c = SearchConfig(k=10, queue_size=512, backend=backend)
     torch.cuda.synchronize()
+    u0 = FOREST_UPLOADS[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         d0 = dispatch_counters()
@@ -2070,6 +2201,8 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
         d1 = dispatch_counters()
+    uploads = FOREST_UPLOADS[0] - u0
+    require(uploads == 0, f"an e2e batch uploaded {uploads} forests")
 
     evs = _kernel_events(prof)
     busy = sum(us for _, us in evs) / 1e3
@@ -2088,6 +2221,8 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
                                 else "not measured"),
           "kernel_launches": launches, "lockstep_steps": steps,
           "kernel_launches_per_step": launches / max(steps, 1),
+          "htod_copies": sum(e.count for e, _ in evs if "HtoD" in e.key),
+          "forest_uploads": uploads,
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "device_ms": us / 1e3} for e, us in top]})
 
@@ -2122,6 +2257,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t})
+    count_forest_uploads()
 
     k1 = check_step_kernel(device)
     k3 = check_step_kernel(device, "int8")
@@ -2138,7 +2274,7 @@ def main(argv=None) -> int:
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r = run_pipeline(args, device)
 
-    def entry(name, source, replaces, chk, launches_of, why):
+    def entry(name, source, replaces, chk, launches_of, why, status=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": f"src/repro/kernels/{replaces}",
@@ -2153,6 +2289,9 @@ def main(argv=None) -> int:
             out["library_none_because"] = why
         else:
             out["library"] = "torch.sort(stable=True) + torch.gather"
+        if status:
+            out.update(status=status, floor_ms=chk["floor_ms"],
+                       floor_call_ms=chk["floor_call_ms"])
         return out
 
     step_why = "no single PyTorch call runs a traversal step"
@@ -2163,7 +2302,8 @@ def main(argv=None) -> int:
         entry("fused_step (R'=160, pre/widen)", "fused_step.cu",
               "fused_step.py:182", k1w, "fused_step_wide", step_why),
         entry("gbdt_predict", "gbdt.cu", "gbdt.py:22", k2, "gbdt_predict",
-              "no single PyTorch call walks a tree ensemble"),
+              "no single PyTorch call walks a tree ensemble",
+              K2_STATUS),
         entry("fused_step_int8", "fused_step.cu", "fused_step.py:209", k3,
               "fused_step_int8", step_why),
         entry("fused_step_pq", "fused_step.cu", "fused_step.py:243", k4,
@@ -2189,7 +2329,7 @@ def main(argv=None) -> int:
               "given by id (torch.cdist gives unsquared, unmasked distances "
               "of a gathered block)"),
         entry("topm_merge", "topk.cu", "topk.py:63", k7, "topm_merge",
-              None),
+              None, K7_STATUS),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

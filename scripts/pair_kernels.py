@@ -9,24 +9,30 @@ kernels, built from that checkout's `csrc/`) and runs THIS checkout's
 kernel checks on them, so both are timed by the same code within one
 call: K1 at R=32 and R'=160, K3, K4 and K5's three branches at the main
 path's shapes (B=64, d=768, M=512, K=10; K5 over its N=1M synthetic
-index), K6 at B=64, R=32, and K6's row-id variant at the "mixed" forced
+index), K6 at B=64, R=32, K6's row-id variant at the "mixed" forced
 scan's shape (B=64, N=1M, V=2^19, ≈11.1 M pairs) and the oracle's (V =
-2^18). Each check holds the kernel against its plain version. Prints one
-JSON line per turn, {"root", "turn", "ms": {kernel: device ms},
-"call_ms": {...}}, then the card's `nvidia-smi` name and power limit.
+2^18), K2 at B=64, F=68, T=200, D=5 and K7 at B=64, M=512, R=32. Each
+check holds the kernel against its plain version. Prints one JSON line
+per turn, {"root", "turn", "ms": {kernel: device ms}, "call_ms": {...},
+"floor": {kernel: the launch floor measured beside it}}, then the card's
+`nvidia-smi` name and power limit.
 Needs a CUDA device and nvcc; the wrappers' signatures must be the same
 in both checkouts.
 
     python3 scripts/pair_kernels.py --stamps ROOT [ROOT ...]
 
-breaks the PQ head of K4 and K5's pq branch down by in-kernel `clock64()`
-stamps, for each checkout in turn: a copy of ROOT's `src/` under
-`build/stamps/` gets the stamps inserted at fixed points of its head
-(either the whole-row staging `pq_stage` or the chunked `pq_head`), is
-built, and runs K4 at B=64, R=32 (and R'=160 where the head takes it) and
-one 8-step K5 pq launch over the N=1M synthetic index of `chip_smoke.py`.
-Thread 0 of each block adds the cycles between stamps into a device
-array, so each phase reads as cycles per lane-step; barrier-to-barrier
+breaks the PQ head of K4 and K5's pq branch and K2 down by in-kernel
+`clock64()` stamps, for each checkout in turn: a copy of ROOT's `src/`
+under `build/stamps/` gets the stamps inserted at fixed points of its
+head (either the whole-row staging `pq_stage` or the chunked `pq_head`)
+and of its K2 (the forest staged per block of 8 lanes, or walked where it
+lies, one block a lane), is built, and runs K4 at B=64, R=32 (and R'=160
+where the head takes it), one 8-step K5 pq launch over the N=1M synthetic
+index of `chip_smoke.py`, K2 at B=64, F=68, T=200, D=5, and K7 at B=64,
+M=512, R=32 where its merge loads in one round (an older K7 is not
+stamped). Thread 0 of each block adds the cycles between stamps into a
+device array, so each phase reads as cycles per lane-step (K2, K7: per
+block); barrier-to-barrier
 phases are the block's, and the rest thread 0's own. Prints one JSON line
 per checkout and kernel, with the SM clock `nvidia-smi` read under load.
 The committed sources carry no stamps.
@@ -52,6 +58,8 @@ CHECKS = (  # (kernel, chip_smoke function, its arguments after the device)
     ("K6", "check_k6", ()),
     ("K6 rows", "time_k6_rows", ("scan",)),
     ("K6 rows oracle", "time_k6_rows", ("oracle",)),
+    ("K2", "check_k2", (False,)),
+    ("K7", "check_k7", ()),
 )
 
 
@@ -75,13 +83,16 @@ def one_turn(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
     device = torch.device("cuda")
-    ms, call_ms = {}, {}
+    ms, call_ms, floor = {}, {}, {}
     for name, fn, extra in CHECKS:
         with contextlib.redirect_stdout(io.StringIO()):  # its phase lines
             out = getattr(chip_smoke, fn)(device, *extra)
         ms[name], call_ms[name] = out["ms"], out["call_ms"]
+        if "floor_ms" in out:  # the launch floor, measured beside it
+            floor[name] = {"ms": out["floor_ms"],
+                           "call_ms": out["floor_call_ms"]}
     return {"root": root, "src": os.path.dirname(repro_torch.__file__),
-            "ms": ms, "call_ms": call_ms}
+            "ms": ms, "call_ms": call_ms, "floor": floor}
 
 
 # ------------------------------------------------------------ stamps ----
@@ -240,29 +251,103 @@ STAMP_HEADS = {
 }
 
 
-def stamped_copy(root: str, dest: str) -> str:
+# K2 (gbdt.cu), thread 0 of each block (one block a lane group): the
+# block count in slot 0; per block, from the kernel's start
+K2_START = ("{}long long t_ = clock64(), k_ = t_;\n"
+            "{}if (tid == 0) atomicAdd(&step::g_stamp[0], 1ull);\n")
+STAMP_K2 = {
+    # the first port: 8 lanes a block stage the whole forest, walk from
+    # shared memory, then 8 threads sum
+    "staged": {
+        "phases": {1: "forest and features staged, barrier",
+                   2: "walk and barrier", 3: "sum (thread 0)",
+                   4: "whole kernel"},
+        "patches": [
+            ("gbdt.cu",
+             "  const int nl = B - b0 < kLanes ? B - b0 : kLanes;\n",
+             "  const int nl = B - b0 < kLanes ? B - b0 : kLanes;\n" +
+             K2_START.format("  ", "  ")),
+            ("gbdt.cu", "  __syncthreads();\n\n  for (int p = tid;",
+             "  __syncthreads();\n  step::stamp_lap(1, &t_);\n\n"
+             "  for (int p = tid;"),
+            ("gbdt.cu", "  __syncthreads();\n\n  if (tid < nl) {",
+             "  __syncthreads();\n  step::stamp_lap(2, &t_);\n\n"
+             "  if (tid < nl) {"),
+            ("gbdt.cu", "    out[b0 + tid] = base + s;\n",
+             "    out[b0 + tid] = base + s;\n    step::stamp_lap(3, &t_);\n"
+             "    step::stamp_lap(4, &k_);\n"),
+        ]},
+    # one block a lane, one thread a tree, reading the forest where it
+    # lies; then thread 0 sums
+    "walk": {
+        "phases": {1: "feature prefetch issued", 2: "walk and barrier",
+                   3: "sum (thread 0)", 4: "whole kernel"},
+        "patches": [
+            ("gbdt.cu", "  const float* x = feats + (size_t)b * F;\n",
+             K2_START.format("  ", "  ") +
+             "  const float* x = feats + (size_t)b * F;\n"),
+            ("gbdt.cu", '"l"(line));\n',
+             '"l"(line));\n  step::stamp_lap(1, &t_);\n'),
+            ("gbdt.cu", "  __syncthreads();\n  if (tid == 0) {",
+             "  __syncthreads();\n  step::stamp_lap(2, &t_);\n"
+             "  if (tid == 0) {"),
+            ("gbdt.cu", "    out[b] = base + s;\n",
+             "    out[b] = base + s;\n    step::stamp_lap(3, &t_);\n"
+             "    step::stamp_lap(4, &k_);\n"),
+        ]},
+}
+
+
+# K7 (topk.cu), the merge by rank with one load round (this tree's), thread
+# 0 of each block (one block a lane): loads, and the rank of the new run
+# (warp 0); the barrier; thread 0's searches and stores
+STAMP_K7 = {
+    "phases": {1: "loads and rank (thread 0)", 2: "barrier",
+               3: "search and scatter (thread 0)", 4: "whole kernel"},
+    "patches": [
+        ("topk.cu", "  const float* nd = new_dist + orr;\n",
+         "  const float* nd = new_dist + orr;\n" +
+         K2_START.format("  ", "  ")),
+        ("topk.cu", "    if (has_new) new_k[s] = kr;\n  }\n  __syncthreads();\n",
+         "    if (has_new) new_k[s] = kr;\n  }\n  step::stamp_lap(1, &t_);\n"
+         "  __syncthreads();\n  step::stamp_lap(2, &t_);\n"),
+        ("topk.cu", "  }\n}\n\ntemplate <int V>\ncudaError_t launch(",
+         "  }\n  step::stamp_lap(3, &t_);\n  step::stamp_lap(4, &k_);\n}\n\n"
+         "template <int V>\ncudaError_t launch("),
+    ]}
+
+
+def stamped_copy(root: str, dest: str) -> tuple:
     """Copy `root`'s src/ to `dest` with the stamps inserted; returns the
-    head's name. Every stamped text must occur exactly once."""
+    names of its PQ head and its K2, and whether its K7 is stamped (the
+    merge with one load round; an older K7 is not). Every stamped text must
+    occur exactly once."""
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(os.path.join(root, "src"), os.path.join(dest, "src"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(dest, "src", "repro_torch", "csrc")
     common = open(os.path.join(csrc, "step_common.cuh")).read()
     head = "pq_head" if "void pq_head(" in common else "pq_stage"
+    gbdt = open(os.path.join(csrc, "gbdt.cu")).read()
+    k2 = "walk" if "float walk(" in gbdt else "staged"
+    k7 = "__shfl_sync" in open(os.path.join(csrc, "topk.cu")).read()
     texts = {}
-    for fname, old, new in STAMP_COMMON + STAMP_HEADS[head]["patches"]:
+    for fname, old, new in (STAMP_COMMON + STAMP_HEADS[head]["patches"] +
+                            STAMP_K2[k2]["patches"] +
+                            (STAMP_K7["patches"] if k7 else [])):
         path = os.path.join(csrc, fname)
         text = texts.get(path) or open(path).read()
         if text.count(old) != 1:
             raise RuntimeError(f"stamp point not found once in {fname}: "
                                f"{old!r}")
         texts[path] = text.replace(old, new)
-    for name in ("fused_step.cu", "persistent_step.cu"):
+    for name in ("fused_step.cu", "persistent_step.cu", "gbdt.cu") + (
+            ("topk.cu",) if k7 else ()):
         texts[os.path.join(csrc, name)] += STAMP_READER
     for path, text in texts.items():
         with open(path, "w") as f:
             f.write(text)
-    return head
+    return head, k2, k7
 
 
 def sm_clock_under(fn) -> float:
@@ -294,13 +379,15 @@ def stamp_turn(root: str) -> list:
     root = os.path.abspath(root)
     dest = os.path.join(HERE, "build", "stamps",
                         os.path.basename(root.rstrip("/")) or "root")
-    head = stamped_copy(root, dest)
+    head, k2, k7 = stamped_copy(root, dest)
     sys.path.insert(0, os.path.join(dest, "src"))
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.gbdt import gbdt_predict
     from repro_torch.kernels.persistent_step import persistent_multi_step
+    from repro_torch.kernels.topk import topm_merge
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -310,7 +397,7 @@ def stamp_turn(root: str) -> list:
     device = torch.device("cuda")
     buf = (ctypes.c_ulonglong * 16)()
 
-    def measure(lib_name, run, iters):
+    def measure(lib_name, run, iters, phases=STAMP_HEADS[head]["phases"]):
         io_ = _build.load(lib_name).stamps_io
         io_.argtypes = [ctypes.c_void_p, ctypes.c_int]
         io_.restype = ctypes.c_int
@@ -322,7 +409,6 @@ def stamp_turn(root: str) -> list:
         torch.cuda.synchronize()
         _build.check(io_(ctypes.addressof(buf), 0), lib_name)
         n = max(int(buf[0]), 1)
-        phases = STAMP_HEADS[head]["phases"]
         return {"heads": int(buf[0]), "cycles_per_lane_step": {
             phases[i]: buf[i] / n for i in sorted(phases)}}
 
@@ -345,6 +431,26 @@ def stamp_turn(root: str) -> list:
         *args, next(clones), 1 << 30, None, steps=cs.K5_STEPS, **kw)
     res = measure("persistent_step", run, 10)
     out.append({"kernel": "K5 pq", "R": 32, **res})
+    # K2 at the main path's shape (check_k2's inputs); "heads" counts
+    # blocks here and the cycles are a block's
+    b, f, t, depth = 64, 68, 200, 5
+    rng = np.random.default_rng(1)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    forest = (to(rng.normal(size=(b, f)).astype(np.float32)),
+              to(rng.integers(0, f, (t, (1 << depth) - 1)).astype(np.int32)),
+              to(rng.normal(size=(t, (1 << depth) - 1)).astype(np.float32)),
+              to((0.1 * rng.normal(size=(t, 1 << depth))).astype(np.float32)))
+    run = lambda: gbdt_predict(*forest, 5.25, depth)  # noqa: E731
+    res = measure("gbdt", run, 50, STAMP_K2[k2]["phases"])
+    res["sm_mhz"] = sm_clock_under(lambda: [run() for _ in range(20000)])
+    out.append({"kernel": "K2", "variant": k2, "B": b, "T": t, "D": depth,
+                **res})
+    if k7:  # K7 at check_k7's shape, blocks counted as for K2
+        args = cs.merge_inputs(np.random.default_rng(8), 64, 512, 32, True,
+                               device)
+        res = measure("topk", lambda: topm_merge(*args), 50,
+                      STAMP_K7["phases"])
+        out.append({"kernel": "K7", "B": 64, "M": 512, "R": 32, **res})
     return [{"root": root, "head": head, **o} for o in out]
 
 

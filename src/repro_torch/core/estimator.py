@@ -3,7 +3,9 @@
 Counterpart of `repro/core/estimator.py`: regress log(W_q) with MSE, then
 at query time Ŵ_q = α · exp(M(z_q)). The device path runs the forest
 through kernel K2 (`kernels.gbdt.gbdt_predict`), the function `repro`
-computes with `predict_jax` at this stage.
+computes with `predict_jax` at this stage. The forest is uploaded once per
+device and stays there, as the reference's TPU kernel keeps it resident
+in VMEM.
 """
 from __future__ import annotations
 
@@ -20,6 +22,14 @@ from repro_torch.kernels.gbdt import gbdt_predict
 class CostEstimator:
     model: GBDTModel
     log_target: bool = True
+    # the forest on each device it has run on (`packed`), and the highest
+    # feature id it tests: neither is part of the estimator's value
+    _forest: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+    _feat_max: int = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self._feat_max = int(self.model.feat.max(initial=0))
 
     @classmethod
     def fit(cls, features: np.ndarray, w_q: np.ndarray,
@@ -36,18 +46,24 @@ class CostEstimator:
 
     # ---- device-side ----
     def packed(self, device) -> tuple:
-        """The forest on `device`, for repeated `predict_budget` calls."""
-        return self.model.packed(device)
+        """The forest on `device`, uploaded on the first call for that
+        device; later calls return the same tensors."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._forest:
+            self._forest[device] = self.model.packed(device)
+        return self._forest[device]
 
     def predict_budget(self, features: torch.Tensor, alpha: float,
                        min_budget: int, max_budget: int,
                        packed=None) -> torch.Tensor:
         """features [B, F] f32 → budgets [B] i32:
         int32(clip(α·exp(M(z)), min, max)), truncating like the reference."""
-        if int(self.model.feat.max(initial=0)) >= features.shape[1]:
+        if self._feat_max >= features.shape[1]:
             raise ValueError(
-                f"model tests feature {int(self.model.feat.max())} but "
-                f"features have {features.shape[1]} columns")
+                f"model tests feature {self._feat_max} but features have "
+                f"{features.shape[1]} columns")
         feat, thresh, leaf, base = (self.packed(features.device)
                                     if packed is None else packed)
         p = gbdt_predict(features.contiguous(), feat, thresh, leaf, base,

@@ -3,14 +3,17 @@ PyTorch version.
 
 Replaces the TPU kernel `repro/kernels/gbdt.py::_gbdt_kernel`, the cost
 estimator between the probe and the resumed traversal: features [B, F]
-→ predictions [B] over heap-packed complete trees (`core.gbdt`). Bound on
-an H100: the forest's bytes and the launch (see the note in
+→ predictions [B] over heap-packed complete trees (`core.gbdt`). One
+block per lane and one thread per tree, reading the forest where it lies
+(no copy into shared memory), then a tree-order sum; bound on an H100 by
+the walk's loads and the serial sum, not bytes (see the note in
 `csrc/gbdt.cu`). On CPU tensors the wrapper runs `gbdt_predict_plain`; on
 CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,8 +46,15 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         sm = lib.gbdt_smem_bytes
-        sm.argtypes, sm.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+        sm.argtypes, sm.restype = [ctypes.c_int], ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(t: int) -> int:
+    """The kernel's shared memory for a forest of `t` trees (one float a
+    tree), asked of the library once per forest size."""
+    return _lib().gbdt_smem_bytes(t)
 
 
 def gbdt_predict(feats, feat, thresh, leaf, base: float,
@@ -67,11 +77,10 @@ def gbdt_predict(feats, feat, thresh, leaf, base: float,
         (thresh, "thresh", torch.float32, (t, ni)),
         (leaf, "leaf", torch.float32, (t, nl))))
     lib = _lib()
-    smem = lib.gbdt_smem_bytes(f, t, ni, nl)
+    smem = _smem_bytes(t)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"gbdt_predict needs {smem} B of shared memory for "
-                         f"{t} trees of depth {depth}; a block has "
-                         f"{MAX_SMEM_BYTES}")
+                         f"{t} trees; a block has {MAX_SMEM_BYTES}")
     out = torch.empty((b,), dtype=torch.float32, device=feats.device)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     gbdt_predict.launches += 1

@@ -11,19 +11,21 @@ same pair, so all three agree on ties.
 `topm_merge_plain`. It replaces the TPU kernel
 `repro/kernels/topk.py::_merge_kernel` (`topm_merge`), which only
 `kernels/ops.py::queue_merge` reaches. A merge by rank: it relies on the
-buffer being sorted ascending, `queue_merge`'s stated contract. Bound on
-an H100: bytes (both runs read once, the best M written once); see the
-note in `csrc/topk.cu`. On CPU tensors the wrapper runs the plain version;
-on CUDA tensors it launches the kernel or raises.
+buffer being sorted ascending, `queue_merge`'s stated contract. One block
+a lane loads both runs in one round (the buffer by 16-byte vectors where
+it is aligned), ranks the new run by warp shuffles and scatters both runs
+from registers after one barrier; bound on an H100 by that latency, not
+bytes (see the note in `csrc/topk.cu`). On CPU tensors the wrapper runs
+the plain version; on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import MAX_SMEM_BYTES
 
 
 def pack_payload(idx: torch.Tensor, expanded: torch.Tensor,
@@ -69,12 +71,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     fn = lib.topm_merge_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         sm = lib.topm_merge_smem_bytes
-        sm.argtypes, sm.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+        sm.argtypes, sm.restype = [ctypes.c_int] * 3, ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(m: int, r: int, vec: bool) -> int:
+    """The kernel's shared memory at these widths (0: a block cannot take
+    them), asked of the library once per shape."""
+    return _lib().topm_merge_smem_bytes(m, r, int(vec))
 
 
 def topm_merge(dist: torch.Tensor, payload: torch.Tensor,
@@ -96,18 +105,21 @@ def topm_merge(dist: torch.Tensor, payload: torch.Tensor,
         (dist, "dist", f32, (b, m)), (payload, "payload", i32, (b, m)),
         (new_dist, "new_dist", f32, (b, r)),
         (new_payload, "new_payload", i32, (b, r))))
-    lib = _lib()
-    smem = lib.topm_merge_smem_bytes(m, r)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"topm_merge needs {smem} B of shared memory at "
-                         f"M={m}, R={r}; a block has {MAX_SMEM_BYTES}")
+    # the buffer goes by 16-byte vectors where both its rows and pointers
+    # allow
+    vec = m % 4 == 0 and (dist.data_ptr() | payload.data_ptr()) % 16 == 0
+    if _smem_bytes(m, r, vec) == 0:
+        raise ValueError(f"topm_merge does not take M={m}, R={r} in one "
+                         f"block: R <= 1024, M <= 4096 (16384 where the "
+                         f"buffer is 16-byte aligned and M % 4 == 0)")
     od = torch.empty((b, m), dtype=f32, device=dist.device)
     op = torch.empty((b, m), dtype=i32, device=dist.device)
     stream = torch.cuda.current_stream(dist.device).cuda_stream
     topm_merge.launches += 1
-    err = lib.topm_merge_f32(dist.data_ptr(), payload.data_ptr(),
-                             new_dist.data_ptr(), new_payload.data_ptr(),
-                             od.data_ptr(), op.data_ptr(), b, m, r, stream)
+    err = _lib().topm_merge_f32(dist.data_ptr(), payload.data_ptr(),
+                                new_dist.data_ptr(), new_payload.data_ptr(),
+                                od.data_ptr(), op.data_ptr(), b, m, r,
+                                int(vec), stream)
     _build.check(err, "topk")
     return od, op
 

@@ -9,12 +9,15 @@ against the plain versions by the `cuda`-marked tests (and by
 chip_smoke.py on the card), tie cases included. K5's plain version has
 its own file, tests/test_torch_persistent.py. The merge by rank that
 K1/K3/K4 and K5 share has no CPU mode: a torch transcription of its rank
-formulas is held to `merge_stable` here, under heavy ties.
+formulas is held to `merge_stable` here, under heavy ties; so are K7's
+(`_topm_by_rank`), and K2's walk and tree-order sum (`_gbdt_tree_order`)
+are held bit for bit to a float32 tree-by-tree sum.
 
 Tolerances: ids, payloads, masks and counts must be equal; float32
 distances agree to rtol/atol 1e-5 (the two packages sum in different
 orders) and exactly on grid data, where every sum is exact; GBDT
-predictions to rtol 1e-5 (leaf sums in different orders).
+predictions to rtol 1e-5 (leaf sums in different orders), and bit for bit
+where both sum in tree order.
 """
 import functools
 
@@ -730,6 +733,202 @@ def test_gbdt_kernel_matches_plain_on_cuda():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _gbdt_tree_order(feats, feat, thresh, leaf, base, depth):
+    """A torch transcription of `csrc/gbdt.cu`: block b takes lane b, and
+    its thread j trees j, j + threads, ... (threads: T rounded up to a
+    warp, 32 to 1024); each walk goes in rounds of up to three levels
+    (`walk_round`: the 2^K − 1 nodes under and including n, level j's at
+    heap indices (n + 1)·2^j − 1 + q, the last round also the 2^K leaves
+    below), descending by the position p within each level; thread 0 then
+    adds the T leaf values in tree order from 0, then `base`. Returns
+    ([B] f32, how many times each (lane, tree) pair was walked)."""
+    b, t = feats.shape[0], feat.shape[0]
+    ni = feat.shape[1]
+    threads = min(max(-(-t // 32) * 32, 32), 1024)
+    walked = torch.zeros((b, t), dtype=torch.int64)
+    sv = torch.zeros((b, t), dtype=torch.float32)
+    lanes = torch.arange(b)[:, None]
+    for t0 in range(0, t, threads):  # one pass of the block's threads
+        trees = torch.arange(t0, min(t0 + threads, t))[None, :].expand(b, -1)
+
+        def walk_round(n, k, leaves):
+            p = torch.zeros_like(n)
+            for j in range(k):
+                node = ((n + 1) << j) - 1 + p
+                f = feat[trees, node].long()
+                p = 2 * p + (~(feats[lanes, f] <= thresh[trees, node])).long()
+            below = ((n + 1) << k) - 1
+            return below + p, (leaf[trees, below - ni + p] if leaves
+                               else None)
+
+        n = torch.zeros_like(trees)
+        d = 0
+        while depth - d > 3:
+            n, _ = walk_round(n, 3, False)
+            d += 3
+        if depth > d:
+            _, v = walk_round(n, depth - d, True)
+        else:
+            v = leaf[trees, n - ni]
+        sv[lanes, trees] = v
+        walked[lanes, trees] += 1
+    s = torch.zeros(b, dtype=torch.float32)
+    for j in range(t):
+        s = s + sv[:, j]
+    return torch.tensor(base, dtype=torch.float32) + s, walked
+
+
+def _tree_by_tree_sum(x, feat, thresh, leaf, base, depth):
+    """numpy: each tree's leaf by the heap walk, then float32 adds in
+    tree order from 0, each rounded once, then base."""
+    n, ni = x.shape[0], feat.shape[1]
+    acc = np.zeros(n, np.float32)
+    for t in range(feat.shape[0]):
+        idx = np.zeros(n, np.int64)
+        for _ in range(depth):
+            go_left = x[np.arange(n), feat[t, idx]] <= thresh[t, idx]
+            idx = 2 * idx + 1 + (~go_left)
+        acc = (acc + leaf[t, idx - ni]).astype(np.float32)
+    return (np.float32(base) + acc).astype(np.float32)
+
+
+def _random_forest(rng, b, f, t, depth, inf_frac=0.2):
+    """Features [b, f] and a random forest of t trees: every tree tests
+    feature f - 1 somewhere, about inf_frac of thresholds are +inf (the
+    unused nodes of a trained forest), leaves of mixed magnitude."""
+    ni, nl = (1 << depth) - 1, 1 << depth
+    x = rng.normal(size=(b, f)).astype(np.float32)
+    feat = rng.integers(0, f, (t, ni)).astype(np.int32)
+    feat[:, rng.integers(0, ni)] = f - 1
+    thresh = rng.normal(size=(t, ni)).astype(np.float32)
+    thresh[rng.random((t, ni)) < inf_frac] = np.inf
+    leaf = (rng.normal(size=(t, nl))
+            * 10.0 ** rng.integers(-3, 2, (t, 1))).astype(np.float32)
+    return x, feat, thresh, leaf, float(np.float32(rng.normal() * 4))
+
+
+GBDT_TREES, GBDT_LANES = (1, 7, 200, 401), (1, 33, 64, 130)
+
+
+def test_gbdt_tree_order_equals_tree_by_tree_sum():
+    """K2's transcription (`_gbdt_tree_order`) == a float32 tree-by-tree
+    sum plus base, bit for bit, over T ∈ {1, 7, 200, 401}, depth 1–6,
+    B ∈ {1, 33, 64, 130}, with +inf thresholds and feature F − 1; every
+    (lane, tree) pair walked once."""
+
+    @settings(max_examples=40, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), ti=st.integers(0, 3),
+           depth=st.integers(1, 6), bi=st.integers(0, 3),
+           f=st.integers(1, 70))
+    def check(seed, ti, depth, bi, f):
+        rng = np.random.default_rng(seed)
+        x, feat, thresh, leaf, base = _random_forest(
+            rng, GBDT_LANES[bi], f, GBDT_TREES[ti], depth)
+        t = torch.from_numpy
+        got, walked = _gbdt_tree_order(t(x), t(feat), t(thresh), t(leaf),
+                                       base, depth)
+        assert (walked == 1).all()
+        want = _tree_by_tree_sum(x, feat, thresh, leaf, base, depth)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+    check()
+
+
+@pytest.mark.parametrize("t,depth,b", [(1, 1, 1), (7, 3, 33), (200, 5, 64),
+                                       (401, 6, 130), (200, 2, 130),
+                                       (7, 4, 1)])
+@pytest.mark.parametrize("trained", [False, True])
+def test_gbdt_tree_order_matches_plain_and_reference(t, depth, b, trained):
+    """`_gbdt_tree_order` == `gbdt_predict_plain` and the reference's
+    `gbdt_predict(interpret=True)` within rtol/atol 1e-5 (they sum the
+    leaves in other orders), on a random forest (+inf thresholds, feature
+    F − 1) and on a trained one."""
+    import jax.numpy as jnp
+    from repro.kernels.gbdt import gbdt_predict as jax_gbdt_predict
+
+    rng = np.random.default_rng(t * 100 + depth * 10 + b)
+    f = 68
+    if trained:
+        _, model = _forest(t + depth, 256, f, t, depth)
+        x = rng.normal(size=(b, f)).astype(np.float32)
+        feat, thresh, leaf, base = (model.feat, model.thresh, model.leaf,
+                                    float(np.float32(model.base)))
+    else:
+        x, feat, thresh, leaf, base = _random_forest(rng, b, f, t, depth)
+    tt = torch.from_numpy
+    got, _ = _gbdt_tree_order(tt(x), tt(feat), tt(thresh), tt(leaf), base,
+                              depth)
+    plain = gbdt_predict_plain(tt(x), tt(feat), tt(thresh), tt(leaf), base,
+                               depth)
+    ref = np.asarray(jax_gbdt_predict(
+        jnp.asarray(x), jnp.asarray(feat), jnp.asarray(thresh),
+        jnp.asarray(leaf), base, depth, interpret=True))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_cost_estimator_keeps_its_forest_per_device(monkeypatch):
+    """`CostEstimator.packed(device)` uploads the forest once per device:
+    a second call returns the same tensors, predict_budget and
+    e2e-style calls with and without `packed` give the same budgets, and
+    the cache is no part of the estimator's value (==, repr)."""
+    from repro_torch.core.estimator import CostEstimator
+    from repro_torch.core.gbdt import GBDTModel
+
+    x, model = _forest(5, 128, 12, 30, 4)
+    est = CostEstimator(model=model)
+    uploads = []
+    real = GBDTModel.packed
+    monkeypatch.setattr(GBDTModel, "packed",
+                        lambda self, dev: uploads.append(dev) or real(self,
+                                                                      dev))
+    feats = torch.from_numpy(x[:40])
+    first = est.predict_budget(feats, 1.5, 32, 10 ** 6)
+    p1 = est.packed("cpu")
+    p2 = est.packed(torch.device("cpu"))
+    assert all(a is b for a, b in zip(p1, p2))
+    again = est.predict_budget(feats, 1.5, 32, 10 ** 6, packed=p1)
+    assert len(uploads) == 1
+    fresh = CostEstimator(model=model).predict_budget(
+        feats, 1.5, 32, 10 ** 6, packed=real(model, "cpu"))
+    assert torch.equal(first, again) and torch.equal(first, fresh)
+    assert est == CostEstimator(model=model)
+    assert "_forest" not in repr(est)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", GBDT_TREES)
+@pytest.mark.parametrize("trained", [False, True])
+def test_gbdt_kernel_equals_tree_order_sum_on_cuda(t, trained):
+    """K2 == the float32 tree-by-tree sum plus base, bit for bit, at
+    depth 1–6 and B ∈ {1, 33, 64, 130}, on random forests (+inf
+    thresholds, feature F − 1) and trained ones (`_forest`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K2 has no CPU mode)")
+    rng = np.random.default_rng(t)
+    f = 68
+    for depth in range(1, 7):
+        if trained:
+            _, model = _forest(t + depth, 256, f, t, depth)
+        for b in GBDT_LANES:
+            if trained:
+                x = rng.normal(size=(b, f)).astype(np.float32)
+                feat, thresh, leaf, base = model.feat, model.thresh, \
+                    model.leaf, float(np.float32(model.base))
+            else:
+                x, feat, thresh, leaf, base = _random_forest(rng, b, f, t,
+                                                             depth)
+            args = [torch.from_numpy(a).cuda() for a in (x, feat, thresh,
+                                                         leaf)]
+            got = gbdt_predict(*args, base, depth).cpu().numpy()
+            want = _tree_by_tree_sum(x, feat, thresh, leaf, base, depth)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32),
+                                          err_msg=f"T={t} D={depth} B={b}")
+
+
 # ---------------------------------------------------------------- K6 ----
 def _sqdist_inputs(rng, b, r, d, grid):
     q = rng.normal(size=(b, d)).astype(np.float32)
@@ -1079,8 +1278,85 @@ def test_topm_merge_plain_matches_reference_kernel_interpret():
     np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
 
 
+def _topm_by_rank(dist, pay, nd, npay, vec):
+    """A torch transcription of `csrc/topk.cu` (K7) for lanes [B, ...]:
+    one block a lane of `threads` threads (the wider of ⌈M / V⌉ buffer
+    loads and R new entries, rounded up to a warp, at most 1024); thread j
+    loads buffer entries (j + g·threads)·V + v for g < 4, v < V (V = 4 by
+    vectors, else 1) and takes new entry j; the new run ranked by
+    (key, position), new entry r of rank s placed at s + #{old <= key},
+    old entry i at i + #{new < d_i}, each written when below M. Returns
+    (dist, payload, how many times each output slot was written, how many
+    times each buffer entry was loaded)."""
+    b, m = dist.shape
+    r = nd.shape[1]
+    v = 4 if vec else 1
+    threads = min(max(-(-max(-(-m // v), r) // 32) * 32, 32), 1024)
+    loaded = torch.zeros(m, dtype=torch.int64)
+    for j in range(threads):
+        for g in range(4):
+            i = (j + g * threads) * v
+            if i < m:
+                loaded[i:i + v] += 1
+    pos = torch.arange(r)
+    before = pos[:, None] < pos[None, :]  # entry j before entry r
+    kj, kk = nd[:, :, None], nd[:, None, :]
+    s = ((kj < kk) | ((kj == kk) & before)).sum(1)  # [B, R]
+    new_sorted = torch.full_like(nd, float("inf")).scatter(1, s, nd)
+    out_d = torch.full((b, m), float("nan"))
+    out_p = torch.full((b, m), -7, dtype=torch.int32)
+    hits = torch.zeros((b, m), dtype=torch.int64)
+    for o, keys, pays in (
+            (s + torch.searchsorted(dist, nd, right=True), nd, npay),
+            (torch.arange(m) + torch.searchsorted(new_sorted, dist), dist,
+             pay)):
+        sel = o < m
+        lane = torch.arange(b)[:, None].expand_as(o)[sel]
+        out_d[lane, o[sel]] = keys[sel]
+        out_p[lane, o[sel]] = pays[sel]
+        hits.index_put_((lane, o[sel]), torch.ones_like(lane),
+                        accumulate=True)
+    return out_d, out_p, hits, loaded
+
+
+@pytest.mark.parametrize("m", [40, 500, 512])
+@pytest.mark.parametrize("r", [1, 32, 160])
+def test_topm_merge_by_rank_equals_merge_stable(m, r):
+    """K7's merge by rank (`_topm_by_rank`, both load routes) ==
+    `topm_merge_plain` (a stable argsort over [old | new]) under heavy
+    ties, with +inf tails in both runs (an all-inf new run and an all-inf
+    buffer included): every output slot written once, every buffer entry
+    loaded once."""
+
+    @settings(max_examples=25, deadline=None)
+    @given(seed=st.integers(0, 2 ** 31 - 1), n_vals=st.integers(1, 4),
+           old_frac=st.integers(0, 4), new_inf=st.integers(0, 4))
+    def check(seed, n_vals, old_frac, new_inf):
+        rng = np.random.default_rng(seed)
+        b = 3
+        vals = np.sort(rng.choice([0.0, 0.25, 0.5, 1.0, 2.5, 7.0], n_vals,
+                                  replace=False)).astype(np.float32)
+        dist = np.full((b, m), np.inf, np.float32)
+        fq = m * old_frac // 4
+        dist[:, :fq] = np.sort(rng.choice(vals, (b, fq)), axis=1)
+        pay = np.where(np.isinf(dist), -1,
+                       rng.integers(0, 1 << 29, (b, m))).astype(np.int32)
+        nd = rng.choice(vals, (b, r)).astype(np.float32)
+        nd[rng.random((b, r)) < new_inf / 4] = np.inf
+        npay = rng.integers(0, 1 << 29, (b, r)).astype(np.int32)
+        args = [torch.from_numpy(a) for a in (dist, pay, nd, npay)]
+        wd, wp = topm_merge_plain(*args)
+        for vec in ({False, m % 4 == 0}):
+            gd, gp, hits, loaded = _topm_by_rank(*args, vec)
+            assert (hits == 1).all() and (loaded == 1).all()
+            assert torch.equal(gd, wd) and torch.equal(gp, wp)
+
+    check()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m,r", [(64, 512, 32), (8, 40, 1), (5, 100, 160)])
+@pytest.mark.parametrize("b,m,r", [(64, 512, 32), (8, 40, 1), (5, 100, 160),
+                                   (64, 500, 32), (64, 512, 1)])
 def test_topm_merge_kernel_matches_plain_on_cuda(b, m, r):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel K7 has no CPU mode)")
@@ -1092,6 +1368,37 @@ def test_topm_merge_kernel_matches_plain_on_cuda(b, m, r):
         wd, wp = topm_merge_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(gd, wd) and torch.equal(gp, wp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,r,shift", [(512, 32, 1), (42, 32, 0),
+                                       (4096, 1024, 1), (16384, 64, 0)])
+def test_topm_merge_kernel_load_routes_match_plain_on_cuda(m, r, shift):
+    """Both of K7's buffer load routes == `topm_merge_plain`: by 4-byte
+    loads (a buffer `shift` floats off 16-byte alignment, or M % 4 != 0)
+    and by 16-byte vectors, up to the widest M and R a block takes; one
+    wider raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel K7 has no CPU mode)")
+    rng = np.random.default_rng(m + shift)
+    for ties in (True, False):
+        dist, pay, nd, npay = _merge_inputs(rng, 4, m, r, ties)
+        # contiguous, `shift` elements off 16-byte alignment
+        old = [torch.empty((4 * m + shift,), dtype=a.dtype, device="cuda")
+               [shift:].view(4, m).copy_(a)
+               for a in (torch.from_numpy(dist), torch.from_numpy(pay))]
+        args = [*old, torch.from_numpy(nd).cuda(),
+                torch.from_numpy(npay).cuda()]
+        gd, gp = topm_merge(*args)
+        wd, wp = topm_merge_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(gd, wd) and torch.equal(gp, wp)
+    wide = (torch.zeros((1, 8), device="cuda"),
+            torch.zeros((1, 8), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 1025), device="cuda"),
+            torch.zeros((1, 1025), dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="does not take"):
+        topm_merge(*wide)
 
 
 # ------------------------------------------------------- K6 row ids ----
