@@ -14,9 +14,10 @@ Phases, each printed as one JSON line with its wall seconds:
      to new ones, all-inf queues, runs with every new entry masked;
      everything must be equal in both), and float inputs (K1:
      distances within rtol 1e-5; K3: everything equal; K4: distances
-     within rtol 1e-5 plus the bound on the lookup sums' rounding); K1
-     and K4 again at R'=160, the widened frontier of pre/widen mode
-     (`k1_wide_check`, `k4_wide_check`, the same tolerances);
+     within rtol 1e-5 plus the bound on the lookup sums' rounding); K1,
+     K3 and K4 again at R'=160, the widened frontier of pre/widen mode
+     (`k1_wide_check`, `k3_wide_check`, `k4_wide_check`, the same
+     tolerances);
   4. K2 (GBDT inference) against `gbdt_predict_plain` (rtol 1e-5) and
      bit for bit against the tree-order sum (each tree's leaf by the
      plain walk, float32 adds in tree order, then base) over T ∈ {1, 7,
@@ -32,7 +33,13 @@ Phases, each printed as one JSON line with its wall seconds:
      plain per-lane version, and bit for bit against itself alone, padded,
      reordered and gathered (`k6_scan_check`); the row-id variant timed
      without the planner at the "mixed" scan's shape (B=64, V=2^19,
-     ≈11.1 M pairs) and the oracle's (`k6_rows_timing`);
+     ≈11.1 M pairs) and the oracle's (`k6_rows_timing`); K6q rows (the
+     compressed distance by row id of the quantized scan and oracle), int8
+     and PQ, against its plain version bit for bit over an N=1M code store
+     (scan and oracle layouts, B=130 with dead lanes, widths off 32, lane,
+     width and order invariance) and each pair bit for bit K3's / K4's
+     (`k6q_int8_check`, `k6q_pq_check`), then timed at the "mixed" scan's
+     and the compressed oracle's shapes (`k6q_*_timing`);
   6. K7 (sorted-buffer merge) against `topm_merge_plain`, bit for bit,
      ties, R=1, R'=160, M=500 and M=42 (4-byte loads) included, with the
      library call pair's time (`k7_check`), then the launch floor;
@@ -62,7 +69,10 @@ Phases, each printed as one JSON line with its wall seconds:
      launch loop's launches, compactions and steps per batch; and contain α=1
      with backend "dense" + `use_pallas` (K6): top-10 ids and NDC of all
      lanes equal to fused's. Each path runs with every kernel count set
-     to 0 just before it, and each of its kernels must launch;
+     to 0 just before it, and each of its kernels must launch; then the
+     paper's §5 baselines on contain α=1, persistent (`baselines`: naive at
+     ef 64 and 512 — the recall at exhaustion —, a fixed budget, LAET, the
+     oracle W_q), recall@10 and mean NDC each;
  11. a `profile` line per backend (fused, persistent) for one batch:
      device busy ms, idle share, kernel launches per lockstep step,
      host-to-device copies, and forest uploads, which must be 0 (the
@@ -83,10 +93,16 @@ Phases, each printed as one JSON line with its wall seconds:
      contain and range at α=1 with backends fused (K3 / K4), persistent
      (K5's codec branch; every SearchState field equal to fused's, bit
      for bit) and dense (≥ 95% of lanes identical to fused, recall
-     within 0.01), and a `profile` line for the persistent batch;
- 14. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7
-     and K6's row-id variant; K2 and K7 also their status and the launch
-     floor).
+     within 0.01), and a `profile` line for the persistent batch; then
+     the planner on that engine (`plan_quant_*`: trained on 128 "mixed"
+     queries with the compressed target; forced ≡ `run_plan`, widen
+     persistent ≡ fused with K3 / K4 at R'=160; planned "and" and "mixed"
+     batches, persistent ≡ fused, recall after the rerank; on scan lanes
+     the scan ≡ `compressed_filtered_topk` bit for bit; a `mode="pre"`
+     cell);
+ 14. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
+     K6's row-id variant and K6q rows; K2 and K7 also their status and the
+     launch floor).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -192,15 +208,15 @@ def kernel_breakdown(fn, iters: int = 3) -> dict:
     return out
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per call: the kernels' own time, from
-    torch.profiler (CUPTI), without the host's launch overhead. A profile
-    that recorded no kernel at all (CUPTI drops one now and then) is taken
-    again, up to PROFILE_ATTEMPTS times."""
+    torch.profiler (CUPTI), without the host's launch overhead, after
+    `warmup` calls. A profile that recorded no kernel at all (CUPTI drops
+    one now and then) is taken again, up to PROFILE_ATTEMPTS times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
@@ -997,6 +1013,287 @@ def time_k6_rows(device, layout="scan"):
     return out
 
 
+# ------------------------------------------------------------ K6q rows ----
+K6Q_ORACLE_LANES = 128  # compressed_filtered_topk's query chunk
+
+
+def k6q_world(g, precision, b, n, width, kc, device):
+    """K6q rows' inputs at unrounded, main-path magnitudes: a code store
+    [n, width] (int8, or uint8 codes of a PQ table with kc centroids) with
+    norms near 1, and a prep of b lanes (int8: qq, sq ≈ 2e-6, qn near 1;
+    PQ: a [b, width, kc] table of order 1/√width). Returns (prep, codes,
+    norms)."""
+    import torch
+
+    from repro_torch.quant.codecs import Int8Prep, PQPrep
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    if precision == "int8":
+        codes = torch.randint(-127, 128, (n, width), generator=g,
+                              device=device, dtype=torch.int32).to(torch.int8)
+        prep = Int8Prep(
+            qq=torch.randint(-127, 128, (b, width), generator=g,
+                             device=device, dtype=torch.int32).to(torch.int8),
+            sq=2e-6 * (1 + rand(b)), qn=0.9 + rand(b) / 20)
+    else:
+        codes = torch.randint(0, kc, (n, width), generator=g, device=device,
+                              dtype=torch.int32).to(torch.uint8)
+        lut = torch.randn((b, width, kc), generator=g, device=device)
+        prep = PQPrep(lut=lut * (0.5 / np.sqrt(width)),
+                      qn=0.9 + rand(b) / 20)
+    return prep, codes.contiguous(), 0.9 + rand(n) / 20
+
+
+def k6q_layout(g, layout, b, v, n, device, sigma=None):
+    """ids [b, v] int32 and mask [b, v]: the scan's (each lane's passing
+    rows ascending — drawn at per-lane σ when given, else a sorted draw —
+    then a masked tail) or the oracle's (one block of consecutive rows in
+    every lane, masked by validity at σ, default ≤ 0.3)."""
+    import torch
+
+    if layout == "scan":
+        if sigma is None:
+            ids = torch.sort(torch.randint(0, n, (b, v), generator=g,
+                                           device=device), dim=1)[0]
+            counts = torch.randint(v // 2, v + 1, (b, 1), generator=g,
+                                   device=device)
+        else:
+            passing = torch.rand((b, n), generator=g, device=device) < sigma
+            ids = torch.argsort((~passing).to(torch.uint8), dim=1,
+                                stable=True)[:, :v]
+            counts = passing.sum(1, keepdim=True)
+            del passing
+        mask = torch.arange(v, device=device)[None] < counts
+        ids = torch.where(mask, ids, 0)
+    else:
+        ids = torch.arange(2 * v, 3 * v, device=device)[None].expand(b, v)
+        if sigma is None:
+            sigma = torch.rand((b, 1), generator=g, device=device) * 0.3
+        mask = torch.rand((b, v), generator=g, device=device) < sigma
+    return ids.to(torch.int32).contiguous(), mask.contiguous()
+
+
+def k6q_bitwise(got, want) -> bool:
+    import torch
+
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def k6q_rows_check(device, precision):
+    """K6q rows (int8 or PQ) against its plain version, bit for bit (int8:
+    an exact dot and K3's tail; PQ: the same slot-order sum), on float
+    data: the scan's layout at V ∈ {4096, 65536} and the oracle's at its
+    block width V = 2^18, B=64, over an N=1M store of the main path's
+    width (d=768 codes; S·L=576, Kc=256); B=130 over N=999,983 with two
+    lanes that pass no row; widths off a multiple of 32 (int8 d=740; PQ
+    S·L=97 by byte loads with Kc=256 by bulk copies, and S·L=99, Kc=13 by
+    4-byte copies); each bit for bit against itself alone, padded by 192
+    rows and with its lanes in another order; then each (query, row) pair
+    equal to K3's / K4's (`k6q_equals_step`)."""
+    import torch
+
+    from repro_torch.kernels.quant_rows import (sqdist_rows_quant,
+                                                sqdist_rows_quant_plain)
+
+    width = DIM if precision == "int8" else K4_SLOTS
+    g = torch.Generator(device=device).manual_seed(23)
+    prep_all, codes, norms = k6q_world(g, precision, 130, K5_N, width, K4_KC,
+                                       device)
+    cases = [(4096, "scan", EVAL_LANES, K5_N, width, K4_KC),
+             (65536, "scan", EVAL_LANES, K5_N, width, K4_KC),
+             (ORACLE_BLOCK, "oracle", EVAL_LANES, K5_N, width, K4_KC),
+             (4096, "scan", 130, K5_N - 17, width, K4_KC)]
+    if precision == "int8":
+        cases.append((4096, "scan", EVAL_LANES, 100_000, 740, 0))
+    else:
+        cases += [(4096, "scan", EVAL_LANES, 100_000, 97, K4_KC),
+                  (4096, "oracle", EVAL_LANES, 100_000, 99, 13)]
+    checked = []
+    for v, layout, b, n, w, kc in cases:
+        if w == width:
+            prep = type(prep_all)(*(t[:b] for t in prep_all))
+            cs, ns = codes[:n], norms[:n]
+        else:
+            prep, cs, ns = k6q_world(g, precision, b, n, w, kc, device)
+        ids, mask = k6q_layout(g, layout, b, v, n, device)
+        if b != EVAL_LANES:
+            mask[[1, b - 1]] = False
+        got = sqdist_rows_quant(prep, cs, ns, ids, mask)
+        want = sqdist_rows_quant_plain(prep, cs, ns, ids, mask)
+        pad = 3 * 64
+        wide = sqdist_rows_quant(prep, cs, ns,
+                                 torch.nn.functional.pad(ids, (0, pad)),
+                                 torch.nn.functional.pad(mask, (0, pad)))
+        lanes = (0, b // 3, b - 1)
+        ones = [sqdist_rows_quant(type(prep)(*(t[i:i + 1] for t in prep)),
+                                  cs, ns, ids[i:i + 1], mask[i:i + 1])
+                for i in lanes]
+        perm = torch.randperm(b, generator=g, device=device)
+        moved = sqdist_rows_quant(type(prep)(*(t[perm] for t in prep)), cs,
+                                  ns, ids[perm], mask[perm])
+        torch.cuda.synchronize()
+        require(torch.equal(torch.isinf(got), ~mask),
+                f"K6q {precision}: +inf pattern is not the mask's complement")
+        require(k6q_bitwise(got, want),
+                f"K6q {precision}: differs from its plain version at V={v}, "
+                f"B={b}, width {w}")
+        require(torch.equal(wide[:, :v], got) and
+                bool(torch.isinf(wide[:, v:]).all()),
+                f"K6q {precision}: padded width changed a value at V={v}")
+        require(all(torch.equal(o[0], got[i]) for o, i in zip(ones, lanes)),
+                f"K6q {precision}: a lane alone differs at V={v}")
+        require(torch.equal(moved, got[perm]),
+                f"K6q {precision}: reordered lanes differ at V={v}")
+        checked.append(dict(V=v, layout=layout, B=b, N=n, width=w, Kc=kc,
+                            unmasked=int(mask.sum())))
+        del got, want, wide, moved
+    del prep_all, codes, norms
+    torch.cuda.empty_cache()
+    pairs = k6q_equals_step(device, precision)
+    emit({"phase": f"k6q_{precision}_check", "ok": True, "cases": checked,
+          "bitwise_equal_plain": True, "lane_invariant": True,
+          "width_invariant": True, "lane_order_invariant": True,
+          "equals_step_kernel_bitwise_pairs": pairs,
+          "step_kernel": HEADS[precision]})
+
+
+def k6q_equals_step(device, precision) -> int:
+    """K6q rows' value for each (query, row) pair == K3's / K4's, bit for
+    bit, at B=64, R=32 (d=768; S·L=576, Kc=256), M=512 on exact and float
+    inputs: one fused step from an all-inf queue stores every new pair's
+    distance, found again by its payload; K6q reads the same rows from a
+    store of the B·R gathered rows by id. Returns the pairs compared."""
+    import torch
+
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.quant_rows import sqdist_rows_quant
+    from repro_torch.kernels.topk import unpack_payload
+
+    b, r, m, k = EVAL_LANES, 32, 512, 10
+    rng = np.random.default_rng(24)
+    pairs = 0
+    for exact in (True, False):
+        args, quant = step_inputs(rng, b, r, DIM, m, k, 2, 2, exact, device,
+                                  precision)
+        args = list(args)
+        args[2] = torch.arange(r, dtype=torch.int32,
+                               device=device).repeat(b, 1)
+        args[3] = torch.ones((b, r), dtype=torch.bool, device=device)
+        args[7] = torch.full_like(args[7], float("inf"))
+        args[8] = torch.full_like(args[8], -1)
+        cd, cp = fused_step(*args, quant=quant, precision=precision)[:2]
+        width = quant.codes.shape[2]
+        store = quant.codes.reshape(b * r, width).contiguous()
+        ids = torch.arange(b * r, dtype=torch.int32,
+                           device=device).reshape(b, r)
+        k6q = sqdist_rows_quant(quant.prep, store,
+                                quant.norms.reshape(-1).contiguous(), ids,
+                                args[3])
+        pos = unpack_payload(cp[:, :r])[0].long()
+        torch.cuda.synchronize()
+        require(bool(torch.isinf(cd[:, r:]).all())
+                and torch.equal(torch.sort(pos, dim=1)[0], args[2].long()),
+                f"K6q = {HEADS[precision]}: the step did not store every "
+                "new pair")
+        require(k6q_bitwise(cd[:, :r], torch.gather(k6q, 1, pos)),
+                f"K6q = {HEADS[precision]}: a pair's distance differs "
+                f"(exact={exact})")
+        pairs += b * r
+    return pairs
+
+
+def k6q_bound(prep, codes, mask, precision):
+    """The least time of a K6q rows call on these inputs, by HBM bytes —
+    each unmasked pair's code row, norm and id, the mask and the output
+    at every position, and the prep (under PQ each lane's table, once) —
+    or by operations (int8: 2·d a pair at the int8 peak; PQ: S·L adds a
+    pair at the float32 peak). Beside it, under PQ, the kernel's own cost
+    that is no part of the function's: the lane's table streamed from L2
+    into shared memory once for each tile of 1024 positions holding an
+    unmasked one (`csrc/quant_rows.cu`). Returns (bound ms, bound_by,
+    bytes, table tiles, table stream bytes)."""
+    b, v = mask.shape
+    width = codes.shape[1]
+    pairs = int(mask.sum())
+    nbytes = pairs * (width * codes.element_size() + 8) + 5 * b * v + sum(
+        t.numel() * t.element_size() for t in prep)
+    tiles = stream = 0
+    if precision == "pq":
+        import torch
+
+        tile = 1024
+        padded = torch.nn.functional.pad(mask, (0, -v % tile))
+        tiles = int(padded.reshape(b, -1, tile).any(dim=2).sum())
+        stream = tiles * width * prep.lut.shape[2] * 4
+        t_ops = pairs * width / FP32_FLOP_PER_S
+    else:
+        t_ops = 2 * pairs * width / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, tiles,
+            stream)
+
+
+def time_k6q_rows(device, precision):
+    """K6q rows timed without the planner at the "mixed" forced scan's
+    shape (B=64, V=2^19, per-lane σ from 3e-06 to 0.48, ≈11.1 M pairs, as
+    `time_k6_rows`) and the compressed oracle's (B=128, V=2^18 consecutive
+    rows masked at the same σ), N=1M, d=768 / S·L=576: held bit for bit to
+    the plain version; ms by CUDA events (the profiler's beside it, and its
+    per-kernel breakdown), and the bound (`k6q_bound`) at HBM_BYTES_PER_S;
+    the plain version's ms at the scan's shape. Returns the scan shape's
+    numbers."""
+    import torch
+
+    from repro_torch.kernels.quant_rows import (sqdist_rows_quant,
+                                                sqdist_rows_quant_plain)
+
+    width = DIM if precision == "int8" else K4_SLOTS
+    g = torch.Generator(device=device).manual_seed(29)
+    prep_all, codes, norms = k6q_world(g, precision, K6Q_ORACLE_LANES, K5_N,
+                                       width, K4_KC, device)
+    out = None
+    for layout, b, v in (("scan", EVAL_LANES, K6_ROWS_V),
+                         ("oracle", K6Q_ORACLE_LANES, ORACLE_BLOCK)):
+        sigma = np.maximum(3e-06, 0.48 * (np.arange(b) / (b - 1)) ** 1.76)
+        sig = torch.from_numpy(sigma.astype(np.float32)).to(device)[:, None]
+        ids, mask = k6q_layout(g, layout, b, v, K5_N, device, sigma=sig)
+        prep = type(prep_all)(*(t[:b] for t in prep_all))
+        call = lambda: sqdist_rows_quant(prep, codes, norms, ids, mask)  # noqa: E731
+        plain = lambda: sqdist_rows_quant_plain(prep, codes, norms, ids,  # noqa: E731
+                                                mask)
+        got, want = call(), plain()
+        require(k6q_bitwise(got, want),
+                f"K6q {precision} ({layout}): differs from its plain version")
+        del got, want
+        bound_ms, bound_by, nbytes, tiles, stream = k6q_bound(
+            prep, codes, mask, precision)
+        # ms by CUDA events over back-to-back calls (each call is one
+        # launch of several ms); the profiler loses the PQ kernel's records
+        call_ms = time_cuda(call, iters=5, warmup=1)
+        res = dict(max_abs_err=0.0, ms=call_ms, call_ms=call_ms,
+                   profiler_ms=device_ms(call, iters=5), bound_ms=bound_ms,
+                   bound_by=bound_by)
+        if layout == "scan":  # the check above warmed the plain version
+            res.update(plain_ms=device_ms(plain, iters=1, warmup=0),
+                       plain_call_ms=time_cuda(plain, iters=1, warmup=0))
+            out = res
+        emit({"phase": f"k6q_{precision}_timing", "ok": True,
+              "layout": layout, "bitwise_equal_plain": True,
+              "shapes": dict(B=b, N=K5_N, width=width, V=v,
+                             passing_pairs=int(mask.sum()),
+                             table_tiles=tiles, bytes=nbytes,
+                             table_stream_bytes=stream),
+              "hbm_bytes_per_s": HBM_BYTES_PER_S, **res,
+              "kernel_ms": kernel_breakdown(call)})
+        del ids, mask
+    del prep_all, codes, norms
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- K5 ----
 K5_STEPS = 8  # SearchConfig.steps_per_launch's default
 K5_N = 1_000_000  # rows of K5's synthetic index: the main path's N
@@ -1376,7 +1673,7 @@ def check_k5_codec(device, precision):
 COUNTED = ("fused_step", "fused_step_int8", "fused_step_pq", "gbdt_predict",
            "persistent_multi_step", "persistent_multi_step_int8",
            "persistent_multi_step_pq", "sqdist_masked", "sqdist_rows",
-           "topm_merge")
+           "sqdist_rows_quant_int8", "sqdist_rows_quant_pq", "topm_merge")
 
 
 def _wrappers():
@@ -1384,15 +1681,17 @@ def _wrappers():
     from repro_torch.kernels.fused_step import fused_step
     from repro_torch.kernels.gbdt import gbdt_predict
     from repro_torch.kernels.persistent_step import persistent_multi_step
+    from repro_torch.kernels.quant_rows import sqdist_rows_quant
     from repro_torch.kernels.topk import topm_merge
 
     return (fused_step, gbdt_predict, persistent_multi_step, sqdist_masked,
-            sqdist_rows, topm_merge)
+            sqdist_rows, topm_merge, sqdist_rows_quant)
 
 
 def reset_counts() -> None:
-    """Every kernel launch count to 0 (fused_step and persistent_multi_step
-    count per precision: one count per kernel head)."""
+    """Every kernel launch count to 0 (fused_step, persistent_multi_step
+    and sqdist_rows_quant count per precision: one count per kernel
+    head)."""
     for fn in _wrappers():
         if isinstance(fn.launches, dict):
             fn.launches.update(dict.fromkeys(fn.launches, 0))
@@ -1402,11 +1701,12 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches per kernel since the last reset: K1, K3, K4 (the heads of
-    fused_step), K2, K5's three branches, K6 and its row-id variant, K7."""
-    fused, gbdt, pers, sqd, rows, merge = _wrappers()
+    fused_step), K2, K5's three branches, K6 and its row-id variant, K6q
+    rows (int8, PQ), K7."""
+    fused, gbdt, pers, sqd, rows, merge, qrows = _wrappers()
     out = {"gbdt_predict": gbdt.launches, "sqdist_masked": sqd.launches,
            "sqdist_rows": rows.launches, "topm_merge": merge.launches}
-    for fn in (fused, pers):
+    for fn in (fused, pers, qrows):
         for prec, n in fn.launches.items():
             name = fn.__name__ + ("" if prec == "float32" else f"_{prec}")
             out[name] = n
@@ -1633,13 +1933,77 @@ def run_pipeline(args, device):
                 "gbdt_predict": fused_counts["gbdt_predict"],
                 "persistent_multi_step": pers_counts["persistent_multi_step"],
                 "sqdist_masked": k6_counts["sqdist_masked"]}
-    plan_launches, k6r = run_planner(ds, eng, probe, device)
+    run_baselines(eng, ds, est, td, evals["contain"], gts["contain"][0],
+                  persistent[("contain", 1.0)][0].predicted_budget, probe)
+    plan_launches, k6r, plan_evals, plan_gts = run_planner(ds, eng, probe,
+                                                           device)
     launches.update(plan_launches)
     del eng
     torch.cuda.empty_cache()
     launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
-                              device))
+                              device, plan_evals, plan_gts))
     return launches, k6r
+
+
+# ---------------------------------------------------------- baselines ----
+BASELINE_EFS = (64, 512)  # naive beam widths; 512 = the main path's queue
+
+
+def run_baselines(eng, ds, est, td, wl, gt_idx, e2e_budgets, probe):
+    """The paper's §5 baselines on the float32 contain batch (α=1), backend
+    persistent: naive (a static beam of width ef, unlimited budget; ef=512
+    is the recall at exhaustion of the main path's queue), a fixed budget
+    (the e2e batch's mean), LAET (an estimator fitted on the training
+    features with the filter group ablated) and the oracle (each lane
+    stopped at its own W_q, from `generate_training_data` on the batch):
+    recall@10 and mean NDC each."""
+    import torch
+
+    from repro_torch.core import (CostEstimator, SearchConfig,
+                                  ablate_filter_features, baselines,
+                                  generate_training_data)
+    from repro_torch.index.bruteforce import recall_at_k
+
+    cfg = SearchConfig(k=10, queue_size=512, backend="persistent")
+    q, spec = wl.queries, wl.spec
+
+    def row(state, ms):
+        idx = state.res_idx.cpu().numpy()
+        require(idx.shape == (EVAL_LANES, 10), "baseline result shape")
+        return {"recall@10": float(recall_at_k(idx, gt_idx).mean()),
+                "mean_ndc": float(state.cnt.float().mean()), "ms": ms}
+
+    out = {}
+    for ef in BASELINE_EFS:
+        st, ms = wall_ms(lambda: baselines.naive_search(eng, cfg, q, spec,
+                                                        ef))
+        out[f"naive_ef{ef}"] = row(st, ms)
+    budget = int(np.mean(e2e_budgets))
+    st, ms = wall_ms(lambda: baselines.fixed_budget_search(eng, cfg, q, spec,
+                                                           budget))
+    out["fixed_budget"] = {**row(st, ms), "budget": budget}
+    t = time.perf_counter()
+    est_nf = CostEstimator.fit(
+        ablate_filter_features(torch.from_numpy(td.features)).numpy(),
+        td.w_q, n_trees=200, depth=5)
+    fit_s = time.perf_counter() - t
+    res, ms = wall_ms(lambda: baselines.laet_search(
+        eng, est_nf, cfg, q, spec, probe_budget=probe))
+    out["laet"] = {**row(res.state, ms), "fit_seconds": fit_s,
+                   "mean_budget": float(res.predicted_budget.mean())}
+    t = time.perf_counter()
+    td_eval = generate_training_data(eng, ds, wl, cfg, probe_budget=probe,
+                                     chunk=EVAL_LANES, n_probes=2)
+    label_s = time.perf_counter() - t
+    st, ms = wall_ms(lambda: baselines.oracle_search(eng, cfg, q, spec,
+                                                     td_eval.w_q))
+    require(np.array_equal(td_eval.gt_idx, gt_idx),
+            "the oracle's labels use another ground truth")
+    out["oracle"] = {**row(st, ms), "label_seconds": label_s,
+                     "converged_frac": float(td_eval.converged.mean())}
+    emit({"phase": "baselines", "workload": "contain", "alpha": 1.0,
+          "backend": "persistent", "batch": EVAL_LANES, **out,
+          "recall_at_exhaustion": out["naive_ef512"]["recall@10"]})
 
 
 # ------------------------------------------------------------ planner ----
@@ -1720,7 +2084,8 @@ def run_planner(ds, eng, probe, device):
     two exhaustion resumes, persistent backend), forced plans against
     run_plan, and planned_search end to end on an "and" and a "mixed"
     batch with the fused and persistent backends. Returns the launch
-    counts of the planner path and the row-id kernel's measurements."""
+    counts of the planner path, the row-id kernel's measurements, and the
+    two evaluation workloads with their exact ground truth."""
     import torch
 
     from repro_torch.core import (PLANS, fit_planner,
@@ -1894,12 +2259,11 @@ def run_planner(ds, eng, probe, device):
     profile_planned(eng, planner, evals["mixed"], probe,
                     e2e_rows[-1]["e2e_ms"]["persistent"])
     main_counts = plan_counts[("mixed", "fused")]
-    # the widen resume is where R'=160 steps run; it launches K4 only once
-    # the planner runs on a PQ engine
+    # the widen resume is where R'=160 steps run (K3 / K4 on the quantized
+    # engines: `run_plan_quant`)
     return ({"fused_step_wide": widen_counts["fused_step"],
-             "fused_step_pq_wide": widen_counts["fused_step_pq"],
              "sqdist_rows": main_counts["sqdist_rows"],
-             "topm_merge": main_counts["topm_merge"]}, k6r)
+             "topm_merge": main_counts["topm_merge"]}, k6r, evals, gts)
 
 
 def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
@@ -1930,7 +2294,8 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
     steps = d1["steps"] - d0["steps"]
     top = sorted(evs, key=lambda x: x[1], reverse=True)[:10]
     emit({"phase": "profile", "path": "planned_search",
-          "backend": "persistent", "workload": "mixed",
+          "backend": "persistent", "precision": eng.precision,
+          "workload": "mixed",
           "wall_ms_profiled": wall, "wall_ms": wall_unprofiled_ms,
           "plan_share": {p: float((res.plan == i).mean())
                          for i, p in enumerate(("scan", "traverse",
@@ -1946,13 +2311,15 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
                            "device_ms": us / 1e3} for e, us in top]})
 
 
-def run_quant(ds, graph, wl_train, evals, gts, probe, device):
+def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
+              plan_gts):
     """The quantized engines on the same dataset and graph: per codec,
     build (train + encode on the card), training labels with the
     compressed convergence target, the estimator, and e2e_search with the
     terminal exact rerank on contain and range at α=1, backends fused
     (K3 / K4 + K2, the path's launches counted), persistent (K5's codec
-    branch + K2, counted) and dense (plain). Returns the launch counts."""
+    branch + K2, counted) and dense (plain); then the planner on the same
+    engine (`run_plan_quant`). Returns the launch counts."""
     import torch
 
     from repro_torch.core import (CostEstimator, SearchConfig, SearchEngine,
@@ -2093,9 +2460,206 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device):
               "launches": {"fused": f_counts, "persistent": p_counts}})
         profile_e2e(qeng, est, evals["contain"], probe, "persistent",
                     pers_ms[cells[0]])
-        del qeng, fused, pers, dense
+        del fused, pers, dense
+        launches.update(run_plan_quant(ds, qeng, precision, probe,
+                                       plan_evals, plan_gts))
+        del qeng
         torch.cuda.empty_cache()
     return launches
+
+
+PLAN_TRAIN_QUANT = 128  # "mixed" planner training queries per codec
+
+
+def run_plan_quant(ds, qeng, precision, probe, evals, gts):
+    """The planner on a quantized engine (int8: K3, PQ: K4 at R'=160 in
+    pre and widen; K6q rows for the scan): trained on PLAN_TRAIN_QUANT
+    "mixed" queries with the compressed convergence target; forced plans
+    against `run_plan` (scan, traverse, widen; fused) and widen on
+    persistent against fused; `planned_search` on the "and" and "mixed"
+    batches with the fused and persistent backends (every field equal),
+    recall@10 after the rerank against the exact oracle; on each batch's
+    scan lanes, `scan_search` alone ≡ `compressed_filtered_topk` bit for
+    bit with cnt = σ·N; a `mode="pre"` traverse cell on "and" (persistent
+    ≡ fused); a profile of the planned "mixed" batch. Returns the K3/K4
+    launches at R'=160 (forced widen, persistent) and K6q's in the main
+    path's run (the planned "mixed" batch, fused), which must be > 0."""
+    import torch
+
+    from repro_torch.core import (PLANS, fit_planner,
+                                  generate_plan_training_data, planned_search,
+                                  run_plan, scan_search, scan_stats)
+    from repro_torch.core.planner import PLAN_SCAN, PLAN_WIDEN
+    from repro_torch.data.synthetic import make_composite_workload
+    from repro_torch.index.bruteforce import recall_at_k, valid_mask
+    from repro_torch.quant import compressed_filtered_topk, index_nbytes
+
+    head, qrows = f"fused_step_{precision}", f"sqdist_rows_quant_{precision}"
+    wl_train = make_composite_workload(ds, batch=PLAN_TRAIN_QUANT,
+                                       structure="mixed", seed=10)
+    secs = {}
+    t = time.perf_counter()
+    data = generate_plan_training_data(
+        qeng, ds, wl_train, plan_cfg("persistent"), probe_budget=probe,
+        chunk=PLAN_CHUNK, n_probes=2, seconds=secs)
+    label_s = time.perf_counter() - t
+    t = time.perf_counter()
+    planner = fit_planner(data, probe_budget=probe)
+    emit({"phase": "plan_quant_training", "precision": precision,
+          "label_seconds": label_s, "stage_seconds": secs,
+          "fit_seconds": time.perf_counter() - t,
+          "queries": int(data.w_traverse.shape[0]),
+          "converged_t": float(data.converged_t.mean()),
+          "converged_w": float(data.converged_w.mean()),
+          "w_traverse_median": float(np.median(data.w_traverse)),
+          "w_widen_median": float(np.median(data.w_widen)),
+          "sigma_median": float(np.median(data.sigma))})
+
+    # ---- forced plans ("mixed" batch): planned_search ≡ run_plan ----
+    kw = dict(probe_budget=probe, n_probes=2)
+    wl = evals["mixed"]
+    reset_counts()
+    forced = {}
+    for p in PLANS:
+        f = planned_search(qeng, planner, plan_cfg("fused"), wl.queries,
+                           wl.exprs, force_plan=p, **kw)
+        direct = run_plan(qeng, planner, p, plan_cfg("fused"), wl.queries,
+                          wl.exprs, **kw)
+        differ = fields_differ(f.state, direct)
+        require(not differ, f"quant {precision}: planned_search(force_plan="
+                f"{p!r}) differs from run_plan in {differ}")
+        forced[p] = f.state
+    forced_counts = read_counts()
+    require(all(forced_counts[n] > 0 for n in (qrows, head, "gbdt_predict")),
+            f"quant {precision} forced plans: a kernel of the path was never "
+            f"launched: {forced_counts}")
+    reset_counts()
+    widen_p = run_plan(qeng, planner, "widen", plan_cfg("persistent"),
+                       wl.queries, wl.exprs, **kw)
+    widen_counts = read_counts()
+    differ = fields_differ(widen_p, forced["widen"])
+    require(not differ, f"quant {precision}: widen on persistent differs "
+            f"from fused: {differ}")
+    require(all(widen_counts[n] > 0 for n in (
+        f"persistent_multi_step_{precision}", head, "gbdt_predict")),
+            f"quant {precision} widen on persistent: a kernel of the path "
+            f"was never launched: {widen_counts}")
+    gi = gts["mixed"][0]
+    emit({"phase": "plan_quant_forced", "precision": precision,
+          "workload": "mixed", "batch": EVAL_LANES,
+          "forced_equals_run_plan": {p: True for p in PLANS},
+          "widen_persistent_equals_fused": True,
+          "recall@10": {p: float(recall_at_k(st.res_idx.cpu().numpy(),
+                                             gi).mean())
+                        for p, st in forced.items()},
+          "mean_ndc": {p: float(st.cnt.float().mean())
+                       for p, st in forced.items()},
+          "wide_launches": {"widen_persistent": widen_counts[head]},
+          "launches": {"forced_fused": forced_counts,
+                       "widen_persistent": widen_counts}})
+
+    # ---- planned_search end to end ----
+    plan_counts, plan_ms, scanned_lanes = {}, {}, 0
+    for name, wl in evals.items():
+        gi = gts[name][0]
+        res, ms = {}, {}
+        for backend in ("fused", "persistent"):
+            reset_counts()
+            res[backend], first = wall_ms(lambda: planned_search(
+                qeng, planner, plan_cfg(backend), wl.queries, wl.exprs,
+                **kw))
+            plan_counts[(name, backend)] = read_counts()
+            ms[backend] = float(np.median([first, *(
+                wall_ms(lambda: planned_search(
+                    qeng, planner, plan_cfg(backend), wl.queries, wl.exprs,
+                    **kw))[1] for _ in range(REPEATS - 1))]))
+        plan_ms[name] = ms["persistent"]
+        fr, pr = res["fused"], res["persistent"]
+        differ = fields_differ(pr.state, fr.state)
+        require(not differ, f"quant {precision} planned {name}: persistent "
+                f"differs from fused in {differ}")
+        require(np.array_equal(pr.plan, fr.plan),
+                f"quant {precision} planned {name}: plans differ")
+        lanes = np.flatnonzero(fr.plan == PLAN_SCAN)
+        widened = bool((fr.plan == PLAN_WIDEN).any())
+        for backend, need in (("fused", (head, "gbdt_predict")),
+                              ("persistent", (
+                                  f"persistent_multi_step_{precision}",
+                                  "gbdt_predict"))):
+            need = need + ((qrows,) if lanes.size else ()) + (
+                (head,) if widened else ())
+            c = plan_counts[(name, backend)]
+            require(all(c[n] > 0 for n in need),
+                    f"quant {precision} planned {name} {backend}: a kernel "
+                    f"of the path was never launched: {c}")
+        scan_check = {}
+        if lanes.size:
+            # the scan lanes alone, before any rerank: the compressed oracle
+            exprs = [wl.exprs[i] for i in lanes]
+            direct = scan_search(qeng, plan_cfg("fused"), wl.queries[lanes],
+                                 exprs)
+            stats = scan_stats(qeng, qeng.compile(exprs))
+            ok = valid_mask(exprs, ds.labels_packed, ds.value_matrix)
+            od, oi = compressed_filtered_topk(precision, qeng.quant,
+                                              wl.queries[lanes], ok, 10)
+            require(np.array_equal(direct.res_idx.cpu().numpy(), oi)
+                    and np.array_equal(
+                        direct.res_dist.cpu().numpy().view(np.uint32),
+                        od.view(np.uint32)),
+                    f"quant {precision} {name}: the scan differs from "
+                    "compressed_filtered_topk")
+            require(np.array_equal(direct.cnt.cpu().numpy(), stats.counts),
+                    f"quant {precision} {name}: scan cnt is not σ·N")
+            scanned_lanes += int(lanes.size)
+            scan_check = {"scan_lanes": int(lanes.size),
+                          "scan_equals_compressed_oracle_bitwise": True,
+                          "scan_cnt_equals_sigma_n": True}
+        row = {"phase": "plan_quant_e2e", "precision": precision,
+               "workload": name, "batch": EVAL_LANES,
+               "plan_share": {p: float((fr.plan == i).mean())
+                              for i, p in enumerate(PLANS)},
+               "stage0_share": float(fr.pre_probe.mean()),
+               "recall@10": float(recall_at_k(fr.state.res_idx.cpu().numpy(),
+                                              gi).mean()),
+               "mean_ndc": float(fr.state.cnt.float().mean()),
+               "index_nbytes": index_nbytes(qeng.quant),
+               "e2e_ms": ms, "persistent_fields_equal_fused": True,
+               **scan_check,
+               "wide_launches": plan_counts[(name, "persistent")][head],
+               "launches": {b: plan_counts[(name, b)]
+                            for b in ("fused", "persistent")}}
+        if name == "and":
+            reset_counts()
+            pp = run_plan(qeng, planner, "traverse",
+                          plan_cfg("persistent", mode="pre"), wl.queries,
+                          wl.exprs, **kw)
+            pre_counts = read_counts()
+            pf = run_plan(qeng, planner, "traverse",
+                          plan_cfg("fused", mode="pre"), wl.queries,
+                          wl.exprs, **kw)
+            differ = fields_differ(pp, pf)
+            require(not differ, f"quant {precision} pre: persistent differs "
+                    f"from fused in {differ}")
+            require(pre_counts[head] > 0, f"quant {precision} pre: "
+                    f"{head} never launched at R'=160: {pre_counts}")
+            row.update(pre_recall=float(recall_at_k(
+                           pp.res_idx.cpu().numpy(), gi).mean()),
+                       pre_mean_ndc=float(pp.cnt.float().mean()),
+                       pre_persistent_equals_fused=True,
+                       pre_wide_launches=pre_counts[head])
+        emit(row)
+    require(scanned_lanes > 0, f"quant {precision}: no planned batch had a "
+            "scan lane")
+    main = plan_counts[("mixed", "fused")]
+    require(main[qrows] > 0, f"quant {precision} planned mixed: {qrows} "
+            f"never launched: {main}")
+    profile_planned(qeng, planner, evals["mixed"], probe,
+                    plan_ms["mixed"])
+    del planner, data
+    torch.cuda.empty_cache()
+    # the main path's run, as the float32 rows report it: one planned
+    # "mixed" batch on the fused backend
+    return {f"{head}_wide": widen_counts[head], qrows: main[qrows]}
 
 
 def quant_convergence_check(eng, ds, wl, td, probe, chunk):
@@ -2263,12 +2827,17 @@ def main(argv=None) -> int:
     k3 = check_step_kernel(device, "int8")
     k4 = check_step_kernel(device, "pq")
     k1w = check_step_kernel(device, r=160)
+    k3w = check_step_kernel(device, "int8", r=160)
     k4w = check_step_kernel(device, "pq", r=160)
     k2 = check_k2(device)
     k6 = check_k6(device)
     check_k6_scan(device)
     for layout in ("scan", "oracle"):
         time_k6_rows(device, layout)
+    k6q = {}
+    for precision in ("int8", "pq"):
+        k6q_rows_check(device, precision)
+        k6q[precision] = time_k6q_rows(device, precision)
     k7 = check_k7(device)
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
@@ -2277,7 +2846,8 @@ def main(argv=None) -> int:
     def entry(name, source, replaces, chk, launches_of, why, status=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
-               "replaces": f"src/repro/kernels/{replaces}",
+               "replaces": (replaces if replaces.startswith("src/")
+                            else f"src/repro/kernels/{replaces}"),
                "launches": launches[launches_of],
                "max_abs_err": chk["max_abs_err"], "ms": chk["ms"],
                "plain_ms": chk["plain_ms"], "bound_ms": chk["bound_ms"],
@@ -2308,6 +2878,8 @@ def main(argv=None) -> int:
               "fused_step_int8", step_why),
         entry("fused_step_pq", "fused_step.cu", "fused_step.py:243", k4,
               "fused_step_pq", step_why),
+        entry("fused_step_int8 (R'=160, pre/widen)", "fused_step.cu",
+              "fused_step.py:209", k3w, "fused_step_int8_wide", step_why),
         entry("fused_step_pq (R'=160, pre/widen)", "fused_step.cu",
               "fused_step.py:243", k4w, "fused_step_pq_wide", step_why),
         entry("persistent_multi_step", "persistent_step.cu",
@@ -2328,6 +2900,13 @@ def main(argv=None) -> int:
               "no single PyTorch call computes masked squared L2 to rows "
               "given by id (torch.cdist gives unsquared, unmasked distances "
               "of a gathered block)"),
+        *(entry(f"sqdist_rows_quant_{p} (K6q rows: quantized scan, "
+                "compressed oracle)", "quant_rows.cu",
+                "src/repro/core/plans.py:152", k6q[p],
+                f"sqdist_rows_quant_{p}",
+                "no single PyTorch call computes ADC distances to rows given "
+                "by id (the reference computes them in jnp over a gathered "
+                "block of codes, no Pallas kernel)") for p in ("int8", "pq")),
         entry("topm_merge", "topk.cu", "topk.py:63", k7, "topm_merge",
               None, K7_STATUS),
     ]})

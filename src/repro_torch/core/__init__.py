@@ -1,11 +1,12 @@
 """The E2E pipeline on torch: state → step → backend → search → engine,
 the probe → estimate → resume stages on top, and the planner (scan,
-traverse, widen) beside them."""
+traverse, widen) beside them; `baselines` holds the paper's §5
+comparisons and `ref_search` the sequential Algorithm 1 oracle."""
 from repro_torch.core.backends import available_backends, get_backend
 from repro_torch.core.e2e import (E2EResult, e2e_search, predict_budgets,
                                   probe_and_features)
 from repro_torch.core.engine import BIG_BUDGET, SearchEngine
-from repro_torch.core.estimator import CostEstimator
+from repro_torch.core.estimator import CostEstimator, spearman
 from repro_torch.core.features import (FEATURE_NAMES, N_FEATURES,
                                        ablate_filter_features,
                                        extract_features, feature_names)
@@ -23,11 +24,13 @@ from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
                                     init_state, pad_lanes, prepare_resume,
                                     put_lanes, take_lanes, topk_results)
 from repro_torch.core.training import TrainingData, generate_training_data
+from repro_torch.core import baselines
 
 __all__ = [
     "available_backends", "get_backend", "E2EResult", "e2e_search",
     "predict_budgets", "probe_and_features", "BIG_BUDGET", "SearchEngine",
-    "CostEstimator", "FEATURE_NAMES", "N_FEATURES", "ablate_filter_features",
+    "CostEstimator", "spearman", "FEATURE_NAMES", "N_FEATURES",
+    "ablate_filter_features",
     "extract_features", "feature_names", "GBDTModel", "train_gbdt",
     "PLANS", "PlanResult", "Planner", "PlanTrainingData", "choose_plans",
     "fit_planner", "generate_plan_training_data", "planned_search",
@@ -37,5 +40,5 @@ __all__ = [
     "SearchConfig", "SearchState", "concat_lanes", "init_state",
     "pad_lanes", "prepare_resume",
     "put_lanes", "take_lanes", "topk_results", "TrainingData",
-    "generate_training_data",
+    "generate_training_data", "baselines",
 ]

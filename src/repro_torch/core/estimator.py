@@ -5,7 +5,8 @@ at query time Ŵ_q = α · exp(M(z_q)). The device path runs the forest
 through kernel K2 (`kernels.gbdt.gbdt_predict`), the function `repro`
 computes with `predict_jax` at this stage. The forest is uploaded once per
 device and stays there, as the reference's TPU kernel keeps it resident
-in VMEM.
+in VMEM. `eval_metrics` and `spearman` give Table 3's accuracy metrics on
+the host.
 """
 from __future__ import annotations
 
@@ -71,3 +72,43 @@ class CostEstimator:
         w = torch.exp(p) if self.log_target else p
         w = torch.clamp(alpha * w, float(min_budget), float(max_budget))
         return w.to(torch.int32)
+
+    def eval_metrics(self, features: np.ndarray, w_q: np.ndarray) -> dict:
+        """Table-3 metrics: Log-RMSE, R² (log space), Spearman ρ — host
+        arithmetic, the reference's expressions."""
+        y = np.log(np.maximum(w_q, 1.0))
+        p = self.model.predict(np.asarray(features, np.float32))
+        if not self.log_target:
+            p = np.log(np.maximum(p, 1.0))
+        err = p - y
+        ss_res = float(np.sum(err ** 2))
+        ss_tot = float(np.sum((y - y.mean()) ** 2)) + 1e-12
+        return dict(log_rmse=float(np.sqrt(np.mean(err ** 2))),
+                    r2=1.0 - ss_res / ss_tot, spearman=spearman(p, y))
+
+
+def _average_ranks(v: np.ndarray) -> np.ndarray:
+    """0-based ranks of v; a run of equal values shares their mean rank."""
+    order = np.argsort(v, kind="stable")
+    r = np.empty(len(v), np.float64)
+    r[order] = np.arange(len(v))
+    sv = v[order]
+    i = 0
+    while i < len(sv):
+        j = i
+        while j + 1 < len(sv) and sv[j + 1] == sv[i]:
+            j += 1
+        if j > i:
+            r[order[i:j + 1]] = (i + j) / 2.0
+        i = j + 1
+    return r
+
+
+def spearman(a, b) -> float:
+    """Spearman rank correlation (average ranks for ties)."""
+    ra = _average_ranks(np.asarray(a))
+    rb = _average_ranks(np.asarray(b))
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = np.sqrt((ra ** 2).sum() * (rb ** 2).sum()) + 1e-12
+    return float((ra * rb).sum() / denom)

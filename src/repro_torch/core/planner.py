@@ -1,8 +1,8 @@
 """Adaptive per-query planning across filter-execution strategies.
 
-Counterpart of `repro/core/planner.py` for float32 engines (the tracer
-and the EXPLAIN reports come with the observability slice, as in
-`core.e2e`). Per lane, one of three plans:
+Counterpart of `repro/core/planner.py`, on float32, int8 and PQ engines
+(the tracer and the EXPLAIN reports come with the observability slice, as
+in `core.e2e`). Per lane, one of three plans:
 
   scan      pre-filter: bitmap + exact distances over the σ_q·N passing
             rows (`core.plans`); closed-form cost σ_q·N·c, recall 1.0.
@@ -20,6 +20,10 @@ The three heads run through kernel K2 on the card.
 
 `force_plan` pins every lane to one plan through the same machinery;
 `planned_search(force_plan=p)` equals `run_plan(p)` in every state field.
+On a quantized engine every plan searches in the compressed domain (the
+scan through K6q rows, traverse and widen through K3 / K4, K5 in post
+mode) and both entry points end in the engine's exact float32 rerank of
+the final pool.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from repro_torch.core.plans import ScanStats, scan_search, scan_stats
 from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
                                     take_lanes)
 from repro_torch.data.synthetic import AttributedDataset, QueryWorkload
-from repro_torch.index.bruteforce import filtered_knn_exact
+from repro_torch.index.bruteforce import (compressed_filtered_topk,
+                                         filtered_knn_exact, valid_mask)
 
 PLANS = ("scan", "traverse", "widen")
 PLAN_SCAN, PLAN_TRAVERSE, PLAN_WIDEN = range(3)
@@ -110,11 +115,17 @@ def generate_plan_training_data(
     """Per query: one probe, two exhaustion resumes (post + widen) of the
     same probe carry, so each label is the total NDC of "probe prefix +
     that plan's continuation". Convergence is judged against the exact
-    oracle (float32 engines).
+    oracle on a float32 engine, and against the compressed-domain filtered
+    top-k (`quant.compressed_filtered_topk`) on a quantized one, whose
+    traversal distances are compressed; `gt_idx` / `gt_dist` stay the
+    exact oracle's either way (what recall after the rerank is measured
+    against).
 
     `seconds`, when given, accumulates the wall seconds of each stage
-    ("oracle", "probe", "traverse", "widen"), synchronised.
+    ("oracle" — both oracles —, "probe", "traverse", "widen"),
+    synchronised.
     """
+    precision = engine.effective_precision(cfg)
     cfg_w = dataclasses.replace(cfg, mode="widen")
     dev = engine.device
     n = workload.batch
@@ -135,17 +146,25 @@ def generate_plan_training_data(
         gt_idx, gt_dist = timed("oracle", lambda: filtered_knn_exact(
             q, engine.base_vectors, filt, np.asarray(ds.labels_packed),
             np.asarray(ds.value_matrix), cfg.k, device=dev))
-        gt_dev = torch.from_numpy(gt_dist).to(dev)
+        if precision != "float32":
+            # convergence in the metric the traversal searches in
+            ok = valid_mask(filt, np.asarray(ds.labels_packed),
+                            np.asarray(ds.value_matrix))
+            conv_dist, _ = timed("oracle", lambda: compressed_filtered_topk(
+                precision, engine.quant, q, ok, cfg.k))
+        else:
+            conv_dist = gt_dist
+        conv_dev = torch.from_numpy(conv_dist).to(dev)
         prog = engine.compile(filt)
         stats = scan_stats(engine, prog)
         st, z = timed("probe", lambda: probe_and_features(
-            engine, cfg, q, prog, probe_budget, n_probes, gt_dist=gt_dev))
+            engine, cfg, q, prog, probe_budget, n_probes, gt_dist=conv_dev))
         labels = {}
         for key, c in (("traverse", cfg), ("widen", cfg_w)):
             # a resume consumes its carry: each plan gets its own copy
             fin = timed(key, lambda: engine.search(
                 c, q, prog, BIG_BUDGET, state=_copy_state(st),
-                gt_dist=gt_dev))
+                gt_dist=conv_dev))
             cc = fin.conv_cnt.cpu().numpy()
             conv = cc > 0
             labels[key] = (np.where(conv, cc, fin.cnt.cpu().numpy())

@@ -1,7 +1,7 @@
 """Pre-filter scan plan: bitmap-compile the filter, scan only passing rows.
 
-Counterpart of `repro/core/plans.py` for float32 engines. Three stages,
-all per-lane deterministic:
+Counterpart of `repro/core/plans.py`. Three stages, all per-lane
+deterministic:
 
   bitmap    `filters.compile.eval_program_matrix` evaluates the compiled
             program against the whole attribute store on the device — a
@@ -16,14 +16,21 @@ all per-lane deterministic:
             103 GB at N=1M, B=64, V=2^19, d=768), the per-lane plain path
             on the CPU — then one stable top-M selection.
 
+On a quantized engine (int8, PQ) the distance stage is the compressed
+one: `kernels.ops.masked_scan_dist_quant` over the same ids (K6q rows on
+the card, which reads each passing row's codes by id, as the traversal's
+K3 / K4 compute them; the per-lane plain path on the CPU), and the masked
+reconstruction errors go into `q_err_sum`. The candidate queue then holds
+the top-M compressed candidates, which the planner's terminal exact rerank
+scores in float32 (`SearchEngine.rerank`), as after a traversal.
+
 Cost is exactly σ_q·N distance computations per lane (`state.cnt`). The
 result equals the exact oracle `index.bruteforce.filtered_knn_exact` bit
-for bit: same distance source, same stable tie order. The returned
-SearchState is terminal (`active` all False, the pool fully expanded):
-scan states are read or merged, never resumed.
-
-The compressed-domain scan (int8 / PQ ADC over the gathered codes) comes
-with the quantized planning slice; a quantized engine raises here.
+for bit at float32, and the compressed oracle
+`index.bruteforce.compressed_filtered_topk` on a quantized engine: same
+distance source, same stable tie order. The returned SearchState is
+terminal (`active` all False, the pool fully expanded): scan states are
+read or merged, never resumed.
 """
 from __future__ import annotations
 
@@ -34,10 +41,12 @@ import torch
 
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.state import INF, SearchConfig, SearchState
+from repro_torch.core.step import tree_sum
 from repro_torch.filters.compile import (CLAUSE_FEATURE_SLOTS, FilterProgram,
                                          eval_program_matrix)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.distance import SCAN_ALIGN
+from repro_torch.quant.codecs import prepare_query
 
 
 class ScanStats(NamedTuple):
@@ -116,11 +125,10 @@ def scan_search(
     the whole valid set.
     """
     precision = engine.effective_precision(cfg)
-    if precision != "float32":
+    if precision != "float32" and engine.quant is None:
         raise ValueError(
-            f"scan at precision {precision!r} is not ported yet: the "
-            "compressed-domain scan comes with the quantized planning slice "
-            "of the port")
+            f"scan at precision {precision!r} on an engine without a quant "
+            "index — build with precision=...")
     dev = engine.device
     prog = engine.compile(filt)
     if stats is None:
@@ -133,7 +141,17 @@ def scan_search(
     counts = torch.from_numpy(stats.counts.astype(np.int32)).to(dev)
     idx, mask = scan_rows(stats)
     v = idx.shape[1]
-    dd = kops.masked_scan_dist(q, engine.base_vectors, idx, mask)
+    err_add = None
+    if precision == "float32":
+        dd = kops.masked_scan_dist(q, engine.base_vectors, idx, mask)
+    else:
+        quant = engine.quant
+        dd = kops.masked_scan_dist_quant(prepare_query(precision, quant, q),
+                                         quant, idx, mask)
+        # the lane's errors in position (row id) order, zeros past its
+        # count: tree_sum's value is then the same at any padded width V
+        # and whatever lanes share the batch
+        err_add = tree_sum(torch.where(mask, quant.err[idx.long()], 0.0))
 
     # one stable ascending selection serves both buffers: results are the
     # first k columns of the top-M candidate pool
@@ -174,6 +192,8 @@ def scan_search(
     clause_add = torch.from_numpy(
         np.rint(stats.clause_frac * n).astype(np.int32)).to(dev)
     cnt = carry.cnt + counts
+    if err_add is not None:
+        carry = carry._replace(q_err_sum=carry.q_err_sum + err_add)
     return carry._replace(
         cnt=cnt,
         n_inspected=carry.n_inspected + n,

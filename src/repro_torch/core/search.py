@@ -14,9 +14,10 @@ Counterpart of `repro/core/search.py`. Two loops over one carry:
   `run_search_persistent`  persistent backends. Each launch advances the
                            state by up to `cfg.steps_per_launch` steps —
                            one launch of kernel K5 in post mode, a group
-                           of fused steps (kernel K1) in pre and widen
-                           mode, as the reference does (`use_kernel` only
-                           in post mode); between launches the loop reads
+                           of fused steps (kernel K1; K3 / K4 under a
+                           codec) in pre and widen mode, as the reference
+                           does (`use_kernel` only in post mode); between
+                           launches the loop reads
                            back `hops` and `active` only, and compacts to
                            the active lanes on the reference's
                            power-of-two width ladder. Every launch boundary
@@ -119,7 +120,8 @@ def _persistent_launch(cfg, queries, prog, base_vectors, attrs, neighbors,
                     launch of the same search stay stopped
 
     Post mode is one launch of kernel K5. Pre and widen mode step the
-    backend's fused per-step merge (kernel K1 per step) up to
+    backend's fused per-step merge (kernel K1 per step, K3 / K4 under a
+    codec, over the R'=160 frontier) up to
     min(steps_per_launch, rem) times, none once no lane is active: the
     reference runs its multi-step kernel in post mode only and its launch
     body elsewhere (`repro/core/search.py:318`), and K5 keeps the same

@@ -14,8 +14,8 @@ Three traversal modes, as in the reference:
 
 Under a compressed precision ("int8", "pq") the step gathers the quant
 index's codes, norms and reconstruction errors instead of the float
-vectors, and hands the backend a `QuantGather` — post mode only: the
-widened frontier under a codec comes with the quantized planning slice.
+vectors, in every mode (the codes [B, R', d | S·L] at R'=160 in pre and
+widen), and hands the backend a `QuantGather`.
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ def tree_sum(e: torch.Tensor) -> torch.Tensor:
     """Row sums of [B, R] by halving: pad with zeros to a power of 2, then
     add the second half onto the first until one column is left. Kernel K5
     sums each step's reconstruction errors in this order, so `q_err_sum`
-    is bitwise the same on the single-step and the persistent path."""
+    is bitwise the same on the single-step and the persistent path. Zero
+    padding adds exact zeros, so a row's sum does not depend on how far it
+    is padded (the compressed scan relies on that)."""
     r = e.shape[1]
     e = torch.nn.functional.pad(e, (0, (1 << (r - 1).bit_length()) - r))
     while e.shape[1] > 1:
@@ -78,11 +80,6 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
         raise ValueError(f"unknown traversal mode {cfg.mode!r}")
     label_attrs, value_attrs = attrs
     compressed = (cfg.precision or "float32") != "float32"
-    if compressed and cfg.mode != "post":
-        raise ValueError(
-            f"mode {cfg.mode!r} under precision {cfg.precision!r} is not "
-            "ported yet: the widened frontier under a codec comes with the "
-            "quantized planning slice of the port")
 
     def step(state: SearchState) -> SearchState:
         # ---- pop best unexpanded candidate per lane ----
@@ -131,6 +128,11 @@ def make_step(cfg: SearchConfig, backend, queries, prog, base_vectors, attrs,
             xv = None  # the float vectors stay out of the loop
             qg = QuantGather(prep=qprep, codes=quant.codes[nb_long],
                              norms=quant.norms[nb_long])
+            # every new row's error, in pre mode too (the reference's
+            # order). tree_sum pads R'=160 to 256; only post mode meets K5,
+            # whose order it is, and it equals the reference's
+            # `.sum(axis=1)` bit for bit only where every sum is exact (the
+            # tests' grid data)
             err_add = tree_sum(torch.where(is_new, quant.err[nb_long], 0.0))
         else:
             xv = base_vectors[nb_long]                        # [B, R, d]

@@ -22,8 +22,8 @@ import numpy as np
 from repro_torch.core.engine import BIG_BUDGET, SearchEngine
 from repro_torch.core.state import SearchConfig
 from repro_torch.data.synthetic import AttributedDataset, QueryWorkload
-from repro_torch.index.bruteforce import filtered_knn_exact, valid_mask
-from repro_torch.quant.codecs import compressed_filtered_topk
+from repro_torch.index.bruteforce import (compressed_filtered_topk,
+                                         filtered_knn_exact, valid_mask)
 
 
 @dataclasses.dataclass

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("fused_step", "gbdt", "persistent_step", "sqdist", "topk")
+SOURCES = ("fused_step", "gbdt", "persistent_step", "quant_rows", "sqdist",
+           "topk")
 # Dynamic shared memory one H100 thread block can opt into (227 KB); each
 # entry point opts its kernel into this much once per device.
 MAX_SMEM_BYTES = 232448

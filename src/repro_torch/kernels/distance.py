@@ -106,6 +106,21 @@ def sqdist_rows_plain(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def oracle_block(ok: torch.Tensor, c: int,
+                 ce: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact oracles' layout for rows c..ce−1 of the store, given the
+    validity ok [B, N]: ids [B, V] int32 — those rows, the same in every
+    lane, padded to V, a multiple of SCAN_ALIGN, with row N − 1 — and mask
+    [B, V], ok[:, c:ce] padded with False."""
+    n = ok.shape[1]
+    v = ce - c + (c - ce) % SCAN_ALIGN
+    ids = torch.arange(c, c + v, dtype=torch.int32,
+                       device=ok.device).clamp_(max=n - 1)
+    ids = ids[None].expand(ok.shape[0], v).contiguous()  # one row per lane
+    mask = torch.nn.functional.pad(ok[:, c:ce], (0, v - (ce - c)))
+    return ids, mask.contiguous()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sqdist")
     fn = lib.sqdist_f32

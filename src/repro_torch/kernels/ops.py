@@ -7,6 +7,8 @@ choice, so these are thin aliases with the reference's signatures.
 
   batched_sqdist        K6, masked squared L2 over a gathered block
   masked_scan_dist      K6's row-id variant, the pre-filter scan's distance
+  masked_scan_dist_quant  K6q rows, the compressed scan's and the
+                        compressed oracle's distance
   queue_merge           K7, sorted [B, M] buffer + raw [B, R] entries
   fused_traversal_step  K1 (K3 / K4 under a codec), one traversal step
   estimator_predict     K2, GBDT inference
@@ -18,6 +20,7 @@ import torch
 from repro_torch.kernels.distance import sqdist_masked, sqdist_rows
 from repro_torch.kernels.fused_step import fused_step
 from repro_torch.kernels.gbdt import gbdt_predict
+from repro_torch.kernels.quant_rows import sqdist_rows_quant
 from repro_torch.kernels.topk import topm_merge
 
 
@@ -41,6 +44,18 @@ def masked_scan_dist(q: torch.Tensor, base: torch.Tensor, ids: torch.Tensor,
     (K6's row-id variant) and on the CPU (the per-lane plain path).
     """
     return sqdist_rows(q, base, ids, mask)
+
+
+def masked_scan_dist_quant(prep, quant, ids: torch.Tensor,
+                           mask: torch.Tensor):
+    """Compressed counterpart of `masked_scan_dist`: the prepared queries
+    (`Int8Prep` | `PQPrep`, [B] lanes), the quant index (`Int8Index` |
+    `PQIndex`: its codes and norms are read), row ids [B, V] and mask
+    [B, V] -> [B, V] f32 ADC distances, +inf on masked entries. The one
+    distance source of the quantized scan and of the compressed oracle
+    (`index.bruteforce.compressed_filtered_topk`), so the two agree bit for bit
+    (K6q rows on the card, its plain version on the CPU)."""
+    return sqdist_rows_quant(prep, quant.codes, quant.norms, ids, mask)
 
 
 def queue_merge(dist, payload, new_dist, new_payload):

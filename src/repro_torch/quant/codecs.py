@@ -23,7 +23,10 @@ product, exact because every partial sum is an integer below 2²⁴
 (127²·d < 2²⁴ for d ≤ 1040; int8 values are exact in TF32 too), so plain
 and kernel int8 distances agree bit for bit. The PQ lookup sum is
 `torch.sum`'s order here and slot order 0..S·L−1 in the kernels, as in
-the reference's kernels.
+the reference's kernels. `compressed_filtered_topk`, the compressed
+oracle, lives in `index.bruteforce` beside the float32 oracles and takes
+its distances from kernel K6q rows (by row id) and its plain version,
+which both sum in slot order.
 
 The codecs train on the device: the k-means of all S subspaces of a
 level run batched, from the initial centroids the reference's numpy
@@ -40,7 +43,6 @@ import torch
 from repro_torch.device import resolve_device
 
 _EPS = 1e-12
-INF = float("inf")
 MAX_INT8_DIM = 1040  # 127² · d < 2²⁴: the float32 int8 dot stays exact
 _SUB_CHUNK = 16      # PQ subspaces whose k-means run as one batch
 
@@ -380,51 +382,14 @@ def store_ratio(index, base_vectors) -> float:
     return b.numel() * b.element_size() / index_nbytes(index)
 
 
-def _compressed_dist_int8(prep: Int8Prep, codes, norms):
-    dot = prep.qq.to(torch.float32) @ codes.to(torch.float32).T
-    return _int8_assemble(prep, norms[None, :], dot)
-
-
-def _compressed_dist_pq(prep: PQPrep, codes, norms):
-    b, sl, _ = prep.lut.shape
-    idx = codes.to(torch.int64).T[None].expand(b, sl, -1)      # [B, S·L, Nb]
-    ip = torch.gather(prep.lut, 2, idx).sum(dim=1)             # [B, Nb]
-    return _pq_assemble(prep, norms[None, :], ip)
-
-
 def compressed_filtered_topk(precision: str, index, queries, valid_mask,
-                             k: int, chunk: int = 128, n_block: int = 1024):
-    """Brute-force compressed-domain filtered top-k → host (dist [B, k],
-    idx [B, k]), ascending; rows with fewer than k valid items pad with
-    +inf / -1.
+                             k: int, chunk: int = 128,
+                             n_block: int = 1 << 18):
+    """The compressed oracle under the reference's name and module: see
+    `index.bruteforce.compressed_filtered_topk`, which shares its loop
+    with the float32 oracles."""
+    # imported here: index.bruteforce imports the kernels, which import
+    # this module
+    from repro_torch.index.bruteforce import compressed_filtered_topk as topk
 
-    The compressed analogue of `index.bruteforce.filtered_knn_exact`: the
-    convergence target of training on a quantized engine. `valid_mask`
-    [B, N] bool (numpy or torch) moves to the device one query chunk at a
-    time; distances are blocked over queries (`chunk`) and corpus
-    (`n_block`), since the PQ lookup materializes [chunk, S·L, n_block].
-    Ties order by node id (a stable sort), as `jax.lax.top_k` does.
-    """
-    if precision == "int8":
-        _int8_dot_check(int(index.codes.shape[1]))
-    dev = index.codes.device
-    q = _f32(queries, dev)
-    dist_fn = (_compressed_dist_int8 if precision == "int8"
-               else _compressed_dist_pq)
-    n = index.codes.shape[0]
-    b = q.shape[0]
-    out_d = np.empty((b, k), np.float32)
-    out_i = np.empty((b, k), np.int32)
-    for s in range(0, b, chunk):
-        e = min(s + chunk, b)
-        prep = prepare_query(precision, index, q[s:e])
-        dd = torch.cat([dist_fn(prep, index.codes[c:c + n_block],
-                                index.norms[c:c + n_block])
-                        for c in range(0, n, n_block)], dim=1)  # [b, N]
-        ok = torch.as_tensor(valid_mask[s:e]).to(dev, torch.bool)
-        dd = torch.where(ok, dd, INF)
-        d, i = torch.sort(dd, dim=1, stable=True)
-        d, i = d[:, :k], i[:, :k]
-        out_d[s:e] = d.cpu().numpy()
-        out_i[s:e] = torch.where(torch.isfinite(d), i, -1).cpu().numpy()
-    return out_d, out_i
+    return topk(precision, index, queries, valid_mask, k, chunk, n_block)

@@ -21,7 +21,6 @@ required equal too. The probe features feed three GBDT heads through
 by one ulp (ROADMAP Queue 3); with integer counts on this data they give
 the same plans and budgets, which the tests require.
 """
-import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -189,19 +188,6 @@ def test_modes_match_reference(world, mode, backend, ref_backend):
         np.testing.assert_array_equal(cnt, insp)
 
 
-@pytest.mark.parametrize("mode", ["pre", "widen"])
-def test_widened_frontier_under_a_codec_raises(world, mode):
-    from repro_torch.core.backends import get_backend
-    from repro_torch.core.step import make_step
-
-    _, _, _, eng = world
-    cfg = SearchConfig(k=K, queue_size=M, mode=mode, precision="int8")
-    with pytest.raises(ValueError, match="quantized planning slice"):
-        make_step(cfg, get_backend("fused"), None, None, eng.base_vectors,
-                  (eng.label_attrs, eng.value_attrs), eng.neighbors, None,
-                  None)
-
-
 # ------------------------------------------------------------ scan plan ----
 @pytest.mark.parametrize("structure", ["and", "mixed"])
 def test_scan_matches_reference_and_oracle(world, structure):
@@ -289,15 +275,6 @@ def test_scan_lane_and_width_invariance(world):
         assert torch.isinf(wide[:, 2 * SCAN_ALIGN:]).all()
     one = sqdist_rows_plain(q[3:4], base, ids[3:4], mask[3:4])
     assert torch.equal(one[0], d[3])
-
-
-def test_quant_engine_scan_raises(world):
-    _, _, _, eng = world
-    _, wl = _workloads("and", 4, 9, (0.05,))
-    qeng = dataclasses.replace(eng, precision="int8")
-    with pytest.raises(ValueError, match="quantized planning slice"):
-        scan_search(qeng, SearchConfig(k=K, queue_size=M), wl.queries,
-                    wl.filters)
 
 
 # ------------------------------------------------------------- planner ----

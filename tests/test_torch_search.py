@@ -225,15 +225,21 @@ def test_states_keep_buffers_sorted(world, producer):
 
 
 def test_post_mode_only():
-    """Under a codec the step runs post mode only: the widened frontier of
-    pre and widen mode is float32 until the quantized planning slice
-    (float32 pre/widen: tests/test_torch_planner.py)."""
+    """Post mode is no longer the only mode under a codec: pre and widen
+    build a step at int8 and PQ too (their states against the reference:
+    tests/test_torch_quant_plan.py), and a mode that does not exist still
+    raises under either precision."""
     from repro_torch.core.step import make_step
 
-    for mode in ("pre", "widen"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_step(SearchConfig(mode=mode, precision="int8"), None, None,
-                      None, None, (None, None), None, None, None)
+    for precision in ("int8", "pq", "float32"):
+        for mode in ("post", "pre", "widen"):
+            step = make_step(SearchConfig(mode=mode, precision=precision),
+                             None, None, None, None, (None, None), None,
+                             None, None)
+            assert callable(step)
+        with pytest.raises(ValueError, match="unknown traversal mode"):
+            make_step(SearchConfig(mode="bogus", precision=precision), None,
+                      None, None, None, (None, None), None, None, None)
 
 
 def test_build_without_device_needs_cuda(world, monkeypatch):
