@@ -36,10 +36,13 @@ Phases, each printed as one JSON line with its wall seconds:
      ≈11.1 M pairs) and the oracle's (`k6_rows_timing`); K6q rows (the
      compressed distance by row id of the quantized scan and oracle), int8
      and PQ, against its plain version bit for bit over an N=1M code store
-     (scan and oracle layouts, B=130 with dead lanes, widths off 32, lane,
-     width and order invariance) and each pair bit for bit K3's / K4's
-     (`k6q_int8_check`, `k6q_pq_check`), then timed at the "mixed" scan's
-     and the compressed oracle's shapes (`k6q_*_timing`);
+     (scan and oracle layouts, the oracle's with a fully unmasked lane and
+     one unmasked only at its last position, B=130 with dead lanes,
+     widths off 32, lane, width and order invariance) and each pair bit
+     for bit K3's / K4's (`k6q_int8_check`, `k6q_pq_check`), then timed at
+     the "mixed" scan's and the compressed oracle's shapes
+     (`k6q_*_timing`; under PQ with the kernel's table reads and the
+     lookups' floor beside the bound);
   6. K7 (sorted-buffer merge) against `topm_merge_plain`, bit for bit,
      ties, R=1, R'=160, M=500 and M=42 (4-byte loads) included, with the
      library call pair's time (`k7_check`), then the launch floor;
@@ -1089,9 +1092,11 @@ def k6q_rows_check(device, precision):
     width (d=768 codes; S·L=576, Kc=256); B=130 over N=999,983 with two
     lanes that pass no row; widths off a multiple of 32 (int8 d=740; PQ
     S·L=97 by byte loads with Kc=256 by bulk copies, and S·L=99, Kc=13 by
-    4-byte copies); each bit for bit against itself alone, padded by 192
-    rows and with its lanes in another order; then each (query, row) pair
-    equal to K3's / K4's (`k6q_equals_step`)."""
+    4-byte copies); the oracle's layout with lane 0 fully unmasked and
+    lane 1 unmasked at its last position only ("oracle edges"); each bit
+    for bit against itself alone, padded by 192 rows and with its lanes in
+    another order; then each (query, row) pair equal to K3's / K4's
+    (`k6q_equals_step`)."""
     import torch
 
     from repro_torch.kernels.quant_rows import (sqdist_rows_quant,
@@ -1104,6 +1109,7 @@ def k6q_rows_check(device, precision):
     cases = [(4096, "scan", EVAL_LANES, K5_N, width, K4_KC),
              (65536, "scan", EVAL_LANES, K5_N, width, K4_KC),
              (ORACLE_BLOCK, "oracle", EVAL_LANES, K5_N, width, K4_KC),
+             (ORACLE_BLOCK, "oracle edges", EVAL_LANES, K5_N, width, K4_KC),
              (4096, "scan", 130, K5_N - 17, width, K4_KC)]
     if precision == "int8":
         cases.append((4096, "scan", EVAL_LANES, 100_000, 740, 0))
@@ -1117,9 +1123,12 @@ def k6q_rows_check(device, precision):
             cs, ns = codes[:n], norms[:n]
         else:
             prep, cs, ns = k6q_world(g, precision, b, n, w, kc, device)
-        ids, mask = k6q_layout(g, layout, b, v, n, device)
+        ids, mask = k6q_layout(g, layout.split()[0], b, v, n, device)
         if b != EVAL_LANES:
             mask[[1, b - 1]] = False
+        if layout == "oracle edges":
+            mask[0] = True
+            mask[1] = torch.arange(v, device=device) == v - 1
         got = sqdist_rows_quant(prep, cs, ns, ids, mask)
         want = sqdist_rows_quant_plain(prep, cs, ns, ids, mask)
         pad = 3 * 64
@@ -1204,93 +1213,153 @@ def k6q_equals_step(device, precision) -> int:
     return pairs
 
 
-def k6q_bound(prep, codes, mask, precision):
+H100_SMS = 132              # streaming multiprocessors of an H100 SXM
+SMEM_BANKS = 32             # shared-memory banks: 4-byte words a cycle
+
+
+def k6q_bound(prep, codes, ids, mask, precision, sm_mhz=None):
     """The least time of a K6q rows call on these inputs, by HBM bytes —
     each unmasked pair's code row, norm and id, the mask and the output
     at every position, and the prep (under PQ each lane's table, once) —
     or by operations (int8: 2·d a pair at the int8 peak; PQ: S·L adds a
-    pair at the float32 peak). Beside it, under PQ, the kernel's own cost
-    that is no part of the function's: the lane's table streamed from L2
-    into shared memory once for each tile of 1024 positions holding an
-    unmasked one (`csrc/quant_rows.cu`). Returns (bound ms, bound_by,
-    bytes, table tiles, table stream bytes)."""
+    pair at the float32 peak). Returns a dict of bound_ms, bound_by and
+    bytes and, beside the bound and never inside it, under PQ: what the
+    kernel reads of the tables — `table_reads` work items, each a whole
+    table (`quant_rows.pq_work_items`; left out for a kernel without
+    them, as `scripts/pair_kernels.py` may time), and
+    `table_stream_bytes` — and the lookups (pairs × S·L) with
+    `lookup_floor_ms`, the lookups at SMEM_BANKS a cycle per SM over
+    H100_SMS SMs at the SM clock `sm_mhz` (read under load): a floor
+    that bank conflicts of random codes only raise."""
+    from repro_torch.kernels import quant_rows
+
     b, v = mask.shape
     width = codes.shape[1]
     pairs = int(mask.sum())
     nbytes = pairs * (width * codes.element_size() + 8) + 5 * b * v + sum(
         t.numel() * t.element_size() for t in prep)
-    tiles = stream = 0
+    out = {}
     if precision == "pq":
-        import torch
-
-        tile = 1024
-        padded = torch.nn.functional.pad(mask, (0, -v % tile))
-        tiles = int(padded.reshape(b, -1, tile).any(dim=2).sum())
-        stream = tiles * width * prep.lut.shape[2] * 4
-        t_ops = pairs * width / FP32_FLOP_PER_S
+        if hasattr(quant_rows, "pq_work_items"):
+            reads = len(quant_rows.pq_work_items(
+                mask.sum(1).tolist(), quant_rows.pq_grid(ids.device)))
+            out.update(table_reads=reads, table_stream_bytes=reads * width *
+                       prep.lut.shape[2] * 4)
+        lookups = pairs * width
+        out.update(code_bytes=pairs * width, lookups=lookups)
+        if sm_mhz:
+            out.update(sm_mhz=sm_mhz, lookup_floor_ms=lookups / (
+                SMEM_BANKS * H100_SMS * sm_mhz * 1e6) * 1e3)
+        t_ops = lookups / FP32_FLOP_PER_S
     else:
         t_ops = 2 * pairs * width / INT8_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, tiles,
-            stream)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, **out)
 
 
-def time_k6q_rows(device, precision):
-    """K6q rows timed without the planner at the "mixed" forced scan's
-    shape (B=64, V=2^19, per-lane σ from 3e-06 to 0.48, ≈11.1 M pairs, as
-    `time_k6_rows`) and the compressed oracle's (B=128, V=2^18 consecutive
-    rows masked at the same σ), N=1M, d=768 / S·L=576: held bit for bit to
-    the plain version; ms by CUDA events (the profiler's beside it, and its
-    per-kernel breakdown), and the bound (`k6q_bound`) at HBM_BYTES_PER_S;
-    the plain version's ms at the scan's shape. Returns the scan shape's
+def sm_clock_under(fn, times: int) -> float:
+    """The SM clock (MHz) `nvidia-smi` reads while `fn` runs `times` times
+    back to back. Each result is dropped as soon as it is made, so the
+    calls hold no more device memory than one call does."""
+    import threading
+
+    import torch
+
+    mhz = []
+    reader = threading.Thread(target=lambda: mhz.append(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]))
+    reader.start()
+    for _ in range(times):
+        fn()
+    reader.join()
+    torch.cuda.synchronize()
+    return float(mhz[0])
+
+
+K6Q_PQ_NOTE = ("a launch is one wrapper call: three kernels, the count and "
+               "the compaction of each lane's unmasked positions, then the "
+               "sum (rows_pq_count, rows_pq_compact, rows_pq_kernel); ms is "
+               "the call's, all three")
+K6Q_LAYOUTS = {"scan": (EVAL_LANES, K6_ROWS_V),
+               "oracle": (K6Q_ORACLE_LANES, ORACLE_BLOCK)}
+
+
+def k6q_timing_inputs(device, precision, layout):
+    """K6q rows' inputs at the "mixed" forced scan's shape (B=64, V=2^19,
+    per-lane σ from 3e-06 to 0.48, ≈11.2 M pairs, as `time_k6_rows`) or
+    the compressed oracle's (B=128, V=2^18 consecutive rows masked at the
+    same σ), N=1M, d=768 / S·L=576, Kc=256. One generator draws the store,
+    then the scan's layout, then the oracle's, so each layout's inputs are
+    the same whichever is asked for. Returns (prep, codes, norms, ids,
+    mask)."""
+    import torch
+
+    width = DIM if precision == "int8" else K4_SLOTS
+    g = torch.Generator(device=device).manual_seed(29)
+    prep_all, codes, norms = k6q_world(g, precision, K6Q_ORACLE_LANES, K5_N,
+                                       width, K4_KC, device)
+    for name, (b, v) in K6Q_LAYOUTS.items():
+        sigma = np.maximum(3e-06, 0.48 * (np.arange(b) / (b - 1)) ** 1.76)
+        sig = torch.from_numpy(sigma.astype(np.float32)).to(device)[:, None]
+        ids, mask = k6q_layout(g, name, b, v, K5_N, device, sigma=sig)
+        if name == layout:
+            return (type(prep_all)(*(t[:b] for t in prep_all)), codes,
+                    norms, ids, mask)
+        del ids, mask
+    raise ValueError(f"unknown K6q layout {layout!r}")
+
+
+def time_k6q_rows(device, precision, layouts=("scan", "oracle"),
+                  plain=True):
+    """K6q rows timed without the planner at each of `layouts`
+    (`k6q_timing_inputs`): held bit for bit to the plain version; ms by
+    CUDA events (the profiler's beside it, and its per-kernel breakdown),
+    and the bound (`k6q_bound`) at HBM_BYTES_PER_S; with `plain`, the
+    plain version's ms at the scan's shape. Returns the first layout's
     numbers."""
     import torch
 
     from repro_torch.kernels.quant_rows import (sqdist_rows_quant,
                                                 sqdist_rows_quant_plain)
 
-    width = DIM if precision == "int8" else K4_SLOTS
-    g = torch.Generator(device=device).manual_seed(29)
-    prep_all, codes, norms = k6q_world(g, precision, K6Q_ORACLE_LANES, K5_N,
-                                       width, K4_KC, device)
     out = None
-    for layout, b, v in (("scan", EVAL_LANES, K6_ROWS_V),
-                         ("oracle", K6Q_ORACLE_LANES, ORACLE_BLOCK)):
-        sigma = np.maximum(3e-06, 0.48 * (np.arange(b) / (b - 1)) ** 1.76)
-        sig = torch.from_numpy(sigma.astype(np.float32)).to(device)[:, None]
-        ids, mask = k6q_layout(g, layout, b, v, K5_N, device, sigma=sig)
-        prep = type(prep_all)(*(t[:b] for t in prep_all))
+    for layout in layouts:
+        prep, codes, norms, ids, mask = k6q_timing_inputs(device, precision,
+                                                          layout)
+        b, v = mask.shape
         call = lambda: sqdist_rows_quant(prep, codes, norms, ids, mask)  # noqa: E731
-        plain = lambda: sqdist_rows_quant_plain(prep, codes, norms, ids,  # noqa: E731
-                                                mask)
-        got, want = call(), plain()
+        plain_fn = lambda: sqdist_rows_quant_plain(prep, codes, norms, ids,  # noqa: E731
+                                                   mask)
+        got, want = call(), plain_fn()
         require(k6q_bitwise(got, want),
                 f"K6q {precision} ({layout}): differs from its plain version")
         del got, want
-        bound_ms, bound_by, nbytes, tiles, stream = k6q_bound(
-            prep, codes, mask, precision)
         # ms by CUDA events over back-to-back calls (each call is one
         # launch of several ms); the profiler loses the PQ kernel's records
         call_ms = time_cuda(call, iters=5, warmup=1)
+        mhz = sm_clock_under(call, int(1500 / call_ms) + 1) \
+            if precision == "pq" else None
+        bound = k6q_bound(prep, codes, ids, mask, precision, mhz)
         res = dict(max_abs_err=0.0, ms=call_ms, call_ms=call_ms,
-                   profiler_ms=device_ms(call, iters=5), bound_ms=bound_ms,
-                   bound_by=bound_by)
-        if layout == "scan":  # the check above warmed the plain version
-            res.update(plain_ms=device_ms(plain, iters=1, warmup=0),
-                       plain_call_ms=time_cuda(plain, iters=1, warmup=0))
-            out = res
+                   profiler_ms=device_ms(call, iters=5),
+                   bound_ms=bound.pop("bound_ms"),
+                   bound_by=bound.pop("bound_by"))
+        if plain and layout == "scan":  # the check warmed the plain version
+            res.update(plain_ms=device_ms(plain_fn, iters=1, warmup=0),
+                       plain_call_ms=time_cuda(plain_fn, iters=1, warmup=0))
+        out = out or res
         emit({"phase": f"k6q_{precision}_timing", "ok": True,
               "layout": layout, "bitwise_equal_plain": True,
-              "shapes": dict(B=b, N=K5_N, width=width, V=v,
-                             passing_pairs=int(mask.sum()),
-                             table_tiles=tiles, bytes=nbytes,
-                             table_stream_bytes=stream),
+              "shapes": dict(B=b, N=K5_N, width=codes.shape[1], V=v,
+                             passing_pairs=int(mask.sum()), **bound),
               "hbm_bytes_per_s": HBM_BYTES_PER_S, **res,
               "kernel_ms": kernel_breakdown(call)})
-        del ids, mask
-    del prep_all, codes, norms
-    torch.cuda.empty_cache()
+        del prep, codes, norms, ids, mask
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2843,7 +2912,8 @@ def main(argv=None) -> int:
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r = run_pipeline(args, device)
 
-    def entry(name, source, replaces, chk, launches_of, why, status=None):
+    def entry(name, source, replaces, chk, launches_of, why, status=None,
+              note=None):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": (replaces if replaces.startswith("src/")
@@ -2862,6 +2932,8 @@ def main(argv=None) -> int:
         if status:
             out.update(status=status, floor_ms=chk["floor_ms"],
                        floor_call_ms=chk["floor_call_ms"])
+        if note:
+            out["note"] = note
         return out
 
     step_why = "no single PyTorch call runs a traversal step"
@@ -2906,7 +2978,9 @@ def main(argv=None) -> int:
                 f"sqdist_rows_quant_{p}",
                 "no single PyTorch call computes ADC distances to rows given "
                 "by id (the reference computes them in jnp over a gathered "
-                "block of codes, no Pallas kernel)") for p in ("int8", "pq")),
+                "block of codes, no Pallas kernel)",
+                note=None if p == "int8" else K6Q_PQ_NOTE)
+          for p in ("int8", "pq")),
         entry("topm_merge", "topk.cu", "topk.py:63", k7, "topm_merge",
               None, K7_STATUS),
     ]})

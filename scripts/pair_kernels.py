@@ -11,8 +11,10 @@ call: K1 at R=32 and R'=160, K3, K4 and K5's three branches at the main
 path's shapes (B=64, d=768, M=512, K=10; K5 over its N=1M synthetic
 index), K6 at B=64, R=32, K6's row-id variant at the "mixed" forced
 scan's shape (B=64, N=1M, V=2^19, ≈11.1 M pairs) and the oracle's (V =
-2^18), K2 at B=64, F=68, T=200, D=5 and K7 at B=64, M=512, R=32. Each
-check holds the kernel against its plain version. Prints one JSON line
+2^18), K2 at B=64, F=68, T=200, D=5, K7 at B=64, M=512, R=32, and K6q
+rows int8 and PQ at the scan's and the compressed oracle's shapes
+(`chip_smoke.k6q_timing_inputs`; ms by CUDA events). Each check holds the
+kernel against its plain version. Prints one JSON line
 per turn, {"root", "turn", "ms": {kernel: device ms}, "call_ms": {...},
 "floor": {kernel: the launch floor measured beside it}}, then the card's
 `nvidia-smi` name and power limit.
@@ -30,12 +32,24 @@ lies, one block a lane), is built, and runs K4 at B=64, R=32 (and R'=160
 where the head takes it), one 8-step K5 pq launch over the N=1M synthetic
 index of `chip_smoke.py`, K2 at B=64, F=68, T=200, D=5, and K7 at B=64,
 M=512, R=32 where its merge loads in one round (an older K7 is not
-stamped). Thread 0 of each block adds the cycles between stamps into a
-device array, so each phase reads as cycles per lane-step (K2, K7: per
-block); barrier-to-barrier
-phases are the block's, and the rest thread 0's own. Prints one JSON line
-per checkout and kernel, with the SM clock `nvidia-smi` read under load.
-The committed sources carry no stamps.
+stamped), and K6q rows PQ at the scan's and the oracle's shapes (the
+earlier kernel over 1024-position tiles or the work-item kernel, found by
+its text). Thread 0 of each block
+adds the cycles between stamps into a device array, so each phase reads
+as cycles per lane-step (K2, K7: per block); barrier-to-barrier phases
+are the block's, and the rest thread 0's own. K6q's stamps are every
+thread's own cycles, summed over all threads, and read as each phase's
+share of the whole. Prints one JSON line per checkout and kernel, with
+the SM clock `nvidia-smi` read under load. The committed sources carry
+no stamps.
+
+    python3 scripts/pair_kernels.py --ablate ROOT
+
+times ROOT's K6q rows PQ (the segment kernel) at both shapes as it is,
+with its table lookups replaced by register arithmetic, with its code
+loads replaced by a hash of the address, and with neither (`ABLATIONS`;
+a patched copy under `build/ablate/` each, values wrong, timing only):
+what each part of the work costs. One JSON line per ablation.
 """
 from __future__ import annotations
 
@@ -60,6 +74,10 @@ CHECKS = (  # (kernel, chip_smoke function, its arguments after the device)
     ("K6 rows oracle", "time_k6_rows", ("oracle",)),
     ("K2", "check_k2", (False,)),
     ("K7", "check_k7", ()),
+    ("K6q int8", "time_k6q_rows", ("int8", ("scan",), False)),
+    ("K6q int8 oracle", "time_k6q_rows", ("int8", ("oracle",), False)),
+    ("K6q PQ", "time_k6q_rows", ("pq", ("scan",), False)),
+    ("K6q PQ oracle", "time_k6q_rows", ("pq", ("oracle",), False)),
 )
 
 
@@ -111,6 +129,26 @@ __device__ __forceinline__ void stamp_wait(const T* a, int n) {
     for (int i = 0; i < n; ++i) acc += (float)a[i];
     asm volatile("mov.b32 %0, %0;" : "+f"(acc));
   }
+}
+// per-thread laps (K6q): every thread adds its own cycles into *acc;
+// stamp_flush sums a warp's and adds them to slot `slot`
+__device__ __forceinline__ void stamp_acc(long long* acc, long long* t) {
+  const long long now = clock64();
+  *acc += now - *t;
+  *t = now;
+}
+__device__ __forceinline__ void stamp_flush(int slot, long long v) {
+  unsigned long long u = (unsigned long long)v;
+  for (int off = 16; off > 0; off >>= 1)
+    u += __shfl_down_sync(0xffffffffu, u, off);
+  if ((threadIdx.x & 31) == 0) atomicAdd(&g_stamp[slot], u);
+}
+template <int N>
+__device__ __forceinline__ void stamp_use(const uint32_t (&w)[N]) {
+  uint32_t x = 0u;  // consume the loaded words: wait for them
+#pragma unroll
+  for (int i = 0; i < N; ++i) x ^= w[i];
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
 }
 """
 STAMP_READER = """
@@ -317,6 +355,114 @@ STAMP_K7 = {
     ]}
 
 
+def k6q_flush(n: int) -> str:
+    """Every thread's n phase sums into slots 1..n."""
+    return "".join(f"  step::stamp_flush({i + 1}, a{i}_);\n" for i in range(n))
+
+
+# K6q rows PQ (quant_rows.cu), every thread's own cycles by phase, summed
+# over the threads of all blocks (slot 0: blocks that read a table)
+STAMP_K6Q = {
+    # the earlier kernel: grid (1024-position tiles, lanes), the lane's table
+    # streamed chunk by chunk into every tile; each thread's 4 rows
+    "tile": {
+        "phases": {1: "prologue: mask, ids, early exit, xn",
+                   2: "table chunk: issue, wait, barrier", 3: "code loads",
+                   4: "lookups and adds", 5: "chunk-end barrier",
+                   6: "tail", 7: "whole kernel"},
+        "patches": [
+            ("quant_rows.cu", "  const int p0 = blockIdx.x * kPQRows;\n",
+             "  const int p0 = blockIdx.x * kPQRows;\n"
+             "  long long t_ = clock64(), k_ = t_, a0_ = 0, a1_ = 0, a2_ = 0,\n"
+             "            a3_ = 0, a4_ = 0, a5_ = 0, a6_ = 0;\n"),
+            ("quant_rows.cu",
+             "  if (!__syncthreads_or(any)) return;  // nothing to read in "
+             "this tile\n",
+             "  if (!__syncthreads_or(any)) return;  // nothing to read in "
+             "this tile\n  if (tid == 0) atomicAdd(&step::g_stamp[0], 1ull);\n"),
+            ("quant_rows.cu",
+             "  for (int c = 0; c < nch; ++c) {\n    start(c + kPQStages - 1);\n",
+             "  step::stamp_acc(&a0_, &t_);\n"
+             "  for (int c = 0; c < nch; ++c) {\n    start(c + kPQStages - 1);\n"),
+            ("quant_rows.cu", "    __syncthreads();                 // everyone's\n",
+             "    __syncthreads();                 // everyone's\n"
+             "    step::stamp_acc(&a1_, &t_);\n"),
+            ("quant_rows.cu",
+             "      load_chunk_codes(w, codes + (size_t)id[k] * SL + j0, n, vec);\n",
+             "      load_chunk_codes(w, codes + (size_t)id[k] * SL + j0, n, vec);\n"
+             "      step::stamp_use(w);\n      step::stamp_acc(&a2_, &t_);\n"),
+            ("quant_rows.cu",
+             "      ip[k] = step::pq_sum_chunk(ip[k], tab + s * span, Kc, w, n);\n",
+             "      ip[k] = step::pq_sum_chunk(ip[k], tab + s * span, Kc, w, n);\n"
+             "      step::stamp_acc(&a3_, &t_);\n"),
+            ("quant_rows.cu",
+             "    if (c + kPQStages < nch) __syncthreads();  // buffer s refills "
+             "next\n",
+             "    if (c + kPQStages < nch) __syncthreads();  // buffer s refills "
+             "next\n    step::stamp_acc(&a4_, &t_);\n"),
+            ("quant_rows.cu",
+             "          __fsub_rn(__fadd_rn(qnb, xn[k]), __fmul_rn(2.f, ip[k])), "
+             "0.f);\n}\n",
+             "          __fsub_rn(__fadd_rn(qnb, xn[k]), __fmul_rn(2.f, ip[k])), "
+             "0.f);\n  step::stamp_acc(&a5_, &t_);\n"
+             "  step::stamp_acc(&a6_, &k_);\n" + k6q_flush(7) + "}\n"),
+        ]},
+}
+
+
+STAMP_K6Q["segment"] = {
+    # this kernel's sum, one block an SM, by work item, chunk and batch of
+    # 32 rows a warp (the count and compaction launches are timed by the
+    # profiler beside it)
+    "phases": {1: "prologue: share, first lane, setup",
+               2: "table chunk: issue, wait, barrier",
+               3: "code wait (loaded two batches ahead) and staging",
+               4: "next batch: id and code loads issued",
+               5: "lookups and adds",
+               6: "tail loads, partial-sum store or output",
+               7: "chunk-end barrier", 8: "whole kernel"},
+    "patches": [
+        ("quant_rows.cu",
+         "  const int tid = threadIdx.x;\n\n  // the block's share",
+         "  const int tid = threadIdx.x;\n"
+         "  long long t_ = clock64(), k_ = t_, a0_ = 0, a1_ = 0, a2_ = 0,\n"
+         "            a3_ = 0, a4_ = 0, a5_ = 0, a6_ = 0, a7_ = 0;\n\n"
+         "  // the block's share"),
+        ("quant_rows.cu", "  int lane, k0, k1, nl, n0, n1;\n",
+         "  if (tid == 0) atomicAdd(&step::g_stamp[0], 1ull);\n"
+         "  step::stamp_acc(&a0_, &t_);\n  int lane, k0, k1, nl, n0, n1;\n"),
+        ("quant_rows.cu",
+         "      __syncthreads();                 // everyone's\n",
+         "      __syncthreads();                 // everyone's\n"
+         "      step::stamp_acc(&a1_, &t_);\n"),
+        ("quant_rows.cu",
+         "          pre0[g] = pre1[g];\n        }\n        __syncwarp();\n",
+         "          pre0[g] = pre1[g];\n        }\n        __syncwarp();\n"
+         "        step::stamp_acc(&a2_, &t_);\n"),
+        ("quant_rows.cu", "          p = pos[lo + r];\n        }\n",
+         "          p = pos[lo + r];\n        }\n"
+         "        step::stamp_acc(&a5_, &t_);\n"),
+        ("quant_rows.cu", "        id3 = row_id(beta + 4 * kSegWarps);\n",
+         "        id3 = row_id(beta + 4 * kSegWarps);\n"
+         "        step::stamp_acc(&a3_, &t_);\n"),
+        ("quant_rows.cu",
+         "          ip = seg_sum<KC>(ip, t, kc, stage, lane, n);\n",
+         "          ip = seg_sum<KC>(ip, t, kc, stage, lane, n);\n"
+         "          step::stamp_acc(&a4_, &t_);\n"),
+        ("quant_rows.cu", "            part[r - k0] = ip;\n",
+         "            part[r - k0] = ip;\n          step::stamp_acc(&a5_, &t_);\n"),
+        ("quant_rows.cu",
+         "      __syncthreads();  // buffer s is free; the next item may "
+         "begin\n",
+         "      __syncthreads();  // buffer s is free; the next item may "
+         "begin\n      step::stamp_acc(&a6_, &t_);\n"),
+        ("quant_rows.cu",
+         "    more = walk.next(&nl, &n0, &n1);\n  }\n}\n",
+         "    more = walk.next(&nl, &n0, &n1);\n  }\n"
+         "  step::stamp_acc(&a7_, &k_);\n" + k6q_flush(8) + "}\n"),
+    ]}
+
+
 def stamped_copy(root: str, dest: str) -> tuple:
     """Copy `root`'s src/ to `dest` with the stamps inserted; returns the
     names of its PQ head and its K2, and whether its K7 is stamped (the
@@ -331,41 +477,26 @@ def stamped_copy(root: str, dest: str) -> tuple:
     gbdt = open(os.path.join(csrc, "gbdt.cu")).read()
     k2 = "walk" if "float walk(" in gbdt else "staged"
     k7 = "__shfl_sync" in open(os.path.join(csrc, "topk.cu")).read()
+    k6q = ("tile" if "load_chunk_codes(" in open(
+        os.path.join(csrc, "quant_rows.cu")).read() else "segment")
     texts = {}
     for fname, old, new in (STAMP_COMMON + STAMP_HEADS[head]["patches"] +
                             STAMP_K2[k2]["patches"] +
-                            (STAMP_K7["patches"] if k7 else [])):
+                            (STAMP_K7["patches"] if k7 else []) +
+                            STAMP_K6Q[k6q]["patches"]):
         path = os.path.join(csrc, fname)
         text = texts.get(path) or open(path).read()
         if text.count(old) != 1:
             raise RuntimeError(f"stamp point not found once in {fname}: "
                                f"{old!r}")
         texts[path] = text.replace(old, new)
-    for name in ("fused_step.cu", "persistent_step.cu", "gbdt.cu") + (
-            ("topk.cu",) if k7 else ()):
+    for name in ("fused_step.cu", "persistent_step.cu", "gbdt.cu",
+                 "quant_rows.cu") + (("topk.cu",) if k7 else ()):
         texts[os.path.join(csrc, name)] += STAMP_READER
     for path, text in texts.items():
         with open(path, "w") as f:
             f.write(text)
-    return head, k2, k7
-
-
-def sm_clock_under(fn) -> float:
-    """The SM clock (MHz) `nvidia-smi` reads while `fn` runs."""
-    import threading
-
-    import torch
-
-    mhz = []
-    reader = threading.Thread(target=lambda: mhz.append(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]))
-    reader.start()
-    fn()
-    reader.join()
-    torch.cuda.synchronize()
-    return float(mhz[0])
+    return head, k2, k7, k6q
 
 
 def stamp_turn(root: str) -> list:
@@ -379,7 +510,7 @@ def stamp_turn(root: str) -> list:
     root = os.path.abspath(root)
     dest = os.path.join(HERE, "build", "stamps",
                         os.path.basename(root.rstrip("/")) or "root")
-    head, k2, k7 = stamped_copy(root, dest)
+    head, k2, k7, k6q = stamped_copy(root, dest)
     sys.path.insert(0, os.path.join(dest, "src"))
     import torch
 
@@ -387,6 +518,7 @@ def stamp_turn(root: str) -> list:
     from repro_torch.kernels.fused_step import fused_step
     from repro_torch.kernels.gbdt import gbdt_predict
     from repro_torch.kernels.persistent_step import persistent_multi_step
+    from repro_torch.kernels.quant_rows import sqdist_rows_quant
     from repro_torch.kernels.topk import topm_merge
 
     spec = importlib.util.spec_from_file_location(
@@ -409,7 +541,7 @@ def stamp_turn(root: str) -> list:
         torch.cuda.synchronize()
         _build.check(io_(ctypes.addressof(buf), 0), lib_name)
         n = max(int(buf[0]), 1)
-        return {"heads": int(buf[0]), "cycles_per_lane_step": {
+        return {"heads": int(buf[0]), "raw": list(buf), "cycles_per_lane_step": {
             phases[i]: buf[i] / n for i in sorted(phases)}}
 
     out = []
@@ -422,7 +554,7 @@ def stamp_turn(root: str) -> list:
             return fused_step(*args, quant=quant, precision="pq")
 
         res = measure("fused_step", run, 20)
-        res["sm_mhz"] = sm_clock_under(lambda: [run() for _ in range(2000)])
+        res["sm_mhz"] = cs.sm_clock_under(run, 2000)
         out.append({"kernel": "K4", "R": r, **res})
     with contextlib.redirect_stdout(io.StringIO()):
         args, state, kw = cs.k5_world(7, True, device, "pq")
@@ -442,7 +574,7 @@ def stamp_turn(root: str) -> list:
               to((0.1 * rng.normal(size=(t, 1 << depth))).astype(np.float32)))
     run = lambda: gbdt_predict(*forest, 5.25, depth)  # noqa: E731
     res = measure("gbdt", run, 50, STAMP_K2[k2]["phases"])
-    res["sm_mhz"] = sm_clock_under(lambda: [run() for _ in range(20000)])
+    res["sm_mhz"] = cs.sm_clock_under(run, 20000)
     out.append({"kernel": "K2", "variant": k2, "B": b, "T": t, "D": depth,
                 **res})
     if k7:  # K7 at check_k7's shape, blocks counted as for K2
@@ -451,7 +583,109 @@ def stamp_turn(root: str) -> list:
         res = measure("topk", lambda: topm_merge(*args), 50,
                       STAMP_K7["phases"])
         out.append({"kernel": "K7", "B": 64, "M": 512, "R": 32, **res})
+    # K6q rows PQ at the scan's and the oracle's shapes: thread-cycles by
+    # phase over all threads of all blocks, each phase's share of the
+    # whole, and the stamped kernel's ms by CUDA events
+    phases = STAMP_K6Q[k6q]["phases"]
+    for layout in ("scan", "oracle"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            prep, codes, norms, ids, mask = cs.k6q_timing_inputs(
+                device, "pq", layout)
+        run = lambda: sqdist_rows_quant(prep, codes, norms, ids,  # noqa: E731
+                                        mask)
+        raw = measure("quant_rows", run, 3, phases)["raw"]
+        # thread-cycles a call by phase of the sum; its share of the whole
+        total = {phases[i]: raw[i] / 3 for i in sorted(phases)}
+        whole = max(total["whole kernel"], 1.0)
+        extra = {"kernel_ms": cs.kernel_breakdown(run)}
+        out.append({
+            "kernel": "K6q PQ", "variant": k6q, "layout": layout,
+            "B": mask.shape[0], "V": mask.shape[1],
+            "pairs": int(mask.sum()), "blocks_a_call": raw[0] / 3,
+            "thread_cycles_a_call": total,
+            "share": {k: c / whole for k, c in total.items()}, **extra,
+            "stamped_ms": cs.time_cuda(run, iters=3, warmup=1),
+            "sm_mhz": cs.sm_clock_under(run, 300)})
+        del prep, codes, norms, ids, mask
+        torch.cuda.empty_cache()
     return [{"root": root, "head": head, **o} for o in out]
+
+
+# ------------------------------------------------------------ ablation ----
+# K6q rows PQ with a part of its work taken out, for timing only (the
+# values are wrong): the lookups replaced by register arithmetic, or the
+# code loads by a hash of the address, or both; (file, text, replacement)
+K6Q_LOOKUP = ("        v[i] = t[jj * kc + __byte_perm(w[i >> 2], 0u, 0x4440u + "
+              "(i & 3))];\n")
+K6Q_LOADS = ("  if (vec) return __ldcg(reinterpret_cast<const uint4*>(src));"
+             "\n")
+ABLATIONS = {
+    "whole": [],
+    "no lookups": [("quant_rows.cu", K6Q_LOOKUP,
+                    "        v[i] = __uint_as_float(w[i >> 2] + jj);\n")],
+    "no code loads": [("quant_rows.cu", K6Q_LOADS,
+                       "  if (vec) {\n    const uint32_t h = (uint32_t)"
+                       "reinterpret_cast<uintptr_t>(src) * 2654435761u;\n"
+                       "    return make_uint4(h, h * 3u, h * 5u, h * 7u);\n"
+                       "  }\n")],
+}
+ABLATIONS["neither"] = ABLATIONS["no lookups"] + ABLATIONS["no code loads"]
+
+
+def ablate_one(dest: str) -> dict:
+    """Time K6q rows PQ from the (patched) copy `dest` at the scan's and
+    the oracle's shapes: ms by CUDA events and the profiler's per kernel."""
+    sys.path.insert(0, os.path.join(dest, "src"))
+    import torch
+
+    import repro_torch  # noqa: F401  (dest's package, before chip_smoke's)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quant_rows import sqdist_rows_quant
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    _build.build_all()
+    device, out = torch.device("cuda"), {}
+    for layout in ("scan", "oracle"):
+        prep, codes, norms, ids, mask = cs.k6q_timing_inputs(device, "pq",
+                                                             layout)
+        run = lambda: sqdist_rows_quant(prep, codes, norms, ids,  # noqa: E731
+                                        mask)
+        out[layout] = {"ms": cs.time_cuda(run, iters=5, warmup=1),
+                       "kernel_ms": cs.kernel_breakdown(run)}
+        del prep, codes, norms, ids, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def ablate(root: str) -> list:
+    """One line per ablation of `root`'s K6q rows PQ (`ABLATIONS`), each
+    from a patched copy under build/ablate/ in a process of its own."""
+    out = []
+    for name, patches in ABLATIONS.items():
+        dest = os.path.join(HERE, "build", "ablate", name.replace(" ", "_"))
+        shutil.rmtree(dest, ignore_errors=True)
+        shutil.copytree(os.path.join(root, "src"), os.path.join(dest, "src"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for fname, old, new in patches:
+            path = os.path.join(dest, "src", "repro_torch", "csrc", fname)
+            text = open(path).read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"ablation point not found once in "
+                                   f"{fname}: {old!r}")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ablate-one", dest], capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(res.stdout + res.stderr)
+        out.append({"root": os.path.abspath(root), "kernel": "K6q PQ",
+                    "ablation": name,
+                    **json.loads(res.stdout.strip().splitlines()[-1])})
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -460,6 +694,17 @@ def main(argv: list[str]) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "--stamp-one":
         print(json.dumps(stamp_turn(argv[1])), flush=True)
+        return 0
+    if len(argv) == 2 and argv[0] == "--ablate-one":
+        print(json.dumps(ablate_one(argv[1])), flush=True)
+        return 0
+    if len(argv) == 2 and argv[0] == "--ablate":
+        for line in ablate(argv[1]):
+            print(json.dumps(line), flush=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout.strip()
+        print(smi, flush=True)
         return 0
     if len(argv) >= 2 and argv[0] == "--stamps":
         for root in argv[1:]:

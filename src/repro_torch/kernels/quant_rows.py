@@ -20,10 +20,13 @@ integer dot, the same float tail) and a float32 sum of the lookups in slot
 order 0..S·L−1, so kernel and plain agree bit for bit under both codecs;
 lane by lane, in chunks of `_PLAIN_ROWS`, so a (query, row) pair's value
 depends neither on the lanes beside it nor on the padded width. Bound on
-an H100: bytes (codes and norms of the unmasked pairs, and under PQ the
-lane's table once per tile); see the note in `csrc/quant_rows.cu`. On CPU
-tensors the wrapper runs the plain version; on CUDA tensors it launches
-the kernel or raises.
+an H100: bytes (codes and norms of the unmasked pairs, each PQ lane's
+table once). The PQ kernel lists each lane's unmasked positions first
+(a count and a compaction launch), then one block an SM sums an equal
+share of them in work items (`pq_work_items`), each reading its lane's
+table once; see the note in `csrc/quant_rows.cu`. On CPU tensors the
+wrapper runs the plain version; on CUDA tensors it launches the kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -39,6 +42,44 @@ from repro_torch.quant.codecs import (Int8Prep, PQPrep, _pq_assemble,
 
 INF = float("inf")
 PREC_IDS = {"int8": 1, "pq": 2}  # quant_rows_smem_bytes's `prec`
+PQ_SEG_ROWS = 16384  # csrc/quant_rows.cu::kSegRows: rows of a work item
+PQ_LANE_ROWS = 256   # csrc/quant_rows.cu::kSegLaneRows: a table's weight
+PQ_TILE = 4096       # csrc/quant_rows.cu::kCompactTile: a compaction block's
+
+
+def pq_grid(device) -> int:
+    """Blocks of the PQ sum: one an SM of `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pq_work_items(counts, grid: int, seg_rows: int = PQ_SEG_ROWS,
+                  lane_rows: int = PQ_LANE_ROWS) -> list:
+    """The PQ sum's work items, as `csrc/quant_rows.cu::Walk` cuts them:
+    the lanes laid end to end by weight (lane_rows for its table, then
+    its unmasked positions, counts [B]; an empty lane weighs nothing),
+    block i's share [T·i // grid, T·(i + 1) // grid) of the total weight
+    T cut at lane boundaries into pieces of rows, each piece into
+    ⌈rows / seg_rows⌉ near-equal parts. Returns (block, lane, k0, k1) for
+    each item, rows k0..k1 − 1 of the lane's list; each item reads the
+    lane's whole table once."""
+    weight = [n + lane_rows if n else 0 for n in counts]
+    total, items = sum(weight), []
+    for i in range(grid):
+        start, end = total * i // grid, total * (i + 1) // grid
+        off = 0
+        for lane, n in enumerate(counts):
+            if off >= end:
+                break
+            r0 = off + lane_rows
+            lo, hi = max(start, r0), min(end, r0 + n)
+            if hi > lo:
+                plo, plen = lo - r0, hi - lo
+                parts = -(-plen // seg_rows)
+                items += [(i, lane, plo + plen * j // parts,
+                           plo + plen * (j + 1) // parts)
+                          for j in range(parts)]
+            off += weight[lane]
+    return items
 
 
 def _precision(prep) -> str:
@@ -101,7 +142,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p]
         fi.restype = ctypes.c_int
         fp = lib.quant_rows_pq
-        fp.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fp.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fp.restype = ctypes.c_int
         sm = lib.quant_rows_smem_bytes
@@ -116,7 +157,9 @@ def sqdist_rows_quant(prep, codes: torch.Tensor, norms: torch.Tensor,
     or [N, S·L] uint8, norms [N] f32, ids [B, V] int32, mask [B, V] bool
     -> [B, V] f32 compressed squared L2 to rows codes[ids], +inf where
     masked (masked ids are not read). On the card an unmasked id outside
-    [0, N) gives NaN."""
+    [0, N) gives NaN. Under PQ one call is three kernel launches (the
+    count and the compaction of the unmasked positions, then the sum),
+    counted as one."""
     if ids.device.type == "cpu":
         return sqdist_rows_quant_plain(prep, codes, norms, ids, mask)
     if ids.device.type != "cuda":
@@ -156,11 +199,16 @@ def sqdist_rows_quant(prep, codes: torch.Tensor, norms: torch.Tensor,
             prep.qq.data_ptr(), prep.sq.data_ptr(), prep.qn.data_ptr(),
             codes.data_ptr(), norms.data_ptr(), ids.data_ptr(),
             mask.data_ptr(), out.data_ptr(), b, v, width, n, stream)
-    else:
+    else:  # the compaction's lists of unmasked positions and their ids
+        cid = torch.empty((b, v), dtype=torch.int32, device=dev)
+        pos = torch.empty((b, v), dtype=torch.int32, device=dev)
+        cnt = torch.empty((b * (1 + -(-v // PQ_TILE)),), dtype=torch.int32,
+                          device=dev)  # lanes', then tiles' counts
         err = lib.quant_rows_pq(
             prep.lut.data_ptr(), prep.qn.data_ptr(), codes.data_ptr(),
             norms.data_ptr(), ids.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, v, width, kc, n, stream)
+            out.data_ptr(), cid.data_ptr(), pos.data_ptr(), cnt.data_ptr(),
+            b, v, width, kc, n, pq_grid(dev), stream)
     _build.check(err, "quant_rows")
     return out
 
