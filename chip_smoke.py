@@ -80,7 +80,20 @@ Phases, each printed as one JSON line with its wall seconds:
      device busy ms, idle share, kernel launches per lockstep step,
      host-to-device copies, and forest uploads, which must be 0 (the
      estimator keeps its forest on the card after its first call);
- 12. the planner path on composite And/Or/Not workloads: `plan_training`
+ 12. observability and serving on the persistent path: `obs_e2e`
+     (contain α=1 through `e2e_search` plain and with a tracer and
+     explain=True: every SearchState field and dispatch_counters delta
+     equal, one launch span a launch, each report's probe + resume NDC =
+     cnt; traced and untraced medians of 3), `serve` (the cost-aware
+     scheduler over the 64 contain and 64 range requests, lane width 16,
+     under direct and escalate: every request bit for bit its lane of the
+     one-shot `e2e_search`, launches_total = the dispatch delta, no forest
+     upload), `launch_split` (the traced batches' wall time split into
+     launch spans — K5 and its `hops`/`active` readback —, the rest of the
+     search calls, and everything outside them) and `graph_recall` (the
+     graph's neighbour recall@32 on 1024 rows by `knn_exact`, and recall@10
+     of an exhaustive search under a filter every row passes);
+ 13. the planner path on composite And/Or/Not workloads: `plan_training`
      (256 "mixed" queries: oracle, probe and the two exhaustion resumes'
      seconds, converged shares, fit seconds); `plan_forced` (each plan
      forced equals `run_plan` in every field, the scan equals the oracle
@@ -89,8 +102,10 @@ Phases, each printed as one JSON line with its wall seconds:
      NDC, e2e ms for fused and persistent, which must agree in every
      field; fused and dense widen, and on "and" fused and dense pre, give
      identical top-10 and NDC on ≥ 95% of lanes); a `profile` line for one
-     planned batch;
- 13. per codec (int8, PQ): the quantized engine's build (seconds,
+     planned batch; `obs_e2e` on the planned "mixed" batch (traced ≡
+     plain); `serve` with plan="auto" on "mixed" (two runs identical, a
+     resubmission hits the cache with identical results; the plan mix);
+ 14. per codec (int8, PQ): the quantized engine's build (seconds,
      `index_nbytes`, `store_ratio`), training labels with the compressed
      target, the estimator, and `e2e_search` with the terminal rerank on
      contain and range at α=1 with backends fused (K3 / K4), persistent
@@ -103,9 +118,14 @@ Phases, each printed as one JSON line with its wall seconds:
      batches, persistent ≡ fused, recall after the rerank; on scan lanes
      the scan ≡ `compressed_filtered_topk` bit for bit; a `mode="pre"`
      cell);
- 14. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
+     PQ also `serve` under direct (64 contain requests, each bit for bit
+     its lane of the one-shot batch after the rerank);
+ 15. `launcher`: `python -m repro_torch.launch.serve --status
+     --prometheus` in a child process at its default corpus: exit 0 and a
+     scrape that `validate_prometheus` accepts;
+ 16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
-     launch floor).
+     launch floor; `serve_launches` where a serving path runs the kernel).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -1781,7 +1801,7 @@ def read_counts() -> dict:
             out[name] = n
     return {k: out[k] for k in COUNTED}
 
-def run_pipeline(args, device):
+def run_pipeline(args, device, k5_ms):
     import torch
 
     from repro_torch.core import (CostEstimator, SearchConfig, SearchEngine,
@@ -1998,19 +2018,34 @@ def run_pipeline(args, device):
                 rows[0]["fused"]["e2e_ms"])
     profile_e2e(eng, est, evals["contain"], probe, "persistent",
                 pers_rows[0]["e2e_ms"])
+    # ---- observability and serving on the persistent path ----
+    e2e_split = run_obs_e2e(eng, est, evals["contain"], probe,
+                            k5_ms["float32"])
+    serve_counts, serve_splits = run_serve(
+        eng, est, {name: (evals[name], persistent[(name, 1.0)][0])
+                   for name in evals},
+        probe, "float32", ("direct", "escalate"), k5_ms["float32"],
+        ("persistent_multi_step", "gbdt_predict"))
+    emit({"phase": "launch_split", "backend": "persistent",
+          "precision": "float32", "obs_e2e": e2e_split,
+          **{f"serve_{p}": v for p, v in serve_splits.items()}})
+    run_serve_narrow(eng, est, evals["contain"],
+                     persistent[("contain", 1.0)][0], probe)
+    run_graph_recall(ds, eng, graph, evals["contain"], device)
     launches = {"fused_step": fused_counts["fused_step"],
                 "gbdt_predict": fused_counts["gbdt_predict"],
                 "persistent_multi_step": pers_counts["persistent_multi_step"],
                 "sqdist_masked": k6_counts["sqdist_masked"]}
     run_baselines(eng, ds, est, td, evals["contain"], gts["contain"][0],
                   persistent[("contain", 1.0)][0].predicted_budget, probe)
-    plan_launches, k6r, plan_evals, plan_gts = run_planner(ds, eng, probe,
-                                                           device)
+    plan_launches, k6r, plan_evals, plan_gts = run_planner(ds, eng, est,
+                                                           probe, device)
     launches.update(plan_launches)
+    launches["serve:float32"] = serve_counts
     del eng
     torch.cuda.empty_cache()
     launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
-                              device, plan_evals, plan_gts))
+                              device, plan_evals, plan_gts, k5_ms))
     return launches, k6r
 
 
@@ -2147,7 +2182,7 @@ def time_scan_kernel(eng, wl, stats):
                      distinct_rows=distinct, bytes=nbytes)
 
 
-def run_planner(ds, eng, probe, device):
+def run_planner(ds, eng, est, probe, device):
     """The planning path on the float32 engine: composite workloads, the
     planner's training (oracle on K6's row-id variant, a shared probe and
     two exhaustion resumes, persistent backend), forced plans against
@@ -2325,14 +2360,19 @@ def run_planner(ds, eng, probe, device):
                        pre_mean_ndc=float(pf.cnt.float().mean()))
         emit(row)
         e2e_rows.append(row)
+        planned_persistent = pr
     profile_planned(eng, planner, evals["mixed"], probe,
                     e2e_rows[-1]["e2e_ms"]["persistent"])
+    run_obs_planned(eng, planner, evals["mixed"], probe)
+    auto_counts = run_serve_auto(eng, est, planner, evals["mixed"],
+                                 planned_persistent, probe)
     main_counts = plan_counts[("mixed", "fused")]
     # the widen resume is where R'=160 steps run (K3 / K4 on the quantized
     # engines: `run_plan_quant`)
     return ({"fused_step_wide": widen_counts["fused_step"],
              "sqdist_rows": main_counts["sqdist_rows"],
-             "topm_merge": main_counts["topm_merge"]}, k6r, evals, gts)
+             "topm_merge": main_counts["topm_merge"],
+             "serve:auto": auto_counts}, k6r, evals, gts)
 
 
 def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
@@ -2381,7 +2421,7 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
 
 
 def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
-              plan_gts):
+              plan_gts, k5_ms):
     """The quantized engines on the same dataset and graph: per codec,
     build (train + encode on the card), training labels with the
     compressed convergence target, the estimator, and e2e_search with the
@@ -2529,6 +2569,14 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
               "launches": {"fused": f_counts, "persistent": p_counts}})
         profile_e2e(qeng, est, evals["contain"], probe, "persistent",
                     pers_ms[cells[0]])
+        if precision == "pq":
+            launches["serve:pq"], _ = run_serve(
+                qeng, est, {"contain": (evals["contain"],
+                                        pers[("contain", 1.0)][0])},
+                probe, precision, ("direct",), k5_ms[precision],
+                (f"persistent_multi_step_{precision}", "gbdt_predict"))
+            run_serve_narrow(qeng, est, evals["contain"],
+                             pers[("contain", 1.0)][0], probe)
         del fused, pers, dense
         launches.update(run_plan_quant(ds, qeng, precision, probe,
                                        plan_evals, plan_gts))
@@ -2860,6 +2908,465 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
                            "device_ms": us / 1e3} for e, us in top]})
 
 
+# ---------------------------------------------- observability, serving ----
+def search_split(tr, wall_ms_total: float, k5_ms: float) -> dict:
+    """Split a traced persistent batch's wall time by its spans: the
+    launch spans (each a K5 launch, or a group of K1 steps in widen mode,
+    plus the `hops` / `active` readback that waits for it), the rest of
+    the engine's search calls ("probe" / "resume" / "scan" spans: the
+    launch loop's compactions, its Python and the per-call set-up), and
+    everything outside them (features, K2, the rerank, the caller's
+    Python). `k5_device_ms` is K5's device time for a 64-lane 8-step
+    launch (`k5_check`), beside the launch span it sits in."""
+    launches = tr.spans(name="launch")
+    launch_ms = sum(s.duration for s in launches) * 1e3
+    calls = [s for s in tr.spans() if s.name in ("probe", "resume", "scan")]
+    search_ms = sum(s.duration for s in calls) * 1e3
+    n = max(len(launches), 1)
+    return {"wall_ms": wall_ms_total, "launches": len(launches),
+            "launch_spans_ms": launch_ms,
+            "launch_span_mean_ms": launch_ms / n,
+            "k5_device_ms": k5_ms,
+            "search_calls_ms": search_ms,
+            "loop_other_ms": search_ms - launch_ms,
+            "loop_other_per_launch_ms": (search_ms - launch_ms) / n,
+            "outside_search_ms": wall_ms_total - search_ms,
+            "launch_share_of_wall": launch_ms / max(wall_ms_total, 1e-9)}
+
+
+def run_obs_e2e(eng, est, wl, probe, k5_ms) -> dict:
+    """obs_e2e: `e2e_search` on the persistent backend (contain α=1, 64
+    lanes) plain and with a tracer and explain=True: every SearchState
+    field equal, equal dispatch_counters deltas, one launch span per
+    launch, every report's probe NDC + resume NDC = cnt. Medians of 3 on
+    the host clock, and the launch-span split of the traced batch."""
+    from repro_torch.core import SearchConfig, dispatch_counters, e2e_search
+    from repro_torch.obs import Tracer
+
+    c = SearchConfig(k=10, queue_size=512, backend="persistent")
+
+    def call(tracer=None):
+        d0 = dispatch_counters()
+        res, ms = wall_ms(lambda: e2e_search(
+            eng, est, c, wl.queries, wl.spec, probe_budget=probe, alpha=1.0,
+            n_probes=2, tracer=tracer, explain=tracer is not None))
+        d1 = dispatch_counters()
+        return res, ms, {k: d1[k] - d0[k] for k in d0}
+
+    plain, plain_ms, d_plain = call()
+    tr = Tracer()
+    traced, traced_ms, d_traced = call(tr)
+    differ = fields_differ(traced.state, plain.state)
+    require(not differ, f"obs_e2e: tracing changed SearchState {differ}")
+    require(np.array_equal(traced.predicted_budget, plain.predicted_budget),
+            "obs_e2e: tracing changed the budgets")
+    require(d_traced == d_plain, f"obs_e2e: dispatch deltas {d_traced} "
+            f"traced vs {d_plain} plain")
+    spans = tr.spans(name="launch")
+    require(len(spans) == d_traced["launches"] > 0,
+            f"obs_e2e: {len(spans)} launch spans, {d_traced} dispatches")
+    require(sum(s.attrs["steps"] for s in spans) == d_traced["steps"],
+            "obs_e2e: launch spans' steps differ from the loop's")
+    cnt = traced.state.cnt.cpu().numpy()
+    for i, r in enumerate(traced.reports):
+        probe_st, resume_st = r.stages[0], r.stages[2]
+        require(probe_st.ndc + resume_st.ndc == r.actual_ndc == int(cnt[i]),
+                f"obs_e2e: lane {i} report NDC {probe_st.ndc} + "
+                f"{resume_st.ndc} vs cnt {cnt[i]}")
+    plain_med = float(np.median([plain_ms, *(call()[1]
+                                             for _ in range(REPEATS - 1))]))
+    traced_med = float(np.median([traced_ms, *(call(Tracer())[1]
+                                               for _ in range(REPEATS - 1))]))
+    split = search_split(tr, traced_ms, k5_ms)
+    emit({"phase": "obs_e2e", "path": "e2e_search", "backend": "persistent",
+          "workload": "contain", "alpha": 1.0, "batch": wl.batch,
+          "fields_equal_traced_vs_plain": True,
+          "dispatch_deltas": d_traced, "launch_spans": len(spans),
+          "spans_by_name": span_counts(tr),
+          "terminations": _term_counts(traced.reports),
+          "e2e_ms_plain_median": plain_med,
+          "e2e_ms_traced_median": traced_med})
+    return split
+
+
+def span_counts(tr) -> dict:
+    out = {}
+    for s in tr.spans():
+        out[s.name] = out.get(s.name, 0) + 1
+    return out
+
+
+def _term_counts(reports) -> dict:
+    out = {}
+    for r in reports:
+        out[r.termination] = out.get(r.termination, 0) + 1
+    return out
+
+
+def run_obs_planned(eng, planner, wl, probe) -> None:
+    """obs_e2e (planned): `planned_search` on "mixed", persistent, plain
+    and traced with explain: every field equal, equal dispatch deltas,
+    launch spans = launches, each report's stage NDCs add up to cnt; span
+    counts by name."""
+    from repro_torch.core import dispatch_counters, planned_search
+    from repro_torch.obs import Tracer
+
+    def call(tracer=None):
+        d0 = dispatch_counters()
+        res, ms = wall_ms(lambda: planned_search(
+            eng, planner, plan_cfg("persistent"), wl.queries, wl.exprs,
+            probe_budget=probe, n_probes=2, tracer=tracer,
+            explain=tracer is not None))
+        d1 = dispatch_counters()
+        return res, ms, {k: d1[k] - d0[k] for k in d0}
+
+    plain, plain_ms, d_plain = call()
+    tr = Tracer()
+    traced, traced_ms, d_traced = call(tr)
+    differ = fields_differ(traced.state, plain.state)
+    require(not differ, f"obs planned: tracing changed SearchState {differ}")
+    require(np.array_equal(traced.plan, plain.plan),
+            "obs planned: tracing changed the plans")
+    require(d_traced == d_plain, f"obs planned: dispatch deltas {d_traced} "
+            f"traced vs {d_plain} plain")
+    spans = tr.spans(name="launch")
+    require(len(spans) == d_traced["launches"],
+            f"obs planned: {len(spans)} launch spans, {d_traced}")
+    cnt = traced.state.cnt.cpu().numpy()
+    for i, r in enumerate(traced.reports):
+        require(sum(st.ndc for st in r.stages) == r.actual_ndc == int(cnt[i]),
+                f"obs planned: lane {i} stage NDCs do not add up to cnt")
+    emit({"phase": "obs_e2e", "path": "planned_search",
+          "backend": "persistent", "workload": "mixed", "batch": wl.batch,
+          "fields_equal_traced_vs_plain": True,
+          "dispatch_deltas": d_traced, "launch_spans": len(spans),
+          "spans_by_name": span_counts(tr),
+          "terminations": _term_counts(traced.reports),
+          "e2e_ms_plain": plain_ms, "e2e_ms_traced": traced_ms})
+
+
+def serve_equals_oneshot(reqs, one, what: str) -> None:
+    """Each request's ids, distance bits, NDC and budget against its lane
+    of the one-shot batch (both run the same device code)."""
+    reqs = sorted(reqs, key=lambda r: r.rid)
+    ri = np.stack([r.res_idx for r in reqs])
+    rd = np.stack([r.res_dist for r in reqs])
+    require(np.array_equal(ri, one.state.res_idx.cpu().numpy()),
+            f"{what}: scheduled ids differ from one-shot")
+    require(np.array_equal(rd.view(np.uint32),
+                           one.state.res_dist.cpu().numpy().view(np.uint32)),
+            f"{what}: scheduled distances differ from one-shot")
+    require(np.array_equal(np.asarray([r.ndc for r in reqs]),
+                           one.state.cnt.cpu().numpy()),
+            f"{what}: scheduled NDC differs from one-shot")
+    require(np.array_equal(np.asarray([r.budget for r in reqs]),
+                           one.predicted_budget),
+            f"{what}: scheduled budgets differ from one-shot")
+
+
+def serve_run(sched, reqs) -> float:
+    """Submit every request at once and drain; wall seconds (the scheduler
+    synchronizes the card at the end of each batch)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for r in reqs:
+        require(sched.submit(r, time.perf_counter() - t) == "queued",
+                f"request {r.rid} was not admitted")
+    sched.run_until_idle(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def serve_report(sched, reqs, wall_s: float) -> dict:
+    s = sched.summary()
+    return {"requests": len(reqs), "wall_s": wall_s,
+            "requests_per_s": len(reqs) / wall_s,
+            "latency_ms": {k: v * 1e3 for k, v in s["latency"].items()},
+            "n_batches": s["n_batches"], "n_requeues": s["n_requeues"],
+            "launches_total": s["launches_total"],
+            "steps_total": s["steps_total"],
+            "batches_by_phase": s["batches_by_phase"],
+            "max_slices": max(r.n_slices for r in reqs)}
+
+
+def run_serve(eng, est, cases, probe, precision, policies, k5_ms,
+              need) -> dict:
+    """serve: the cost-aware scheduler on the persistent backend,
+    `ServeConfig(lane_width=16, probe_budget=probe, n_probes=2, alpha=1.0,
+    cache_capacity=0)`, over every case's 64 requests at once (`cases`:
+    name → (workload, its one-shot `e2e_search` result)). Under each
+    policy every request equals its lane of the one-shot batch bit for
+    bit; launches_total equals the dispatch_counters delta; no batch
+    uploads a forest; under escalate some request takes ≥ 2 slices.
+    Returns the kernel counts of the first policy's run and each policy's
+    launch-span split of the batches' busy time."""
+    from repro_torch.core import SearchConfig, dispatch_counters
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import (CostAwareScheduler, ServeConfig,
+                                   requests_from_workload)
+
+    cfg = SearchConfig(k=10, queue_size=512, backend="persistent")
+    first, splits = None, {}
+    for policy in policies:
+        scfg = ServeConfig(lane_width=16, probe_budget=probe, n_probes=2,
+                           alpha=1.0, cache_capacity=0, policy=policy)
+        tr = Tracer()
+        sched = CostAwareScheduler(eng, est, cfg, scfg, tracer=tr)
+        groups = {name: requests_from_workload(wl, start_rid=1000 * i)
+                  for i, (name, (wl, _)) in enumerate(cases.items())}
+        reqs = [r for lane in zip(*groups.values()) for r in lane]
+        reset_counts()
+        d0 = dispatch_counters()["launches"]
+        u0 = FOREST_UPLOADS[0]
+        wall = serve_run(sched, reqs)
+        counts = read_counts()
+        launches = dispatch_counters()["launches"] - d0
+        uploads = FOREST_UPLOADS[0] - u0
+        for name, (_, one) in cases.items():
+            serve_equals_oneshot(groups[name], one,
+                                 f"serve {precision} {policy} {name}")
+        s = sched.summary()
+        require(s["n_completed"] == len(reqs), "serve: requests lost")
+        require(s["launches_total"] == launches > 0,
+                f"serve: launches_total {s['launches_total']} vs "
+                f"dispatch delta {launches}")
+        require(uploads == 0, f"serve: {uploads} forest uploads")
+        require(all(counts[n] > 0 for n in need),
+                f"serve {precision} {policy}: a kernel of the path was "
+                f"never launched: {counts}")
+        if policy == "escalate":
+            require(any(r.n_slices >= 2 for r in reqs),
+                    "serve escalate: no request took two slices")
+        splits[policy] = search_split(tr, s["busy_time"] * 1e3, k5_ms)
+        first = counts if first is None else first
+        emit({"phase": "serve", "precision": precision, "policy": policy,
+              "backend": "persistent", "workloads": list(cases),
+              "equals_oneshot_bitwise": True, "forest_uploads": uploads,
+              **serve_report(sched, reqs, wall), "launches": counts})
+    return first, splits
+
+
+def lane_agreement(got_idx, got_dist, got_cnt, got_bud, one) -> dict:
+    """Share of lanes whose ids, distance bits, NDC and budget equal the
+    one-shot batch's."""
+    idx = got_idx == one.state.res_idx.cpu().numpy()
+    dist = (got_dist.view(np.uint32)
+            == one.state.res_dist.cpu().numpy().view(np.uint32))
+    cnt = got_cnt == one.state.cnt.cpu().numpy()
+    bud = got_bud == one.predicted_budget
+    return {"ids": float(idx.all(axis=1).mean()),
+            "distance_bits": float(dist.all(axis=1).mean()),
+            "ndc": float(cnt.mean()), "budget": float(bud.mean()),
+            "all": float((idx.all(axis=1) & dist.all(axis=1) & cnt
+                          & bud).mean())}
+
+
+def run_serve_narrow(eng, est, wl, one, probe) -> None:
+    """serve_narrow (measures only): the 64 contain requests through
+    schedulers of lane width 4 (batches of 1, 2 or 4 lanes; the probe
+    batches take 4) and 1 (every batch one lane), and `e2e_search` on
+    lanes 0..b−1 alone, each against the 64-lane one-shot batch: the
+    share of lanes equal in ids, distance bits, NDC and budget, and of
+    probe features and entry distances (`d_start`) equal bit for bit. The
+    16-lane `serve` is required equal; this asks whether the torch
+    reductions around the kernels give the same bits at any batch width
+    on the card (ROADMAP Queue 3)."""
+    from repro_torch.core import SearchConfig, e2e_search, probe_and_features
+    from repro_torch.serve import (CostAwareScheduler, ServeConfig,
+                                   requests_from_workload)
+
+    cfg = SearchConfig(k=10, queue_size=512, backend="persistent")
+    served = {}
+    for width in (4, 1):
+        sched = CostAwareScheduler(eng, est, cfg, ServeConfig(
+            lane_width=width, probe_budget=probe, n_probes=2, alpha=1.0,
+            cache_capacity=0))
+        reqs = requests_from_workload(wl)
+        serve_run(sched, reqs)
+        reqs.sort(key=lambda r: r.rid)
+        served[width] = lane_agreement(
+            np.stack([r.res_idx for r in reqs]),
+            np.stack([r.res_dist for r in reqs]),
+            np.asarray([r.ndc for r in reqs]),
+            np.asarray([r.budget for r in reqs]), one)
+    full, _ = probe_and_features(eng, cfg, wl.queries, wl.spec, probe, 2)
+    first = {}
+    for b in (1, 4, 8, 16):
+        part = e2e_search(eng, est, cfg, wl.queries[:b], wl.spec.slice(
+            slice(0, b)), probe_budget=probe, alpha=1.0, n_probes=2)
+        st, _ = probe_and_features(eng, cfg, wl.queries[:b],
+                                   wl.spec.slice(slice(0, b)), probe, 2)
+        first[b] = {
+            "features_bits_equal": float(np.mean(
+                part.probe_features.view(np.uint32)
+                == one.probe_features[:b].view(np.uint32))),
+            "d_start_bits_equal": float(np.mean(
+                st.d_start.cpu().numpy().view(np.uint32)
+                == full.d_start[:b].cpu().numpy().view(np.uint32))),
+            **{f"lanes_{k}": v for k, v in lane_agreement(
+                part.state.res_idx.cpu().numpy(),
+                part.state.res_dist.cpu().numpy(),
+                part.state.cnt.cpu().numpy(), part.predicted_budget,
+                _first_lanes(one, b)).items()}}
+    emit({"phase": "serve_narrow", "precision": eng.precision,
+          "workload": "contain",
+          "served_vs_oneshot_lane_share": served,
+          "e2e_first_lanes_vs_batch": first})
+
+
+def _first_lanes(one, b):
+    """The first b lanes of an E2EResult (for `lane_agreement`)."""
+    import types
+
+    from repro_torch.core import take_lanes
+
+    return types.SimpleNamespace(state=take_lanes(one.state, list(range(b))),
+                                 predicted_budget=one.predicted_budget[:b])
+
+
+def run_serve_auto(eng, est, planner, wl, planned, probe) -> dict:
+    """serve (auto): plan="auto" over the 64 "mixed" requests with the
+    planner: every request completes; a second scheduler gives identical
+    results; resubmitted, every request hits the cache under auto with
+    identical results. Reports the plan mix, and the share of lanes equal
+    to the one-shot planned_search (persistent) in ids and NDC."""
+    from repro_torch.serve import (CostAwareScheduler, ServeConfig,
+                                   requests_from_workload)
+
+    scfg = ServeConfig(lane_width=16, probe_budget=probe, n_probes=2,
+                       alpha=1.0, plan="auto")
+    runs = []
+    for _ in range(2):
+        sched = CostAwareScheduler(eng, est, plan_cfg("persistent"), scfg,
+                                   planner=planner)
+        reqs = requests_from_workload(wl)
+        reset_counts()
+        wall = serve_run(sched, reqs)
+        runs.append((sched, reqs, read_counts(), wall))
+    (s1, r1, counts, wall), (_, r2, _, _) = runs
+    require(all(r.res_idx is not None for r in r1 + r2),
+            "serve auto: a request did not complete")
+    for a, b in zip(r1, r2):
+        require(np.array_equal(a.res_idx, b.res_idx)
+                and np.array_equal(a.res_dist.view(np.uint32),
+                                   b.res_dist.view(np.uint32))
+                and (a.ndc, a.plan) == (b.ndc, b.plan),
+                f"serve auto: request {a.rid} differs between two runs")
+    again = requests_from_workload(wl)
+    for r in again:
+        require(s1.submit(r, 0.0) == "hit", "serve auto: no cache hit")
+    for a, b in zip(r1, again):
+        require(b.cache_hit and np.array_equal(a.res_idx, b.res_idx)
+                and np.array_equal(a.res_dist.view(np.uint32),
+                                   b.res_dist.view(np.uint32))
+                and a.ndc == b.ndc, f"serve auto: request {a.rid}'s cache "
+                "hit differs")
+    need = ("persistent_multi_step", "gbdt_predict")
+    if any(r.plan == "scan" for r in r1):
+        need += ("sqdist_rows",)
+    if any(r.plan == "widen" for r in r1):
+        need += ("fused_step",)
+    require(all(counts[n] > 0 for n in need),
+            f"serve auto: a kernel of the path was never launched: {counts}")
+    r_sorted = sorted(r1, key=lambda r: r.rid)
+    same = ((np.stack([r.res_idx for r in r_sorted])
+             == planned.state.res_idx.cpu().numpy()).all(axis=1)
+            & (np.asarray([r.ndc for r in r_sorted])
+               == planned.state.cnt.cpu().numpy()))
+    mix = {}
+    for r in r1:
+        mix[r.plan] = mix.get(r.plan, 0) + 1
+    emit({"phase": "serve", "precision": "float32", "plan": "auto",
+          "backend": "persistent", "workload": "mixed",
+          "two_runs_identical": True, "cache_hits_identical": True,
+          "plan_mix": mix,
+          "late_scans": sum(1 for r in r1 if r.plan == "scan"
+                            and not r.plan_pure),
+          "equal_planned_search_frac": float(same.mean()),
+          "cache": s1.summary()["cache"],
+          **serve_report(s1, r1, wall), "launches": counts})
+    return counts
+
+
+def run_launcher() -> None:
+    """launcher: `python -m repro_torch.launch.serve --status --prometheus`
+    on the card at its default corpus, in a child process (which reuses
+    the kernels built above); it must exit 0 and its scrape validate."""
+    from repro_torch.obs import validate_prometheus
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--status",
+         "--prometheus"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    require(proc.returncode == 0, f"launcher exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    out = proc.stdout
+    require("== prometheus scrape\n" in out, "launcher printed no scrape")
+    head, scrape = out.split("== prometheus scrape\n", 1)
+    names = validate_prometheus(scrape)
+    health = json.loads(head.split("== serving health\n", 1)[1])
+    lines = [ln for ln in head.splitlines()
+             if ln.startswith(("retrieval:", "batches=", "calibration:",
+                               "   device="))]
+    emit({"phase": "launcher", "seconds": time.perf_counter() - t,
+          "returncode": proc.returncode, "scrape_valid": True,
+          "metrics": len(names),
+          "n_completed": health["summary"]["n_completed"],
+          "healthy": health["healthy"], "report": lines})
+
+
+GRAPH_RECALL_ROWS = 1024
+ALL_ROWS_FILTER = "Range(-1.0, 2.0, attr=0)"  # channel 0 lies in [0, 1]
+
+
+def run_graph_recall(ds, eng, graph, wl, device) -> None:
+    """graph_recall: (1) the graph's neighbour recall — the share of each
+    of 1024 sampled rows' true 32-NN (`index.knn_exact`, the row itself
+    left out) among its graph neighbours; (2) recall@10 of an exhaustive
+    search (persistent, queue 512, no budget) of the 64 contain queries
+    under a filter every row passes, against `knn_exact`'s top-10.
+    Measures only."""
+    import torch
+
+    from repro_torch.core import SearchConfig
+    from repro_torch.core.engine import BIG_BUDGET
+    from repro_torch.filters import Range
+    from repro_torch.index.bruteforce import knn_exact, recall_at_k, valid_mask
+
+    t = time.perf_counter()
+    rows = np.sort(np.random.default_rng(0).choice(
+        ds.n, GRAPH_RECALL_ROWS, replace=False))
+    nn_idx, _ = knn_exact(ds.vectors[rows], eng.base_vectors, 33,
+                          device=device)
+    true32 = np.stack([ids[ids != row][:32] for ids, row in zip(nn_idx, rows)])
+    nbrs = graph.neighbors[torch.from_numpy(rows).to(
+        graph.neighbors.device)].cpu().numpy()
+    hit = [np.isin(t32, nb[nb >= 0]).mean() for t32, nb in zip(true32, nbrs)]
+    expr = Range(-1.0, 2.0, attr=0)
+    n_valid = int(valid_mask([expr], ds.labels_packed,
+                             ds.value_matrix).sum())
+    require(n_valid == ds.n, f"{ALL_ROWS_FILTER} passes {n_valid} rows")
+    gi, _ = knn_exact(wl.queries, eng.base_vectors, 10, device=device)
+    c = SearchConfig(k=10, queue_size=512, backend="persistent")
+    st, ms = wall_ms(lambda: eng.search(c, wl.queries, [expr] * wl.batch,
+                                        BIG_BUDGET))
+    rec = recall_at_k(st.res_idx.cpu().numpy(), gi)
+    emit({"phase": "graph_recall", "rows": GRAPH_RECALL_ROWS,
+          "degree": graph.degree,
+          "neighbour_recall@32_mean": float(np.mean(hit)),
+          "neighbour_recall@32_p10": float(np.percentile(hit, 10)),
+          "neighbour_recall@32_min": float(np.min(hit)),
+          "filter": ALL_ROWS_FILTER, "queries": wl.batch,
+          "exhaustive_recall@10": float(rec.mean()),
+          "exhaustive_full_recall_frac": float((rec == 1.0).mean()),
+          "exhaustive_mean_ndc": float(st.cnt.float().mean()),
+          "exhaustive_ms": ms, "seconds": time.perf_counter() - t})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2910,7 +3417,11 @@ def main(argv=None) -> int:
     k7 = check_k7(device)
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
-    launches, k6r = run_pipeline(args, device)
+    launches, k6r = run_pipeline(args, device, {"float32": k5["ms"],
+                                                "pq": k5q["pq"]["ms"]})
+    run_launcher()
+    serve = {path: launches.pop(f"serve:{path}")
+             for path in ("float32", "pq", "auto")}
 
     def entry(name, source, replaces, chk, launches_of, why, status=None,
               note=None):
@@ -2934,6 +3445,15 @@ def main(argv=None) -> int:
                        floor_call_ms=chk["floor_call_ms"])
         if note:
             out["note"] = note
+        # launches on the serving paths (`serve` lines: float32 and PQ
+        # direct, auto); serving runs K1 only at R'=160 (auto's widen)
+        name_of = {"fused_step": None,
+                   "fused_step_wide": "fused_step"}.get(launches_of,
+                                                        launches_of)
+        served = {path: c[name_of] for path, c in serve.items()
+                  if name_of and c.get(name_of)}
+        if served:
+            out["serve_launches"] = served
         return out
 
     step_why = "no single PyTorch call runs a traversal step"

@@ -139,7 +139,12 @@ class SearchEngine:
         budgets,                      # scalar or [B]
         state: SearchState | None = None,
         gt_dist=None,                 # [B, K] for convergence tracking
+        tracer=None,                  # obs.Tracer | None — persistent loop
+        trace_id: str = "",           # spans only; never reaches a kernel
     ) -> SearchState:
+        """Run (or resume) the lockstep search. `tracer` / `trace_id` reach
+        the persistent launch loop (one span per launch); the single-step
+        loop takes none, as in the reference."""
         cfg = dataclasses.replace(cfg, degree=int(self.neighbors.shape[1]))
         if cfg.backend is None:
             cfg = dataclasses.replace(cfg, backend=self.backend or "dense")
@@ -159,10 +164,11 @@ class SearchEngine:
             else budgets.contiguous()
         gt = None if gt_dist is None else torch.as_tensor(gt_dist).to(
             dev, torch.float32)
-        search = (run_search_persistent
-                  if getattr(get_backend(cfg.backend), "persistent", False)
-                  else run_search)
-        return search(cfg, q, prog, self.base_vectors,
-                      (self.label_attrs, self.value_attrs), self.neighbors,
-                      budgets, self.entry_point, state=state, gt_dist=gt,
-                      quant=quant)
+        args = (cfg, q, prog, self.base_vectors,
+                (self.label_attrs, self.value_attrs), self.neighbors,
+                budgets, self.entry_point)
+        if getattr(get_backend(cfg.backend), "persistent", False):
+            return run_search_persistent(*args, state=state, gt_dist=gt,
+                                         quant=quant, tracer=tracer,
+                                         trace_id=trace_id)
+        return run_search(*args, state=state, gt_dist=gt, quant=quant)

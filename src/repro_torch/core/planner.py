@@ -1,8 +1,8 @@
 """Adaptive per-query planning across filter-execution strategies.
 
-Counterpart of `repro/core/planner.py`, on float32, int8 and PQ engines
-(the tracer and the EXPLAIN reports come with the observability slice, as
-in `core.e2e`). Per lane, one of three plans:
+Counterpart of `repro/core/planner.py`, on float32, int8 and PQ engines,
+with the reference's tracer spans and EXPLAIN reports. Per lane, one of
+three plans:
 
   scan      pre-filter: bitmap + exact distances over the σ_q·N passing
             rows (`core.plans`); closed-form cost σ_q·N·c, recall 1.0.
@@ -232,6 +232,7 @@ class PlanResult:
     pre_probe: np.ndarray         # [B] bool — routed at stage 0 (no probe)
     predicted_budget: np.ndarray  # [B] — chosen plan's predicted/closed-form
                                   # total NDC (σ·N·c for scan lanes)
+    reports: list | None = None   # explain=True: [B] obs.QueryReport
 
     def plan_names(self) -> list[str]:
         return [PLANS[p] for p in self.plan]
@@ -255,10 +256,25 @@ def planned_search(
     max_budget: int = BIG_BUDGET,
     force_plan: str | None = None,
     stats: ScanStats | None = None,
+    tracer=None,
+    trace_id: str = "",
+    explain: bool = False,
 ) -> PlanResult:
     """Route each lane to its cheapest plan and execute; terminal state in
     the original lane order. `force_plan` pins all lanes to one plan —
-    equal, every field, to `run_plan` with the same arguments."""
+    equal, every field, to `run_plan` with the same arguments.
+
+    `tracer` spans the router's stages (plan-stage0, the shared probe via
+    `probe_and_features`, plan-select, scan / resume per plan, rerank) at
+    host dispatch boundaries only; `explain=True` builds one
+    `obs.QueryReport` per lane in `PlanResult.reports` with the route each
+    lane took."""
+    from repro_torch.core.search import dispatch_counters
+    from repro_torch.obs.trace import as_tracer
+
+    tr = as_tracer(tracer)
+    if tracer is not None and not trace_id:
+        trace_id = tr.new_trace("plan")
     dev = engine.device
     prog = engine.compile(filt)
     if stats is None:
@@ -266,6 +282,8 @@ def planned_search(
     queries = np.asarray(queries, np.float32)
     b = queries.shape[0]
     counts = stats.counts
+    d0 = dispatch_counters()
+    n_exec_calls = 0
 
     plan = np.full(b, -1, np.int32)
     pre_probe = np.zeros(b, bool)
@@ -279,8 +297,9 @@ def planned_search(
 
     # ---- stage 0: pre-probe routing (exact σ + static cost head) ----
     if force_plan is None:
-        s0 = stage0_scan_mask(planner, stats, prog, alpha, min_budget,
-                              max_budget, dev)
+        with tr.span("plan-stage0", trace_id, lanes=b):
+            s0 = stage0_scan_mask(planner, stats, prog, alpha, min_budget,
+                                  max_budget, dev)
         plan[s0] = PLAN_SCAN
         pre_probe[:] = s0
     elif force_plan == "scan":
@@ -289,39 +308,49 @@ def planned_search(
 
     parts: list[tuple[np.ndarray, SearchState]] = []
     if scan_now.size:
-        parts.append((scan_now, _scan_part(engine, cfg, queries, prog, stats,
-                                           scan_now)))
+        with tr.span("scan", trace_id, lanes=int(scan_now.size), late=False):
+            sub = _scan_part(engine, cfg, queries, prog, stats, scan_now)
+        n_exec_calls += 1
         pred[scan_now] = np.ceil(
             counts[scan_now] * planner.scan_dist_cost).astype(np.int64)
+        parts.append((scan_now, sub))
 
     # ---- stage 1: shared probe + per-plan heads on the survivors ----
     rest = (~pre_probe).nonzero()[0]
+    probe_ndc = np.zeros(b, np.int64)
     if rest.size:
         q_r = queries[rest]
         prog_r = take_lanes(prog, rest)
         carry, feats = probe_and_features(engine, cfg, q_r, prog_r,
-                                          probe_budget, n_probes)
+                                          probe_budget, n_probes,
+                                          tracer=tracer, trace_id=trace_id)
         probe_cnt = carry.cnt.cpu().numpy()
-        if force_plan is None:
-            ids, w_t, w_w = choose_plans(planner, feats, probe_cnt,
-                                         counts[rest], alpha, min_budget,
-                                         max_budget)
-        else:
-            ids = np.full(rest.size, PLANS.index(force_plan), np.int32)
-            head = (planner.traverse if force_plan == "traverse"
-                    else planner.widen)
-            w, _ = predict_budgets(head, feats, alpha, min_budget, max_budget)
-            w_t = w_w = w.cpu().numpy().astype(np.int64)
+        probe_ndc[rest] = probe_cnt
+        with tr.span("plan-select", trace_id, lanes=int(rest.size),
+                     forced=force_plan or ""):
+            if force_plan is None:
+                ids, w_t, w_w = choose_plans(planner, feats, probe_cnt,
+                                             counts[rest], alpha, min_budget,
+                                             max_budget)
+            else:
+                ids = np.full(rest.size, PLANS.index(force_plan), np.int32)
+                head = (planner.traverse if force_plan == "traverse"
+                        else planner.widen)
+                w, _ = predict_budgets(head, feats, alpha, min_budget,
+                                       max_budget)
+                w_t = w_w = w.cpu().numpy().astype(np.int64)
         plan[rest] = ids
 
         late = rest[ids == PLAN_SCAN]
         if late.size:
             sel = (ids == PLAN_SCAN).nonzero()[0]
-            parts.append((late, _scan_part(engine, cfg, queries, prog, stats,
-                                           late,
-                                           base_state=take_lanes(carry, sel))))
+            with tr.span("scan", trace_id, lanes=int(late.size), late=True):
+                sub = _scan_part(engine, cfg, queries, prog, stats, late,
+                                 base_state=take_lanes(carry, sel))
+            n_exec_calls += 1
             pred[late] = (probe_cnt[sel] + np.ceil(
                 counts[late] * planner.scan_dist_cost)).astype(np.int64)
+            parts.append((late, sub))
         for pid, mode, w in ((PLAN_TRAVERSE, cfg.mode, w_t),
                              (PLAN_WIDEN, "widen", w_w)):
             lanes = rest[ids == pid]
@@ -330,18 +359,80 @@ def planned_search(
             sel = (ids == pid).nonzero()[0]
             c = cfg if mode == cfg.mode else dataclasses.replace(cfg,
                                                                  mode=mode)
-            parts.append((lanes, engine.search(
-                c, q_r[sel], take_lanes(prog_r, sel), w[sel],
-                state=take_lanes(carry, sel))))
+            with tr.span("resume", trace_id, plan=PLANS[pid],
+                         lanes=int(lanes.size)):
+                sub = engine.search(c, q_r[sel], take_lanes(prog_r, sel),
+                                    w[sel], state=take_lanes(carry, sel),
+                                    tracer=tracer, trace_id=trace_id)
+            n_exec_calls += 1
             pred[lanes] = w[sel]
+            parts.append((lanes, sub))
 
     # ---- merge back into the original lane order ----
     perm = np.concatenate([idx for idx, _ in parts])
     inv = np.argsort(perm, kind="stable")
     state = take_lanes(concat_lanes([st for _, st in parts]), inv)
-    state = engine.rerank(cfg, queries, state)
+    with tr.span("rerank", trace_id,
+                 precision=engine.effective_precision(cfg)):
+        state = engine.rerank(cfg, queries, state)
+
+    reports = None
+    if explain:
+        reports = _plan_reports(engine, cfg, state, plan, pred, pre_probe,
+                                probe_ndc, trace_id, d0, n_exec_calls,
+                                n_probes, probe_budget)
     return PlanResult(state=state, plan=plan, sigma=stats.sigma,
-                      pre_probe=pre_probe, predicted_budget=pred)
+                      pre_probe=pre_probe, predicted_budget=pred,
+                      reports=reports)
+
+
+def _plan_reports(engine, cfg, state, plan, pred, pre_probe, probe_ndc,
+                  trace_id, d0, n_exec_calls, n_probes, probe_budget):
+    """Per-lane EXPLAIN reports for `planned_search` (host post-processing
+    of the final counters, read back once — explain mode's cost). Launches
+    keep the reference's definition (`obs.explain`)."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.search import dispatch_counters
+    from repro_torch.obs.explain import StageReport, build_reports
+
+    backend_name = cfg.backend or engine.backend or "dense"
+    if getattr(get_backend(backend_name), "persistent", False):
+        total_l = dispatch_counters()["launches"] - d0["launches"]
+    else:
+        probe_calls = 0 if not (~pre_probe).any() else (
+            1 if n_probes <= 1 else 2)
+        total_l = probe_calls + n_exec_calls
+    final_cnt = state.cnt.cpu().numpy()
+    names = [PLANS[p] for p in plan]
+    precision = engine.effective_precision(cfg)
+    stages = []
+    for i in range(final_cnt.shape[0]):
+        st = [StageReport("plan-stage0",
+                          attrs=dict(pre_probe=bool(pre_probe[i])))]
+        if not pre_probe[i]:
+            st.append(StageReport("probe", ndc=int(probe_ndc[i]),
+                                  attrs=dict(budget=int(probe_budget),
+                                             n_probes=int(n_probes))))
+            st.append(StageReport("plan-select",
+                                  attrs=dict(plan=names[i])))
+        exec_name = "scan" if plan[i] == PLAN_SCAN else "resume"
+        st.append(StageReport(exec_name,
+                              ndc=int(final_cnt[i] - probe_ndc[i]),
+                              launches=total_l,
+                              attrs=dict(plan=names[i])))
+        st.append(StageReport("rerank", attrs=dict(precision=precision)))
+        stages.append(st)
+    reports = build_reports(
+        cfg, state, pred, backend=backend_name, plans=names,
+        probe_ndc=probe_ndc, trace_ids=[f"{trace_id or 'plan'}:{i}"
+                                        for i in range(len(names))],
+        stages=stages)
+    # scan lanes terminate by construction (the masked scan is exhaustive
+    # over the σ·N valid rows), not by any traversal stop condition
+    for i, r in enumerate(reports):
+        if plan[i] == PLAN_SCAN:
+            r.termination = "scan-exhaustive"
+    return reports
 
 
 def run_plan(

@@ -133,7 +133,9 @@ def scan_search(
     prog = engine.compile(filt)
     if stats is None:
         stats = scan_stats(engine, prog)
-    q = torch.as_tensor(np.asarray(queries, np.float32)).to(dev)
+    q = (queries if isinstance(queries, torch.Tensor)
+         else torch.from_numpy(np.asarray(queries, np.float32))).to(
+             dev, torch.float32)
     b = q.shape[0]
     n = stats.n
     m, k = cfg.queue_size, cfg.k

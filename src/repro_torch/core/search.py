@@ -165,6 +165,8 @@ def run_search_persistent(
     state: SearchState | None = None,
     gt_dist: torch.Tensor | None = None,
     quant=None,
+    tracer=None,
+    trace_id: str = "",
 ) -> SearchState:
     """The launch loop for persistent backends (single device).
 
@@ -181,18 +183,31 @@ def run_search_persistent(
     launch, readback and compaction decisions, so `dispatch_counters`
     deltas equal the reference's for the same search.
 
+    `tracer` / `trace_id` emit one "launch" span per launch (`mode`,
+    `width`, `steps`; `active` and `compacted` after the first) and one
+    "compact" event per compaction, with the reference's names and
+    attributes. A span covers the launch and the `hops` / `active`
+    readback the loop makes anyway, so on the card it holds the device
+    time of the launch; tracing adds no synchronization and the state
+    stream is untouched.
+
     `state`, when passed, is consumed (same contract as `run_search`).
     """
+    from repro_torch.obs.trace import as_tracer
+
+    tr = as_tracer(tracer)
     b = int(queries.shape[0])
     qprep = _make_qprep(cfg, queries, quant)
     mode = "init" if state is None else "resume"
     hops0 = 0 if state is None else state.hops.cpu().numpy().copy()
-    state = _persistent_launch(cfg, queries, prog, base_vectors, attrs,
-                               neighbors, budgets, entry_point, state,
-                               gt_dist, quant, qprep, cfg.max_steps,
-                               mode=mode)
-    hops, active = _hops_active(state)
-    it = int((hops - hops0).max(initial=0))
+    with tr.span("launch", trace_id, mode=mode, width=b) as sp:
+        state = _persistent_launch(cfg, queries, prog, base_vectors, attrs,
+                                   neighbors, budgets, entry_point, state,
+                                   gt_dist, quant, qprep, cfg.max_steps,
+                                   mode=mode)
+        hops, active = _hops_active(state)
+        it = int((hops - hops0).max(initial=0))
+        sp.set(steps=it)
     _DISPATCH_COUNTERS["launches"] += 1
     _DISPATCH_COUNTERS["steps"] += it
 
@@ -201,23 +216,31 @@ def run_search_persistent(
         sel = np.flatnonzero(active)
         if sel.size == 0:
             break
-        w = min(b, max(min_w, 1 << (int(sel.size) - 1).bit_length()))
+        n_active = int(sel.size)
+        w = min(b, max(min_w, 1 << (n_active - 1).bit_length()))
         compact = w < b  # else no compaction win: relaunch at full width
         if compact:  # pad by repeating the first active lane
+            tr.emit("compact", trace_id, from_width=b, to_width=w,
+                    active=n_active, pad=w - n_active)
             sel = np.concatenate([sel, np.full(w - sel.size, sel[0])])
             idx = torch.from_numpy(sel).to(queries.device)
             sub = take_lanes((state, queries, prog, budgets, gt_dist, qprep),
                              idx)
+            attrs_sp = dict(mode="cont", width=w, active=n_active,
+                            compacted=True)
         else:
             sel = np.arange(b)
             sub = (state, queries, prog, budgets, gt_dist, qprep)
+            attrs_sp = dict(mode="cont", width=b, active=n_active)
         sub_state, sub_q, sub_prog, sub_bud, sub_gt, sub_qp = sub
-        out = _persistent_launch(cfg, sub_q, sub_prog, base_vectors, attrs,
-                                 neighbors, sub_bud, entry_point, sub_state,
-                                 sub_gt, quant, sub_qp, cfg.max_steps - it,
-                                 mode="cont")
-        sub_hops, sub_active = _hops_active(out)
-        d = int((sub_hops - hops[sel]).max(initial=0))
+        with tr.span("launch", trace_id, **attrs_sp) as sp:
+            out = _persistent_launch(cfg, sub_q, sub_prog, base_vectors,
+                                     attrs, neighbors, sub_bud, entry_point,
+                                     sub_state, sub_gt, quant, sub_qp,
+                                     cfg.max_steps - it, mode="cont")
+            sub_hops, sub_active = _hops_active(out)
+            d = int((sub_hops - hops[sel]).max(initial=0))
+            sp.set(steps=d)
         it += d
         _DISPATCH_COUNTERS["launches"] += 1
         _DISPATCH_COUNTERS["compactions"] += int(compact)

@@ -68,6 +68,34 @@ class FilterProgram(NamedTuple):
     active: torch.Tensor       # [B, S] bool
     term_active: torch.Tensor  # [B, T] bool
 
+    @property
+    def batch(self) -> int:
+        return int(self.kinds.shape[0])
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.kinds.shape[1])
+
+    @property
+    def n_terms(self) -> int:
+        return int(self.term_active.shape[1])
+
+    @property
+    def n_words(self) -> int:
+        return int(self.masks.shape[2])
+
+    def slice(self, sl) -> "FilterProgram":
+        """Rows `sl` (a slice or lane indices) of every leaf; numpy
+        leaves stay numpy, tensors stay on their device."""
+        def rows(a):
+            if not isinstance(a, torch.Tensor):
+                return np.asarray(a)[sl]
+            if isinstance(sl, slice):
+                return a[sl]
+            return a.index_select(0, torch.as_tensor(
+                np.asarray(sl), dtype=torch.long, device=a.device))
+        return FilterProgram(*(rows(a) for a in self))
+
 
 _LEAF_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32,
                 torch.int32, torch.bool, torch.int32, torch.bool, torch.bool)
