@@ -88,7 +88,10 @@ Phases, each printed as one JSON line with its wall seconds:
      scheduler over the 64 contain and 64 range requests, lane width 16,
      under direct and escalate: every request bit for bit its lane of the
      one-shot `e2e_search`, launches_total = the dispatch delta, no forest
-     upload), `launch_split` (the traced batches' wall time split into
+     upload), `serve_narrow` (lane widths 4 and 1, and lanes 0..b−1 alone
+     for b ∈ {1, 4, 8, 16}: ids, distance bits, NDC, budgets, probe
+     features and `d_start` all equal to the 64-lane batch bit for bit,
+     float32 and PQ), `launch_split` (the traced batches' wall time split into
      launch spans — K5 and its `hops`/`active` readback —, the rest of the
      search calls, and everything outside them) and `graph_recall` (the
      graph's neighbour recall@32 on 1024 rows by `knn_exact`, and recall@10
@@ -120,12 +123,32 @@ Phases, each printed as one JSON line with its wall seconds:
      cell);
      PQ also `serve` under direct (64 contain requests, each bit for bit
      its lane of the one-shot batch after the rerank);
+ 14b. scale-out on the same world (`run_sharded`): S = 4 contiguous
+     shards of 250,000 rows, a graph each built on the card, and S = 1
+     (the plain graph as one shard); the float32 shards view the plain
+     engine's vectors. `shard_build`; `shard_merge` (S = 1 ≡ the plain
+     engine in every field of an e2e batch; S = 4 search ≡ each shard
+     searched alone under ⌈W/4⌉ and merged by a flat stable sort on (dist,
+     pos), every merged field; probe → resume ≡ direct; the merge's ms);
+     `shard_scan` (S = 4 scan ≡ the unsharded scan ≡ `filtered_knn_exact`
+     on "mixed", cnt = σ·N); `shard_training` (an estimator fitted on the
+     S = 4 engine, 128 queries); `shard_e2e` (S = 1 and S = 4: e2e ms,
+     NDC, recall@10, K5 launches, work balance; EXPLAIN's shard sections add
+     up to cnt, hops and n_inspected; an active lane's cnt ≥ its budget;
+     tracing on ≡ off); `shard_profile`; `shard_tier` (int8 S = 4, host
+     tier ≡ device tier after the rerank, the host tier holding no [N, d]
+     float32 tensor on the card; the gather's ms and the profiler's copy
+     kind); `shard_serve` (64 requests, lane width 16, direct: scheduled ≡
+     one-shot, per-shard NDC adds up to Σ request NDC);
  15. `launcher`: `python -m repro_torch.launch.serve --status
-     --prometheus` in a child process at its default corpus: exit 0 and a
-     scrape that `validate_prometheus` accepts;
+     --prometheus` in a child process at its default corpus, then with
+     `--shards 4`: exit 0 and a scrape that `validate_prometheus` accepts
+     (with shards, carrying `shard_ndc_total`);
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
-     launch floor; `serve_launches` where a serving path runs the kernel).
+     launch floor; `serve_launches` where a serving path runs the kernel;
+     K6's `launches_by_path` and K6q rows' `entry_launches_by_path`: the
+     entry distance and the rerank on each path).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
 `src/` beside it; it imports nothing of JAX.
@@ -137,6 +160,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -169,6 +193,36 @@ def emit(obj) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+class CardMemoryPeak:
+    """The card's peak `memory.used` (MiB, every process on it) over the
+    run, read by `nvidia-smi` on a thread once a second."""
+
+    def __init__(self, period_s: float = 1.0):
+        self.peak_mib, self.samples = 0, 0
+        self._period = period_s
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _poll(self):
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits", "--id=0"],
+                capture_output=True, text=True, timeout=30).stdout.strip()
+            if out:
+                self.peak_mib = max(self.peak_mib, int(out.split()[0]))
+                self.samples += 1
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
 
 
 def time_cuda(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2035,18 +2089,412 @@ def run_pipeline(args, device, k5_ms):
     launches = {"fused_step": fused_counts["fused_step"],
                 "gbdt_predict": fused_counts["gbdt_predict"],
                 "persistent_multi_step": pers_counts["persistent_multi_step"],
-                "sqdist_masked": k6_counts["sqdist_masked"]}
+                "sqdist_masked": k6_counts["sqdist_masked"],
+                # K6 as the entry distance of every search call without a
+                # carried state (and, under a codec, the rerank)
+                "k6_paths": {"fused float32 (4 batches)":
+                             fused_counts["sqdist_masked"],
+                             "persistent float32 (4 batches)":
+                             pers_counts["sqdist_masked"]}}
     run_baselines(eng, ds, est, td, evals["contain"], gts["contain"][0],
                   persistent[("contain", 1.0)][0].predicted_budget, probe)
     plan_launches, k6r, plan_evals, plan_gts = run_planner(ds, eng, est,
                                                            probe, device)
     launches.update(plan_launches)
+    launches["sharded"] = run_sharded(
+        ds, eng, graph, est, evals, gts, plan_evals, plan_gts,
+        persistent[("contain", 1.0)][0], probe, device)
     launches["serve:float32"] = serve_counts
     del eng
     torch.cuda.empty_cache()
     launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
                               device, plan_evals, plan_gts, k5_ms))
     return launches, k6r
+
+
+# ---------------------------------------------------------- scale-out ----
+SHARDS = 4         # index-axis shards of the sharded cells
+SHARD_TRAIN = 128  # training queries of the sharded engine's estimator
+
+
+# A host tier's gather under torch.profiler, in a child process: in this
+# long process CUPTI dropped the copy's device records of a short window
+# three times out of three, while a fresh process records every one.
+GATHER_PROFILE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.quant.tiering import HostVectorStore
+b, p, n, d = (int(a) for a in sys.argv[1:5])
+g = torch.Generator().manual_seed(0)
+store = HostVectorStore(torch.randn(n, d, generator=g), sys.argv[5])
+pool = torch.randint(-1, n, (b, p), generator=g, dtype=torch.int32)
+pool = pool.to(store.device)
+store.gather(pool)
+acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                 if store.device.type == "cuda" else [])
+with profile(activities=acts) as prof:
+    for _ in range(3):
+        store.gather(pool)
+    if store.device.type == "cuda":
+        torch.cuda.synchronize()
+print(json.dumps(sorted({e.key for e in prof.key_averages()
+                         if e.key.startswith("Memcpy HtoD")})))
+"""
+
+
+def host_gather_copies(pool_shape, device, rows: int = 250_000) -> list:
+    """The host-to-device copy kinds ("Memcpy HtoD (Pinned -> Device)")
+    that torch.profiler records for `HostVectorStore.gather` of a [B, P]
+    pool over `rows` float32 rows of width DIM, run in a child process
+    (taken again, up to PROFILE_ATTEMPTS times, while none is recorded)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    copies = []
+    for _ in range(PROFILE_ATTEMPTS):
+        proc = subprocess.run(
+            [sys.executable, "-c", GATHER_PROFILE, *map(str, pool_shape),
+             str(rows), str(DIM), device], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0,
+                f"the gather profile exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        copies = json.loads(proc.stdout.strip().splitlines()[-1])
+        if copies:
+            break
+    return copies
+
+
+def flat_merge(parts, offsets):
+    """The merged view of per-shard states ([B, ...] SearchStates, shard
+    order) by one flat stable sort of the union on (dist, position) — the
+    yardstick of the sharded engine's merge — and the counters summed
+    in shard order. Returns {field: tensor} for all 18 fields."""
+    import torch
+
+    dev = parts[0].cnt.device
+    off = [int(o) for o in offsets]
+
+    def pool(dname, iname, width):
+        d = torch.cat([getattr(p, dname) for p in parts], dim=1)
+        i = torch.cat([torch.where(getattr(p, iname) >= 0,
+                                   getattr(p, iname) + o, -1)
+                       for p, o in zip(parts, off)], dim=1)
+        order = torch.sort(d, dim=1, stable=True)[1][:, :width]
+        return order, torch.gather(d, 1, order), torch.gather(i, 1, order)
+
+    k, m = parts[0].res_dist.shape[1], parts[0].cand_dist.shape[1]
+    _, rd, ri = pool("res_dist", "res_idx", k)
+    order, cd, ci = pool("cand_dist", "cand_idx", m)
+
+    def flag(name):
+        f = torch.cat([getattr(p, name) for p in parts], dim=1)
+        return torch.gather(f, 1, order) & (ci >= 0)
+
+    def total(name):
+        out = getattr(parts[0], name)
+        for p in parts[1:]:
+            out = out + getattr(p, name)
+        return out
+
+    def reached(name):
+        x = torch.stack([getattr(p, name) for p in parts], dim=1)
+        return torch.where((x >= 0).all(dim=1), total(name),
+                           -1).to(torch.int32)
+
+    out = {"cand_dist": cd, "cand_idx": ci.to(torch.int32),
+           "cand_exp": flag("cand_exp"), "cand_valid": flag("cand_valid"),
+           "res_dist": rd, "res_idx": ri.to(torch.int32),
+           "visited": torch.cat([p.visited for p in parts], dim=1),
+           "active": torch.stack([p.active for p in parts]).any(dim=0),
+           "d_start": torch.stack([p.d_start for p in parts]).min(
+               dim=0).values,
+           "conv_cnt": reached("conv_cnt"),
+           "res_full_cnt": reached("res_full_cnt")}
+    for name in ("cnt", "n_inspected", "n_valid_visited", "n_clause_valid",
+                 "n_pop_valid", "q_err_sum", "hops"):
+        out[name] = total(name)
+    assert all(v.device == dev for v in out.values())
+    return out
+
+
+def merged_differ(state, want: dict) -> list:
+    """Fields of a merged SearchState that differ from `want`."""
+    import torch
+
+    return [f for f in state._fields
+            if not torch.equal(getattr(state, f), want[f])]
+
+
+def run_sharded(ds, eng, graph, est, evals, gts, plan_evals, plan_gts, one,
+                probe, device):
+    """The scale-out phases on the Tripclick world: index-axis sharding on
+    one card. S = 4 contiguous slices of 250,000 rows, a graph each built
+    on the card (`build_sharded_graph_index`), and S = 1 (the plain
+    graph as one shard); the float32 shards view the plain engine's
+    vector tensor slice by slice. Checks (each a `require`): S = 1 ≡ the
+    plain engine (every field, e2e contain α=1, persistent); S = 4 search
+    ≡ each shard searched alone under ⌈W/4⌉ and merged by a flat stable
+    sort on (dist, pos), every merged field, and probe → resume ≡ direct;
+    the S = 4 scan ≡ the unsharded scan and `filtered_knn_exact` on the
+    "mixed" batch; S = 4 `e2e_search(explain=True)` with an estimator
+    fitted on the sharded engine: shard sections sum to the merged cnt,
+    hops and n_inspected, an active lane's cnt ≥ its budget, tracing on ≡
+    off; int8 host tier ≡ device tier after the rerank, with no [N, d]
+    float32 tensor on the card for the host tier; serving on S = 4
+    (scheduled ≡ one-shot, per-shard NDC adds up). Returns the sharded
+    path's kernel counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import (CostEstimator, SearchConfig,
+                                  ShardedSearchEngine, dispatch_counters,
+                                  e2e_search, generate_training_data,
+                                  scan_search)
+    from repro_torch.core.plans import scan_stats
+    from repro_torch.core.sharded import merge_shard_states
+    from repro_torch.core.state import stack_shards
+    from repro_torch.data.synthetic import make_label_workload
+    from repro_torch.index import build_sharded_graph_index, recall_at_k
+    from repro_torch.index.graph import GraphIndex, ShardedGraphIndex
+    from repro_torch.obs import Tracer, work_balance
+    from repro_torch.quant.rerank import rerank_pool
+    from repro_torch.serve import (CostAwareScheduler, ServeConfig,
+                                   requests_from_workload)
+
+    cfg = SearchConfig(k=10, queue_size=512, backend="persistent")
+    wl = evals["contain"]
+    gi = gts["contain"][0]
+    # the float32 shards view the plain engine's [N, d] tensor
+    sds = dataclasses.replace(ds, vectors=eng.base_vectors)
+
+    t = time.perf_counter()
+    sg4 = build_sharded_graph_index(eng.base_vectors, SHARDS, degree=32,
+                                    seed=0, device=device)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t
+    sg1 = ShardedGraphIndex([GraphIndex(
+        neighbors=graph.neighbors, entry_point=graph.entry_point,
+        dim=graph.dim, shard=0, offset=0)])
+    t = time.perf_counter()
+    s1 = ShardedSearchEngine.build(sds, sg1, device=device)
+    s4 = ShardedSearchEngine.build(sds, sg4, device=device)
+    torch.cuda.synchronize()
+    views = all(sh.base_vectors.data_ptr() == eng.base_vectors.data_ptr()
+                + int(o) * DIM * 4 for sh, o in zip(s4.shards, s4.offsets))
+    require(views, "shard_build: the float32 shards copied the vectors")
+    emit({"phase": "shard_build", "shards": SHARDS,
+          "rows_per_shard": s4.shard_size, "graph_seconds": graph_s,
+          "engine_seconds": time.perf_counter() - t,
+          "entry_points": [int(e) for e in s4.entry_points],
+          "mean_out_degree": [float(g.out_degrees().float().mean())
+                              for g in sg4.shards],
+          "shards_view_plain_vectors": views})
+
+    # ---- S = 1 ≡ the plain engine (e2e contain α=1, persistent) ----
+    r1 = e2e_search(s1, est, cfg, wl.queries, wl.spec, probe_budget=probe,
+                    alpha=1.0, n_probes=2)
+    differ = [f for f, a, b in zip(one.state._fields, one.state,
+                                   r1.state.merged) if not torch.equal(a, b)]
+    differ += [f"shard.{f}" for f, a, b in zip(one.state._fields, one.state,
+                                               r1.state.shard)
+               if not torch.equal(a, b[:, 0])]
+    require(not differ, f"S=1 sharded differs from the plain engine: {differ}")
+    require(np.array_equal(r1.predicted_budget, one.predicted_budget),
+            "S=1 sharded: budgets differ from the plain engine")
+
+    # ---- S = 4: the sharded search ≡ the shards alone + a flat sort ----
+    w = torch.as_tensor(one.predicted_budget).to(device, torch.int32)
+    direct = s4.search(cfg, wl.queries, wl.spec, w)
+    sbud = ((w.long() + SHARDS - 1) // SHARDS).to(torch.int32)
+    parts = [sh.search(cfg, wl.queries, wl.spec, sbud) for sh in s4.shards]
+    differ = merged_differ(direct.merged, flat_merge(parts, s4.offsets))
+    require(not differ, f"S=4: merged fields differ from the per-shard "
+            f"searches' flat merge: {differ}")
+    st = s4.search(cfg, wl.queries, wl.spec, probe)
+    st = s4.search(cfg, wl.queries, wl.spec, w, state=st)
+    differ = [f for f, a, b in zip(direct.merged._fields, direct.merged,
+                                   st.merged) if not torch.equal(a, b)]
+    require(not differ, f"S=4: probe → resume differs from direct: {differ}")
+    merge_ms = median_ms(lambda: merge_shard_states(stack_shards(parts),
+                                                    s4.offsets), n=5)
+    emit({"phase": "shard_merge", "shards": SHARDS, "batch": EVAL_LANES,
+          "budget": "the plain e2e's budgets", "merged_equal_flat_sort": True,
+          "probe_resume_equal_direct": True,
+          "merge_ms": merge_ms,
+          "s1_equals_plain_engine_all_fields": True})
+
+    # ---- S = 4 scan ≡ the unsharded scan ≡ the exact oracle ("mixed") ----
+    mixed = plan_evals["mixed"]
+    a = scan_search(eng, cfg, mixed.queries, mixed.filters)
+    b = scan_search(s4, cfg, mixed.queries, mixed.filters)
+    counts = scan_stats(eng, eng.compile(mixed.filters)).counts
+    mgi, mgd = plan_gts["mixed"]
+    require(torch.equal(a.res_idx, b.res_idx) and torch.equal(
+        a.res_dist.view(torch.int32), b.res_dist.view(torch.int32)),
+        "S=4 scan differs from the unsharded scan")
+    require(np.array_equal(b.cnt.cpu().numpy(), counts),
+            "S=4 scan: cnt is not σ·N")
+    require(np.array_equal(b.res_idx.cpu().numpy(), mgi) and np.array_equal(
+        b.res_dist.cpu().numpy().view(np.uint32), mgd.view(np.uint32)),
+        "S=4 scan differs from filtered_knn_exact")
+    emit({"phase": "shard_scan", "workload": "mixed", "shards": SHARDS,
+          "equal_unsharded_scan": True, "equal_filtered_knn_exact": True,
+          "cnt_equals_sigma_n": True,
+          "mean_sigma_n": float(counts.mean())})
+
+    # ---- S = 4 estimator, e2e with EXPLAIN, tracing on ≡ off ----
+    t = time.perf_counter()
+    wl_tr = make_label_workload(ds, batch=SHARD_TRAIN, kind="contain",
+                                seed=10)
+    td4 = generate_training_data(s4, sds, wl_tr, cfg, probe_budget=probe,
+                                 chunk=SHARD_TRAIN, n_probes=2)
+    est4 = CostEstimator.fit(td4.features, td4.w_q, n_trees=200, depth=5)
+    emit({"phase": "shard_training", "shards": SHARDS,
+          "queries": SHARD_TRAIN,
+          "converged_frac": float(td4.converged.mean()),
+          "w_q_median": float(np.median(td4.w_q)),
+          "seconds": time.perf_counter() - t})
+
+    def e2e(engine, estimator, **kw):
+        return e2e_search(engine, estimator, cfg, wl.queries, wl.spec,
+                          probe_budget=probe, alpha=1.0, n_probes=2, **kw)
+
+    rows = {}
+    path_counts = None
+    for s, engine, estimator in ((1, s1, est), (SHARDS, s4, est4)):
+        reset_counts()
+        d0 = dispatch_counters()
+        res, ms = wall_ms(lambda: e2e(engine, estimator))
+        d1 = dispatch_counters()
+        counts = read_counts()
+        need = ("persistent_multi_step", "gbdt_predict", "sqdist_masked")
+        require(all(counts[n] > 0 for n in need),
+                f"sharded S={s}: a kernel of the path was never launched: "
+                f"{counts}")
+        if s == SHARDS:
+            path_counts = counts
+        ms = float(np.median([ms] + [wall_ms(lambda: e2e(engine,
+                                                           estimator))[1]
+                                     for _ in range(REPEATS - 1)]))
+        bal = work_balance(res.state.shard.cnt.cpu().numpy())
+        rows[s] = {"e2e_ms": ms,
+                   "mean_ndc": float(res.state.cnt.float().mean()),
+                   "recall@10": float(recall_at_k(
+                       res.state.res_idx.cpu().numpy(), gi).mean()),
+                   "k5_launches": d1["launches"] - d0["launches"],
+                   "steps": d1["steps"] - d0["steps"],
+                   "work_balance_mean": float(bal.mean()),
+                   "work_balance_min": float(bal.min()),
+                   "kernel_launches": counts}
+        if s == SHARDS:
+            one4 = res
+    tr = Tracer()
+    traced = e2e(s4, est4, tracer=tr, explain=True)
+    differ = [f"{part}.{f}" for part in ("merged", "shard")
+              for f, a, b in zip(one4.state.merged._fields,
+                                 getattr(one4.state, part),
+                                 getattr(traced.state, part))
+              if not torch.equal(a, b)]
+    require(not differ, f"S=4: tracing changed the state: {differ}")
+    require(np.array_equal(one4.predicted_budget, traced.predicted_budget),
+            "S=4: tracing changed the budgets")
+    cnt = traced.state.cnt.cpu().numpy()
+    hops = traced.state.hops.cpu().numpy()
+    insp = traced.state.n_inspected.cpu().numpy()
+    active = traced.state.active.cpu().numpy()
+    for i, rep in enumerate(traced.reports):
+        require(len(rep.shards) == SHARDS
+                and sum(x.ndc for x in rep.shards) == cnt[i]
+                and sum(x.hops for x in rep.shards) == hops[i]
+                and sum(x.n_inspected for x in rep.shards) == insp[i],
+                f"S=4 EXPLAIN: lane {i}'s shard sections do not add up")
+    bud = traced.predicted_budget
+    require(bool((cnt[active] >= bud[active]).all()),
+            "S=4: an active lane's cnt is below its budget")
+    spans = tr.spans(name="shard-search")
+    emit({"phase": "shard_e2e", "workload": "contain", "alpha": 1.0,
+          "backend": "persistent", "S1": rows[1], f"S{SHARDS}": rows[SHARDS],
+          "explain_sections_add_up": True, "tracing_equal_plain": True,
+          "active_lanes": int(active.sum()),
+          "shard_search_spans": len(spans),
+          "terminations_by_shard": [
+              {t: sum(1 for r in traced.reports if r.shards[j].termination
+                      == t) for t in {r.shards[j].termination
+                                      for r in traced.reports}}
+              for j in range(SHARDS)]})
+
+    profile_e2e(s4, est4, wl, probe, "persistent", rows[SHARDS]["e2e_ms"],
+                phase="shard_profile")
+
+    # ---- int8: host tier ≡ device tier, no float store on the card ----
+    c8 = SearchConfig(k=10, queue_size=512, backend="persistent")
+    out, mem = {}, {}
+    t = time.perf_counter()
+    for tier in ("device", "host"):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(device)
+        q8 = ShardedSearchEngine.build(ds, sg4, precision="int8", tier=tier,
+                                       device=device)
+        torch.cuda.synchronize()
+        mem[tier] = torch.cuda.memory_allocated(device) - m0
+        st8 = q8.search(c8, wl.queries, wl.spec, w)
+        rr = q8.rerank(c8, wl.queries, st8)
+        out[tier] = (q8, st8, rr)
+    build_s = time.perf_counter() - t
+    (dq, _, drr), (hq, hst, hrr) = out["device"], out["host"]
+    require(torch.equal(drr.res_idx, hrr.res_idx) and torch.equal(
+        drr.res_dist.view(torch.int32), hrr.res_dist.view(torch.int32)),
+        "int8 host tier: the rerank differs from the device tier")
+    store = hq.vector_store
+    nd_bytes = ds.n * DIM * 4
+    require(store.kind == "host" and store.pinned
+            and store._host.is_pinned() and not store._host.is_cuda
+            and all(sh.base_vectors.shape[1] == 0 for sh in hq.shards)
+            and mem["host"] < nd_bytes <= mem["device"],
+            f"int8 host tier: a float32 store on the card? {mem}")
+    pool = rerank_pool(hst.cand_idx, hst.cand_valid, hst.res_idx)
+    gather_ms = median_ms(lambda: store.gather(pool), n=5)
+    copies = host_gather_copies(tuple(pool.shape), "cuda")
+    require(bool(copies) and all("Pinned" in c for c in copies),
+            f"int8 host tier: the gather's copy is not from pinned memory: "
+            f"{copies}")
+    emit({"phase": "shard_tier", "precision": "int8", "shards": SHARDS,
+          "rerank_equal_device_tier": True,
+          "device_tier_bytes_on_card": mem["device"],
+          "host_tier_bytes_on_card": mem["host"],
+          "store_nbytes": store.nbytes, "float_store_on_card": False,
+          "pool_rows": int(pool.numel()), "gather_ms": gather_ms,
+          "gather_bytes": int(pool.numel()) * DIM * 4,
+          "profiler_htod": copies, "copy_from_pinned": True,
+          "build_seconds": build_s})
+    del out, dq, hq, store
+    torch.cuda.empty_cache()
+
+    # ---- serving on S = 4: scheduled ≡ one-shot, shard NDC adds up ----
+    sched = CostAwareScheduler(s4, est4, cfg, ServeConfig(
+        lane_width=16, probe_budget=probe, n_probes=2, alpha=1.0,
+        cache_capacity=0, policy="direct"))
+    reqs = requests_from_workload(wl)
+    reset_counts()
+    wall = serve_run(sched, reqs)
+    counts = read_counts()
+    serve_equals_oneshot(reqs, one4, "serve sharded float32 direct")
+    s = sched.summary()
+    require(s["n_shards"] == SHARDS and s["shards"]["n_shards"] == SHARDS,
+            f"serve sharded: n_shards {s['n_shards']}")
+    require(sum(s["shards"]["ndc_by_shard"]) == sum(r.ndc for r in reqs),
+            "serve sharded: per-shard NDC does not add up")
+    require(all(counts[n] > 0 for n in ("persistent_multi_step",
+                                          "gbdt_predict", "sqdist_masked")),
+            f"serve sharded: a kernel was never launched: {counts}")
+    emit({"phase": "shard_serve", "precision": "float32", "policy": "direct",
+          "backend": "persistent", "shards": SHARDS,
+          "workloads": ["contain"], "equals_oneshot_bitwise": True,
+          "ndc_by_shard": s["shards"]["ndc_by_shard"],
+          "shard_work_balance": s["shards"]["work_balance"],
+          **serve_report(sched, reqs, wall), "launches": counts})
+    return path_counts
 
 
 # ---------------------------------------------------------- baselines ----
@@ -2512,6 +2960,11 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
             f"fused_step_{precision}"]
         launches[f"persistent_multi_step_{precision}"] = p_counts[
             f"persistent_multi_step_{precision}"]
+        # under a codec K6 scores the rerank, K6q rows the entry distance
+        launches[f"k6_paths:{precision}"] = {
+            f"persistent {precision} (2 batches)": p_counts["sqdist_masked"],
+            f"entry: persistent {precision} (2 batches)": p_counts[
+                f"sqdist_rows_quant_{precision}"]}
         pers_ms = {}
         for key in cells:
             name, alpha = key
@@ -2861,7 +3314,8 @@ def convergence_check(eng, wl, td, probe, chunk):
             "gt_dist_median": float(np.median(gt_dist))}
 
 
-def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
+def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms,
+                phase="profile"):
     """Where one e2e batch spends its time: device-busy time (kernels
     only, from torch.profiler / CUPTI), the idle share against the same
     cell's unprofiled median wall time, kernel launches per lockstep step,
@@ -2893,7 +3347,7 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms):
     steps = (d1["steps"] - d0["steps"] if backend == "persistent"
              else int(res.state.hops.max()))
     top = sorted(evs, key=lambda x: x[1], reverse=True)[:10]
-    emit({"phase": "profile", "backend": backend,
+    emit({"phase": phase, "backend": backend,
           "precision": eng.precision, "workload": "contain",
           "alpha": 1.0, "wall_ms_profiled": wall,
           "wall_ms": wall_unprofiled_ms,
@@ -3164,15 +3618,15 @@ def lane_agreement(got_idx, got_dist, got_cnt, got_bud, one) -> dict:
 
 
 def run_serve_narrow(eng, est, wl, one, probe) -> None:
-    """serve_narrow (measures only): the 64 contain requests through
-    schedulers of lane width 4 (batches of 1, 2 or 4 lanes; the probe
-    batches take 4) and 1 (every batch one lane), and `e2e_search` on
-    lanes 0..b−1 alone, each against the 64-lane one-shot batch: the
-    share of lanes equal in ids, distance bits, NDC and budget, and of
-    probe features and entry distances (`d_start`) equal bit for bit. The
-    16-lane `serve` is required equal; this asks whether the torch
-    reductions around the kernels give the same bits at any batch width
-    on the card (ROADMAP Queue 3)."""
+    """serve_narrow: the 64 contain requests through schedulers of lane
+    width 4 (batches of 1, 2 or 4 lanes; the probe batches take 4) and 1
+    (every batch one lane), and `e2e_search` on lanes 0..b−1 alone for b ∈
+    {1, 4, 8, 16}, each against the 64-lane one-shot batch: every lane's
+    ids, distance bits, NDC and budget, its probe features and its entry
+    distance (`d_start`) must be equal bit for bit. It holds because the
+    entry distance and the rerank come from K6 / K6q rows and the codecs'
+    query norms and PQ tables are summed elementwise in a fixed order, so
+    no value depends on the batch width."""
     from repro_torch.core import SearchConfig, e2e_search, probe_and_features
     from repro_torch.serve import (CostAwareScheduler, ServeConfig,
                                    requests_from_workload)
@@ -3210,10 +3664,32 @@ def run_serve_narrow(eng, est, wl, one, probe) -> None:
                 part.state.res_dist.cpu().numpy(),
                 part.state.cnt.cpu().numpy(), part.predicted_budget,
                 _first_lanes(one, b)).items()}}
+    moved = {}
+    if eng.precision == "float32":
+        # the share of the 64 lanes whose entry distance K6 gives the same
+        # bits as the torch reduction it replaced (`sqdist_bdrd`)
+        import torch
+
+        from repro_torch.kernels.distance import sqdist_bdrd
+
+        q = torch.as_tensor(wl.queries).to(eng.device, torch.float32)
+        row = eng.base_vectors[eng.entry_point][None, None, :].expand(
+            q.shape[0], 1, -1)
+        moved["d_start_bits_equal_torch_reduction_64_lanes"] = float(
+            np.mean(sqdist_bdrd(q, row)[:, 0].cpu().numpy().view(np.uint32)
+                    == full.d_start.cpu().numpy().view(np.uint32)))
     emit({"phase": "serve_narrow", "precision": eng.precision,
           "workload": "contain",
           "served_vs_oneshot_lane_share": served,
-          "e2e_first_lanes_vs_batch": first})
+          "e2e_first_lanes_vs_batch": first, **moved})
+    for width, share in served.items():
+        require(all(v == 1.0 for v in share.values()),
+                f"serve_narrow {eng.precision}: lane width {width} differs "
+                f"from the one-shot batch: {share}")
+    for b, share in first.items():
+        require(all(v == 1.0 for v in share.values()),
+                f"serve_narrow {eng.precision}: lanes 0..{b - 1} alone "
+                f"differ from the 64-lane batch: {share}")
 
 
 def _first_lanes(one, b):
@@ -3290,18 +3766,20 @@ def run_serve_auto(eng, est, planner, wl, planned, probe) -> dict:
     return counts
 
 
-def run_launcher() -> None:
+def run_launcher(shards: int = 1) -> None:
     """launcher: `python -m repro_torch.launch.serve --status --prometheus`
-    on the card at its default corpus, in a child process (which reuses
-    the kernels built above); it must exit 0 and its scrape validate."""
+    on the card at its default corpus (`--shards S`: an index-sharded
+    engine, the corpus rounded up to a multiple of S), in a child process
+    (which reuses the kernels built above); it must exit 0 and its scrape
+    validate (with S > 1, carry `shard_ndc_total`)."""
     from repro_torch.obs import validate_prometheus
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--status",
-         "--prometheus"], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=600)
+         "--prometheus", "--shards", str(shards)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0, f"launcher exited {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
     out = proc.stdout
@@ -3311,8 +3789,13 @@ def run_launcher() -> None:
     health = json.loads(head.split("== serving health\n", 1)[1])
     lines = [ln for ln in head.splitlines()
              if ln.startswith(("retrieval:", "batches=", "calibration:",
-                               "   device="))]
+                               "   device=", "   index-axis"))]
+    if shards > 1:
+        require(names.get("repro_shard_ndc_total") == shards
+                and health["summary"]["n_shards"] == shards,
+                f"launcher --shards {shards}: no per-shard counters")
     emit({"phase": "launcher", "seconds": time.perf_counter() - t,
+          "shards": shards,
           "returncode": proc.returncode, "scrape_valid": True,
           "metrics": len(names),
           "n_completed": health["summary"]["n_completed"],
@@ -3367,36 +3850,9 @@ def run_graph_recall(ds, eng, graph, wl, device) -> None:
           "exhaustive_ms": ms, "seconds": time.perf_counter() - t})
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=1_000_000,
-                    help="corpus size (Tripclick: 1,000,000)")
-    ap.add_argument("--train-queries", type=int, default=512)
-    args = ap.parse_args(argv)
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 1
-    from repro_torch.kernels import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 references
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"phase": "card", "nvidia_smi": smi,
-          "name": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
-
-    t = time.perf_counter()
-    _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t})
+def run_phases(args, device) -> list:
+    """Run every phase on the built kernels and return the `kernels`
+    line's entries."""
     count_forest_uploads()
 
     k1 = check_step_kernel(device)
@@ -3420,8 +3876,20 @@ def main(argv=None) -> int:
     launches, k6r = run_pipeline(args, device, {"float32": k5["ms"],
                                                 "pq": k5q["pq"]["ms"]})
     run_launcher()
+    run_launcher(shards=SHARDS)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
+    sharded = launches.pop("sharded")
+    k6_paths = {**launches.pop("k6_paths"),
+                f"sharded S={SHARDS} persistent float32 (1 batch)":
+                sharded["sqdist_masked"]}
+    k6q_paths = {}
+    for p in ("int8", "pq"):
+        for path, n in launches.pop(f"k6_paths:{p}").items():
+            if path.startswith("entry: "):
+                k6q_paths[p] = {path[len("entry: "):]: n}
+            else:
+                k6_paths[path + ", rerank"] = n
 
     def entry(name, source, replaces, chk, launches_of, why, status=None,
               note=None):
@@ -3445,6 +3913,11 @@ def main(argv=None) -> int:
                        floor_call_ms=chk["floor_call_ms"])
         if note:
             out["note"] = note
+        if launches_of == "sqdist_masked":
+            out["launches_by_path"] = k6_paths   # entry distance, rerank
+        elif launches_of.startswith("sqdist_rows_quant_"):
+            out["entry_launches_by_path"] = k6q_paths[
+                launches_of.rsplit("_", 1)[1]]
         # launches on the serving paths (`serve` lines: float32 and PQ
         # direct, auto); serving runs K1 only at R'=160 (auto's widen)
         name_of = {"fused_step": None,
@@ -3458,7 +3931,7 @@ def main(argv=None) -> int:
 
     step_why = "no single PyTorch call runs a traversal step"
     steps_why = "no single PyTorch call runs traversal steps"
-    emit({"kernels": [
+    return [
         entry("fused_step", "fused_step.cu", "fused_step.py:182", k1,
               "fused_step", step_why),
         entry("fused_step (R'=160, pre/widen)", "fused_step.cu",
@@ -3503,7 +3976,47 @@ def main(argv=None) -> int:
           for p in ("int8", "pq")),
         entry("topm_merge", "topk.cu", "topk.py:63", k7, "topm_merge",
               None, K7_STATUS),
-    ]})
+    ]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=1_000_000,
+                    help="corpus size (Tripclick: 1,000,000)")
+    ap.add_argument("--train-queries", type=int, default=512)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 references
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "card", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t})
+    with CardMemoryPeak() as mem:
+        kernels = run_phases(args, device)
+    mib = 2**20
+    emit({"phase": "memory", "peak_used_mib": mem.peak_mib,
+          "samples": mem.samples,
+          "torch_max_allocated_mib": torch.cuda.max_memory_allocated() / mib,
+          "torch_max_reserved_mib": torch.cuda.max_memory_reserved() / mib})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -214,5 +214,9 @@ def e2e_search(
             trace_ids=[f"{trace_id or 'e2e'}:{i}"
                        for i in range(final_cnt.shape[0])],
             stages=stages)
+        if getattr(state, "shard", None) is not None:
+            from repro_torch.obs.shard import attach_shard_sections
+
+            attach_shard_sections(reports, cfg, state, bud)
     return E2EResult(state=state, predicted_budget=bud,
                      probe_features=feats_h, reports=reports)

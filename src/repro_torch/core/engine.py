@@ -1,12 +1,14 @@
 """SearchEngine — the device-resident index + traversal facade.
 
 Counterpart of `repro/core/engine.py::SearchEngine` for one device (the
-batch mesh and the host rerank tier wait for later slices). It bundles
+batch mesh waits for the mesh path, which needs several GPUs). It bundles
 the tensors every search needs (vectors, packed attributes, graph, entry
 point and, at precision "int8" or "pq", the quant index), compiles
 filters to programs and runs `run_search`, or `run_search_persistent`
-for a persistent backend. A quantized engine keeps the float vectors on
-the device for the terminal exact rerank (`rerank`).
+for a persistent backend. A quantized engine keeps the float vectors for
+the terminal exact rerank (`rerank`): on the device, or with
+`tier="host"` in pinned host memory (`quant.tiering.HostVectorStore`),
+leaving only an [N, 0] placeholder on the device.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.device import resolve_device
 from repro_torch.filters.compile import FilterProgram, as_program, program_to
 from repro_torch.index.graph import GraphIndex
 from repro_torch.quant.codecs import build_quant_index, codec_key
-from repro_torch.quant.rerank import exact_rerank
+from repro_torch.quant.rerank import exact_rerank, exact_rerank_store
+from repro_torch.quant.tiering import as_vector_store
 
 BIG_BUDGET = 1 << 30
 
@@ -49,6 +52,10 @@ class SearchEngine:
     precision: str = "float32"   # deployment default; a per-call
                                  # SearchConfig(precision=...) wins
     quant: object | None = None  # Int8Index | PQIndex for int8 / pq
+    vector_store: object | None = None  # quant.tiering store of the exact
+                                 # rerank; when set (host tier),
+                                 # base_vectors is an [N, 0] placeholder
+                                 # whose row count alone is read
 
     @property
     def device(self) -> torch.device:
@@ -58,7 +65,7 @@ class SearchEngine:
     def build(cls, ds: AttributedDataset, graph: GraphIndex,
               backend: str | None = None, device=None,
               precision: str = "float32", quant_cfg: dict | None = None,
-              ) -> "SearchEngine":
+              tier: str = "device") -> "SearchEngine":
         """Place the dataset and graph on `device` (the card by default).
 
         precision  "float32", or "int8" / "pq": train the codec on a sample
@@ -67,26 +74,45 @@ class SearchEngine:
         quant_cfg  codec knobs for `quant.build_quant_index` (pq_subspaces,
                    pq_centroids, pq_iters, pq_levels, seed), plus
                    "train_sample_size" (default 16384) for the sample.
+        tier       "device" keeps the float32 vectors on the device; "host"
+                   (a compressed precision only) keeps them in pinned host
+                   memory for the rerank and only an [N, 0] placeholder
+                   on the device.
         """
         dev = resolve_device(device)
         graph.validate()
         values = np.asarray(ds.value_matrix, np.float32)
+        store = None
+        if tier != "device":
+            if precision == "float32":
+                raise ValueError(
+                    "tier='host' requires a compressed traversal precision "
+                    "('int8' or 'pq') — a float32 traversal reads the full "
+                    "vector store every step, which defeats the tier")
+            store = as_vector_store(ds.vectors, tier, dev)
+            vectors = torch.zeros((len(ds.vectors), 0), dtype=torch.float32,
+                                  device=dev)
+        else:
+            vectors = torch.as_tensor(ds.vectors).to(dev, torch.float32)
         eng = cls(
-            base_vectors=torch.as_tensor(ds.vectors).to(dev, torch.float32),
+            base_vectors=vectors,
             label_attrs=_labels_to_torch(ds.labels_packed, dev),
             value_attrs=torch.from_numpy(values).to(dev),
             neighbors=graph.neighbors.to(dev, torch.int32).contiguous(),
             entry_point=int(graph.entry_point),
             backend=backend,
             precision=precision,
+            vector_store=store,
         )
         if precision != "float32":
             qcfg = dict(quant_cfg or {})
             sample_n = qcfg.pop("train_sample_size", 16384)
             sample = ds.sample_vectors(sample_n, seed=qcfg.get("seed", 0))
-            eng.quant = build_quant_index(precision, eng.base_vectors,
-                                          train_sample=sample, device=dev,
-                                          **qcfg)
+            # encoded from the dataset's rows, chunk by chunk: a host-tier
+            # engine never holds them on the device
+            eng.quant = build_quant_index(
+                precision, eng.base_vectors if store is None else ds.vectors,
+                train_sample=sample, device=dev, **qcfg)
         return eng
 
     @property
@@ -117,6 +143,10 @@ class SearchEngine:
         """Exact float32 re-scoring of a finished traversal's pool (result
         set ∪ valid candidate queue) → (res_dist [B, K], res_idx [B, K])."""
         q = torch.as_tensor(queries).to(self.device, torch.float32)
+        if self.vector_store is not None:
+            return exact_rerank_store(q, self.vector_store, state.cand_idx,
+                                      state.cand_valid, state.res_idx,
+                                      int(state.res_idx.shape[1]))
         return exact_rerank(q, self.base_vectors, state.cand_idx,
                             state.cand_valid, state.res_idx,
                             int(state.res_idx.shape[1]))
@@ -153,6 +183,12 @@ class SearchEngine:
             raise ValueError(
                 f"SearchConfig(precision={cfg.precision!r}) on an engine "
                 "without a quant index — build with precision=...")
+        if cfg.precision == "float32" and self.base_vectors.shape[1] == 0:
+            raise ValueError(
+                "float32 traversal on a host-tiered engine: the device "
+                "holds only a vector placeholder — search at the engine's "
+                "compressed precision (rerank stays exact via the host "
+                "tier) or rebuild with tier='device'")
         quant = self.quant if cfg.precision != "float32" else None
         dev = self.device
         prog = self.compile(filt)

@@ -39,6 +39,7 @@ from repro_torch.core.estimator import CostEstimator
 from repro_torch.core.plans import ScanStats, scan_search, scan_stats
 from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
                                     take_lanes)
+from repro_torch.core.training import oracle_quant, oracle_vectors
 from repro_torch.data.synthetic import AttributedDataset, QueryWorkload
 from repro_torch.index.bruteforce import (compressed_filtered_topk,
                                          filtered_knn_exact, valid_mask)
@@ -93,8 +94,11 @@ class PlanTrainingData:
     gt_dist: np.ndarray          # [n, k]
 
 
-def _copy_state(state: SearchState) -> SearchState:
-    return SearchState(*(a.clone() for a in state))
+def _copy_state(state):
+    """A copy of every tensor of a SearchState (or ShardedSearchState)."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return type(state)(*(_copy_state(a) for a in state))
 
 
 def _sync(device) -> None:
@@ -144,14 +148,15 @@ def generate_plan_training_data(
         q = workload.queries[s:e]
         filt = workload.filter_slice(s, e)
         gt_idx, gt_dist = timed("oracle", lambda: filtered_knn_exact(
-            q, engine.base_vectors, filt, np.asarray(ds.labels_packed),
-            np.asarray(ds.value_matrix), cfg.k, device=dev))
+            q, oracle_vectors(engine, ds), filt,
+            np.asarray(ds.labels_packed), np.asarray(ds.value_matrix), cfg.k,
+            device=dev))
         if precision != "float32":
             # convergence in the metric the traversal searches in
             ok = valid_mask(filt, np.asarray(ds.labels_packed),
                             np.asarray(ds.value_matrix))
             conv_dist, _ = timed("oracle", lambda: compressed_filtered_topk(
-                precision, engine.quant, q, ok, cfg.k))
+                precision, oracle_quant(engine), q, ok, cfg.k))
         else:
             conv_dist = gt_dist
         conv_dev = torch.from_numpy(conv_dist).to(dev)
@@ -427,11 +432,18 @@ def _plan_reports(engine, cfg, state, plan, pred, pre_probe, probe_ndc,
         probe_ndc=probe_ndc, trace_ids=[f"{trace_id or 'plan'}:{i}"
                                         for i in range(len(names))],
         stages=stages)
+    if getattr(state, "shard", None) is not None:
+        from repro_torch.obs.shard import attach_shard_sections
+
+        attach_shard_sections(reports, cfg, state, pred)
     # scan lanes terminate by construction (the masked scan is exhaustive
-    # over the σ·N valid rows), not by any traversal stop condition
+    # over the σ·N valid rows), not by any traversal stop condition —
+    # globally and on every shard's slice of the bitmap
     for i, r in enumerate(reports):
         if plan[i] == PLAN_SCAN:
             r.termination = "scan-exhaustive"
+            for sec in r.shards:
+                sec.termination = "scan-exhaustive"
     return reports
 
 

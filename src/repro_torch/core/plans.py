@@ -41,12 +41,11 @@ import torch
 
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.state import INF, SearchConfig, SearchState
-from repro_torch.core.step import tree_sum
-from repro_torch.filters.compile import (CLAUSE_FEATURE_SLOTS, FilterProgram,
-                                         eval_program_matrix)
+from repro_torch.filters.compile import (CLAUSE_FEATURE_SLOTS, MATRIX_CHUNK,
+                                         FilterProgram, eval_program_matrix)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.distance import SCAN_ALIGN
-from repro_torch.quant.codecs import prepare_query
+from repro_torch.quant.codecs import prepare_query, tree_sum
 
 
 class ScanStats(NamedTuple):
@@ -71,10 +70,17 @@ class ScanStats(NamedTuple):
                          clause_frac=self.clause_frac[idx], n=self.n)
 
 
-def scan_stats(engine: SearchEngine, prog: FilterProgram) -> ScanStats:
-    """Compile the candidate bitmap and exact selectivity statistics."""
+def scan_stats(engine: SearchEngine, prog: FilterProgram,
+               chunk: int = MATRIX_CHUNK) -> ScanStats:
+    """Compile the candidate bitmap and exact selectivity statistics
+    (`chunk` rows of the store a pass; the result does not depend on it)."""
+    if getattr(engine, "is_sharded", False):
+        # an index-axis-sharded engine: per-shard bitmap passes, one
+        # global ScanStats (core.sharded) — the planner stays engine-blind
+        return engine.scan_stats(prog, chunk=chunk)
     valid, frac = eval_program_matrix(engine.compile(prog),
-                                      engine.label_attrs, engine.value_attrs)
+                                      engine.label_attrs, engine.value_attrs,
+                                      chunk=chunk)
     return ScanStats(valid=valid,
                      counts=valid.sum(dim=1).cpu().numpy().astype(np.int64),
                      clause_frac=frac, n=int(valid.shape[1]))
@@ -124,6 +130,11 @@ def scan_search(
     kept, and the result and queue buffers are replaced — the scan covers
     the whole valid set.
     """
+    if getattr(engine, "is_sharded", False):
+        # sharded engines scan shard by shard and merge (core.sharded);
+        # the returned ShardedSearchState is terminal like this one
+        return engine.scan(cfg, queries, filt, stats=stats,
+                           base_state=base_state)
     precision = engine.effective_precision(cfg)
     if precision != "float32" and engine.quant is None:
         raise ValueError(

@@ -12,8 +12,10 @@ and the same 18 `SearchState` leaves, as torch tensors:
 
 Lane surgery (`take_lanes`, `put_lanes`) serves the persistent loop's
 lane compaction, `concat_lanes` the planner's merge of its per-plan
-parts, and `pad_lanes` inert lane padding; shard surgery waits for the
-scale-out slice. Under a compressed precision ("int8",
+parts, and `pad_lanes` inert lane padding. Shard surgery
+(`stack_shards`, `take_shard`) moves between per-shard states and the
+sharded engine's stacked carry, whose leaves hold the shard axis second
+([B, S, ...]), so the lane helpers keep working on axis 0. Under a compressed precision ("int8",
 "pq") the entry distance, and every distance after it, is the codec's
 ADC distance (`repro_torch.quant`).
 """
@@ -27,8 +29,8 @@ import torch
 
 from repro_torch.filters.compile import clause_counts, eval_program_gathered
 from repro_torch.filters.predicates import PRED_CONTAIN
-from repro_torch.kernels.distance import sqdist_bdrd
-from repro_torch.quant.codecs import QuantGather, quant_dist
+from repro_torch.kernels.distance import SCAN_ALIGN, sqdist_masked
+from repro_torch.kernels.quant_rows import sqdist_rows_quant
 
 INF = float("inf")
 INT32_MIN = -(1 << 31)
@@ -105,15 +107,21 @@ def init_state(
     ep = torch.full((b, 1), entry_point, dtype=i32, device=dev)
     if (cfg.precision or "float32") != "float32":
         # the entry distance in the compressed domain: the whole traversal,
-        # d_start included, lives in one metric
-        codes0 = quant.codes[entry_point][None, None, :].expand(b, 1, -1)
-        norms0 = quant.norms[entry_point].expand(b, 1)
-        d0 = quant_dist(cfg.precision, QuantGather(prep=qprep, codes=codes0,
-                                                   norms=norms0))
+        # d_start included, lives in one metric. K6q rows (the entry id in
+        # position 0 of a SCAN_ALIGN-wide row, the rest masked) computes it
+        # as K3 / K4 compute that pair, whatever the batch width
+        ids = torch.full((b, SCAN_ALIGN), entry_point, dtype=i32, device=dev)
+        on = torch.zeros((b, SCAN_ALIGN), dtype=torch.bool, device=dev)
+        on[:, 0] = True
+        d0 = sqdist_rows_quant(qprep, quant.codes, quant.norms, ids,
+                               on)[:, :1]
         err0 = quant.err[entry_point].expand(b).clone()
     else:
-        d0 = sqdist_bdrd(queries, base_vectors[entry_point][None, None, :]
-                         .expand(b, 1, -1))                     # [B,1]
+        # K6 over the one entry row: K1's bits for the pair, whatever the
+        # batch width (a torch reduction's rounding depends on it)
+        row = base_vectors[entry_point][None, None, :].expand(b, 1, -1)
+        d0 = sqdist_masked(queries, row.contiguous(),
+                           torch.ones((b, 1), dtype=torch.bool, device=dev))
         err0 = torch.zeros((b,), dtype=torch.float32, device=dev)
     val0, csat0 = eval_program_gathered(
         prog, labels[entry_point][None, None, :].expand(b, 1, -1),
@@ -226,6 +234,32 @@ def put_lanes(tree, sub, idx):
     for a, s in zip(tree, sub):
         put_lanes(a, s, idx)
     return tree
+
+
+# ---- shard surgery (index-axis-sharded engines, `core/sharded.py`) ----
+
+
+def stack_shards(states):
+    """Stack per-shard trees ([B, ...] tensor leaves) along a new shard
+    axis 1 → [B, S, ...] leaves (None passes through)."""
+    first = states[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(states), dim=1)
+    return _like(first, [stack_shards([t[i] for t in states])
+                         for i in range(len(first))])
+
+
+def take_shard(tree, s: int):
+    """Shard `s` of a shard-stacked tree ([B, S, ...] leaves) as [B, ...]
+    leaves, each a contiguous copy: a per-shard search updates its carry
+    in place and must not write through to the stacked state."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[:, s].contiguous()
+    return _like(tree, [take_shard(a, s) for a in tree])
 
 
 def topk_results(state: SearchState) -> tuple[np.ndarray, np.ndarray]:

@@ -22,22 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.state import INF, SearchConfig, SearchState, word_bit
-from repro_torch.quant.codecs import QuantGather
-
-
-def tree_sum(e: torch.Tensor) -> torch.Tensor:
-    """Row sums of [B, R] by halving: pad with zeros to a power of 2, then
-    add the second half onto the first until one column is left. Kernel K5
-    sums each step's reconstruction errors in this order, so `q_err_sum`
-    is bitwise the same on the single-step and the persistent path. Zero
-    padding adds exact zeros, so a row's sum does not depend on how far it
-    is padded (the compressed scan relies on that)."""
-    r = e.shape[1]
-    e = torch.nn.functional.pad(e, (0, (1 << (r - 1).bit_length()) - r))
-    while e.shape[1] > 1:
-        h = e.shape[1] // 2
-        e = e[:, :h] + e[:, h:]
-    return e[:, 0]
+from repro_torch.quant.codecs import QuantGather, tree_sum
 
 
 def gather_frontier(cfg: SearchConfig, neighbors: torch.Tensor,

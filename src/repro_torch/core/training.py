@@ -26,6 +26,25 @@ from repro_torch.index.bruteforce import (compressed_filtered_topk,
                                          filtered_knn_exact, valid_mask)
 
 
+def oracle_vectors(engine, ds: AttributedDataset):
+    """The float32 rows the exact oracle scores: the device tier's tensor,
+    a plain engine's vectors, or else the dataset's rows (a host tier or
+    a sharded engine)."""
+    store = getattr(engine, "vector_store", None)
+    if store is not None and store.kind == "device":
+        return store.vectors
+    if (not getattr(engine, "is_sharded", False)
+            and engine.base_vectors.shape[1] > 0):
+        return engine.base_vectors
+    return ds.vectors
+
+
+def oracle_quant(engine):
+    """The codes the compressed oracle scores: a sharded engine's shards
+    concatenated in row order (`quant_concat`), else the engine's."""
+    return getattr(engine, "quant_concat", None) or engine.quant
+
+
 @dataclasses.dataclass
 class TrainingData:
     features: np.ndarray   # [n, F]
@@ -54,14 +73,15 @@ def generate_training_data(
         q = workload.queries[s:e]
         filt = workload.filter_slice(s, e)
         gt_idx, gt_dist = filtered_knn_exact(
-            q, engine.base_vectors, filt, np.asarray(ds.labels_packed),
-            np.asarray(ds.value_matrix), cfg.k, device=engine.device)
+            q, oracle_vectors(engine, ds), filt,
+            np.asarray(ds.labels_packed), np.asarray(ds.value_matrix), cfg.k,
+            device=engine.device)
         if precision != "float32":
             # convergence in the metric the traversal searches in
             ok = valid_mask(filt, np.asarray(ds.labels_packed),
                             np.asarray(ds.value_matrix))
-            conv_dist, _ = compressed_filtered_topk(precision, engine.quant,
-                                                    q, ok, cfg.k)
+            conv_dist, _ = compressed_filtered_topk(
+                precision, oracle_quant(engine), q, ok, cfg.k)
         else:
             conv_dist = gt_dist
         prog = engine.compile(filt)  # once for the probe + exhaustion resume

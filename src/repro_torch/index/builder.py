@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.index.graph import GraphIndex
+from repro_torch.index.graph import GraphIndex, ShardedGraphIndex
 
 INF = float("inf")
 
@@ -230,3 +230,36 @@ def build_graph_index(
     g = GraphIndex(neighbors=final.contiguous(), entry_point=entry, dim=dim)
     g.validate()
     return g
+
+
+def build_sharded_graph_index(
+    vectors,
+    n_shards: int,
+    degree: int = 32,
+    **build_kw,
+) -> ShardedGraphIndex:
+    """Cut the corpus into S contiguous equal slices and build one
+    independent graph per slice (shard-local node ids) with
+    `build_graph_index` on the same device (`build_kw`: n_iters, alpha,
+    seed, device, ...). Counterpart of
+    `repro/index/builder.py::build_sharded_graph_index`: a query then
+    probes every shard (⌈W/S⌉ of its budget each) and the global result
+    set comes from the cross-shard merge."""
+    n = vectors.shape[0]
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if n % n_shards != 0:
+        raise ValueError(
+            f"N={n} not divisible by n_shards={n_shards} — pad the corpus "
+            f"to a multiple of {n_shards} (the shards are equal slices)")
+    ns = n // n_shards
+    shards = []
+    for s in range(n_shards):
+        g = build_graph_index(vectors[s * ns:(s + 1) * ns], degree=degree,
+                              **build_kw)
+        g.shard = s
+        g.offset = s * ns
+        shards.append(g)
+    out = ShardedGraphIndex(shards=shards)
+    out.validate()
+    return out

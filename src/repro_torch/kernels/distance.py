@@ -43,8 +43,10 @@ SCAN_ALIGN = 64
 def sqdist_bdrd(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """q [B, d], x [B, R, d] -> [B, R] squared L2, clamped >= 0.
 
-    `init_state`, the dense backend and the plain versions of K1, K5 and
-    K6 all call this, so a numerics change cannot desynchronize them.
+    The dense backend and the plain versions of K1, K5 and K6 all call
+    this, so a numerics change cannot desynchronize them. On the card its
+    reductions round by batch width, so the entry distance and the rerank
+    go through K6 instead.
     """
     q = q.to(torch.float32)
     x = x.to(torch.float32)

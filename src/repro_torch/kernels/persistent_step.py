@@ -110,7 +110,7 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
     launch (post mode).
 
     queries [B,d] f32, prog FilterProgram (leaves [B,S,...]), base_vectors
-    [N,d] f32, attrs (labels [N,W] i32, values [N,V] f32), neighbors
+    [N,d] f32 (read at float32 only), attrs (labels [N,W] i32, values [N,V] f32), neighbors
     [N,R] i32, budgets [B] i32, state SearchState (consumed), gt_dist
     [B,K] f32 or None; under `cfg.precision` "int8" or "pq", quant the
     Int8Index / PQIndex and qprep its per-query state -> SearchState.
@@ -142,7 +142,6 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
     i32, f32, bl = torch.int32, torch.float32, torch.bool
     checks = [
         (queries, "queries", f32, (b, d)),
-        (base_vectors, "base_vectors", f32, (n, d)),
         (labels, "labels", i32, (n, w)), (values, "values", f32, (n, v)),
         (neighbors, "neighbors", i32, (n, r)),
         (prog.kinds, "prog.kinds", i32, (b, s)),
@@ -172,8 +171,12 @@ def persistent_multi_step(cfg, queries, prog, base_vectors, attrs, neighbors,
         checks.append((gt_dist, "gt_dist", f32, (b, k)))
     prec_id = HEAD_IDS[precision]
     if precision == "float32":
+        checks.append((base_vectors, "base_vectors", f32, (n, d)))
         codec, row_d, kc = (None,) * 7, d, 0
     else:
+        # the codec branches read codes, never the float32 rows: a host-tier
+        # or sharded engine holds only an [N, 0] placeholder there
+        base_vectors = None
         specs, codec, row_d, kc = _codec_operands(precision, quant, qprep, n,
                                                   b)
         checks += specs + [(state.q_err_sum, "q_err_sum", f32, (b,))]

@@ -15,9 +15,11 @@ into long-budget batches.
 It runs on the CUDA device and raises when there is none, unless
 `--device cpu` is given. The traversal backend is `REPRO_BACKEND`
 (default "persistent": kernel K5 between compactions; "fused" steps
-kernel K1, "dense" is plain PyTorch). The reference's `--gen-len` /
-`--arch` (a decoder LM over the retrieved ids) and `--shards` > 1 (an
-index-sharded engine) are not ported yet.
+kernel K1, "dense" is plain PyTorch). `--shards S` > 1 deploys an
+index-axis-sharded engine (`core.sharded`, the loop over shards on one
+device); its per-shard telemetry shows in `--status` and `--prometheus`.
+The reference's `--gen-len` / `--arch` (a decoder LM over the retrieved
+ids) are not ported.
 """
 from __future__ import annotations
 
@@ -32,13 +34,17 @@ import numpy as np
 
 def build_world(corpus: int, train_queries: int, queue_size: int, k: int,
                 probe: int, backend: str | None, seed: int = 0,
-                precision: str = "float32", device=None):
+                precision: str = "float32", device=None, n_shards: int = 1):
     """Index + graph + engine on `device` + a single estimator trained on a
     *mixed* contain/range workload (features are predicate-agnostic, so one
     GBDT serves both request kinds). `precision` deploys the engine with a
     compressed vector store (int8 / pq) — the estimator is then trained on
     the same engine, so its cost model sees compressed-domain probes, and
-    the scheduler reranks every finished lane with exact float32."""
+    the scheduler reranks every finished lane with exact float32.
+    `n_shards > 1` deploys an index-axis-sharded engine (`core.sharded`)
+    with one graph per corpus slice (the corpus is rounded up to a
+    multiple of S); the estimator is trained on that sharded engine, so it
+    models the ⌈W/S⌉-split cost."""
     from repro_torch.core import (CostEstimator, SearchConfig, SearchEngine,
                                   generate_training_data)
     from repro_torch.data import (make_dataset, make_label_workload,
@@ -48,11 +54,23 @@ def build_world(corpus: int, train_queries: int, queue_size: int, k: int,
     from repro_torch.index import build_graph_index
 
     dev = resolve_device(device)
+    # equal contiguous slices need S | N
+    corpus = -(-corpus // max(n_shards, 1)) * max(n_shards, 1)
     ds = make_dataset(n=corpus, dim=48, n_clusters=16, alphabet_size=48,
                       seed=seed)
-    graph = build_graph_index(ds.vectors, degree=24, seed=seed, device=dev)
-    engine = SearchEngine.build(ds, graph, backend=backend, device=dev,
-                                precision=precision)
+    if n_shards > 1:
+        from repro_torch.core.sharded import ShardedSearchEngine
+        from repro_torch.index import build_sharded_graph_index
+
+        graph = build_sharded_graph_index(ds.vectors, n_shards, degree=24,
+                                          seed=seed, device=dev)
+        engine = ShardedSearchEngine.build(ds, graph, backend=backend,
+                                           precision=precision, device=dev)
+    else:
+        graph = build_graph_index(ds.vectors, degree=24, seed=seed,
+                                  device=dev)
+        engine = SearchEngine.build(ds, graph, backend=backend, device=dev,
+                                    precision=precision)
     cfg = SearchConfig(k=k, queue_size=queue_size, pred_kind=PRED_CONTAIN)
 
     half = train_queries // 2
@@ -112,12 +130,18 @@ def main(argv=None):
                     choices=["float32", "int8", "pq"],
                     help="engine vector-store precision: compressed-domain "
                          "traversal + exact float32 rerank on completion")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="index-axis shards (>1 deploys core.sharded: "
+                         "per-shard traversal at ceil(W/S) budgets + "
+                         "cross-shard merge; per-shard skew telemetry "
+                         "shows up in --status and --prometheus)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device, which "
                          "must exist; 'cpu' runs the plain versions)")
     ap.add_argument("--status", action="store_true",
                     help="print the structured JSON health report (queue, "
-                         "calibration, drift alarms) after the run")
+                         "shard skew, calibration, drift alarms) after "
+                         "the run")
     ap.add_argument("--explain", type=int, default=0, metavar="N",
                     help="trace request lifecycles and print the first N "
                          "served timelines (admit → probe → resume slices "
@@ -136,9 +160,12 @@ def main(argv=None):
     ds, graph, engine, cfg, est = build_world(
         args.corpus, args.train_queries, args.queue_size, args.k, args.probe,
         backend=os.environ.get("REPRO_BACKEND", "persistent"),
-        precision=args.precision, device=args.device)
+        precision=args.precision, device=args.device, n_shards=args.shards)
     print(f"   device={engine.device} backend={engine.backend}")
-    if args.precision != "float32":
+    if args.shards > 1:
+        print(f"   index-axis sharded: {engine.n_shards} shards x "
+              f"{engine.shard_size} rows")
+    if args.precision != "float32" and args.shards <= 1:
         from repro_torch.quant import store_ratio
 
         print(f"   quantized store ({engine.codec_key()}): "

@@ -33,8 +33,8 @@ so there it is not a count of kernel launches.
 
 Building reports reads the final state once: the leaves it needs come to
 the host in one device-to-host transfer (`host_leaves`), after the
-search. The `QueryReport` keeps the reference's shard fields, which stay
-empty until the port shards its index, so `to_dict()` has the same keys.
+search. On a sharded engine `obs.shard.attach_shard_sections` fills the
+report's per-shard fields, whose counters sum exactly to the merged ones.
 """
 from __future__ import annotations
 
@@ -164,7 +164,8 @@ class QueryReport:
     hops: int                     # expansions performed
     features: dict = dataclasses.field(default_factory=dict)
     stages: list[StageReport] = dataclasses.field(default_factory=list)
-    # the reference's per-shard attribution (sharded engines); empty here
+    # sharded engines only (obs.shard.attach_shard_sections): per-shard
+    # attribution whose counters sum exactly to the merged ones above
     shards: list = dataclasses.field(default_factory=list)
     work_balance: float = 1.0     # total NDC / (S · max shard NDC)
     merge_pairwise: int = 0       # pairwise top-k merges performed (S−1)
@@ -193,6 +194,18 @@ class QueryReport:
             lines.append(
                 f"    {st.name:<12} ndc=+{st.ndc:<8} "
                 f"launches={st.launches:<4}{t}{extras}")
+        if self.shards:
+            lines.append(
+                f"  shards={len(self.shards)}  "
+                f"balance={self.work_balance:.3f}  "
+                f"merge={self.merge_pairwise}x pairwise "
+                f"depth={self.merge_depth}")
+            for sec in self.shards:
+                lines.append(
+                    f"    shard {sec.shard:<3} ndc={sec.ndc:<8} "
+                    f"budget={sec.budget:<8} hops={sec.hops:<6} "
+                    f"inspected={sec.n_inspected:<8} "
+                    f"terminated={sec.termination}")
         if features and self.features:
             top = sorted(self.features.items(),
                          key=lambda kv: -abs(kv[1]))[:8]

@@ -17,11 +17,13 @@ Both store the per-node reconstruction error ‖x − x̂‖², which the
 traversal sums into `q_err_sum` (the `quant_err_*` features).
 
 `quant_dist` is the plain form of the compressed distance: the dense
-backend, `init_state` and the plain versions of kernels K3, K4 and K5's
-codec branches call it. The int8 dot is an integer: here a float32 matrix
-product, exact because every partial sum is an integer below 2²⁴
-(127²·d < 2²⁴ for d ≤ 1040; int8 values are exact in TF32 too), so plain
-and kernel int8 distances agree bit for bit. The PQ lookup sum is
+backend and the plain versions of kernels K3, K4 and K5's codec branches
+call it (`init_state` takes the entry's distance from K6q rows). The
+query norms `qn` are tree sums (`tree_sum`), so a lane's value does not
+depend on how many lanes share the batch. The int8 dot is an integer:
+here a float32 matrix product, exact because every partial sum is an
+integer below 2²⁴ (127²·d < 2²⁴ for d ≤ 1040; int8 values are exact in
+TF32 too), so plain and kernel int8 distances agree bit for bit. The PQ lookup sum is
 `torch.sum`'s order here and slot order 0..S·L−1 in the kernels, as in
 the reference's kernels. `compressed_filtered_topk`, the compressed
 oracle, lives in `index.bruteforce` beside the float32 oracles and takes
@@ -45,6 +47,24 @@ from repro_torch.device import resolve_device
 _EPS = 1e-12
 MAX_INT8_DIM = 1040  # 127² · d < 2²⁴: the float32 int8 dot stays exact
 _SUB_CHUNK = 16      # PQ subspaces whose k-means run as one batch
+
+
+def tree_sum(e: torch.Tensor) -> torch.Tensor:
+    """Row sums of [B, R] by halving: pad with zeros to a power of 2, then
+    add the second half onto the first until one column is left. Kernel K5
+    sums each step's reconstruction errors in this order, so `q_err_sum`
+    is bitwise the same on the single-step and the persistent path. Zero
+    padding adds exact zeros, so a row's sum does not depend on how far it
+    is padded (the compressed scan relies on that). Every operation is
+    elementwise, so a row's sum does not depend on how many rows share
+    the call either (a torch reduction's order does on the card): the
+    query norms `qn` below are taken this way."""
+    r = e.shape[1]
+    e = torch.nn.functional.pad(e, (0, (1 << (r - 1).bit_length()) - r))
+    while e.shape[1] > 1:
+        h = e.shape[1] // 2
+        e = e[:, :h] + e[:, h:]
+    return e[:, 0]
 
 
 # ---------------------------------------------------------------- indices ----
@@ -132,7 +152,7 @@ def prep_int8(index: Int8Index, queries) -> Int8Prep:
     qs = qz * index.scale[None, :]
     sq = torch.clamp(qs.abs().max(dim=1).values / 127.0, min=_EPS)
     qq = torch.clamp(torch.round(qs / sq[:, None]), -127, 127).to(torch.int8)
-    qn = (qz * qz).sum(dim=1)
+    qn = tree_sum(qz * qz)  # a lane's bits whatever the batch width
     return Int8Prep(qq=qq, sq=sq, qn=qn)
 
 
@@ -266,11 +286,16 @@ def encode_pq(codebooks, vectors, chunk: int = 4096):
 
 def build_pq_lut(codebooks, queries):
     """Per-query inner-product table [B, S·L, Kc]; slot l·S + s holds
-    q_s · centroid_{l,s,c}."""
+    q_s · centroid_{l,s,c}, summed over the subspace's dsub coordinates in
+    order by elementwise products and adds — a lane's table has the same
+    bits whatever the batch width (a matrix product's kernel, and so its
+    rounding, depends on the batch shape)."""
     levels, s, kc, dsub = codebooks.shape
     q = _f32(queries, codebooks.device)
-    qs = q.reshape(q.shape[0], s, dsub)
-    lut = torch.einsum("bsd,lscd->blsc", qs, codebooks)
+    qs = q.reshape(q.shape[0], 1, s, 1, dsub)
+    lut = qs[..., 0] * codebooks[None, ..., 0]                # [B, L, S, Kc]
+    for j in range(1, dsub):
+        lut = lut + qs[..., j] * codebooks[None, ..., j]
     return lut.reshape(q.shape[0], levels * s, kc).contiguous()
 
 
@@ -308,7 +333,7 @@ def prepare_query(precision: str, index, queries):
     if precision == "pq":
         q = _f32(queries, index.codebooks.device)
         return PQPrep(lut=build_pq_lut(index.codebooks, q),
-                      qn=(q * q).sum(dim=1))
+                      qn=tree_sum(q * q))  # batch-width invariant
     raise ValueError(f"unknown precision {precision!r}")
 
 

@@ -1,6 +1,6 @@
 """Exact float32 rerank of a finished compressed-domain traversal.
 
-Counterpart of `repro/quant/rerank.py` (device tier). Compressed distances
+Counterpart of `repro/quant/rerank.py`. Compressed distances
 decide which nodes the traversal keeps; the rerank re-scores the final
 pool — result set ∪ predicate-valid candidate queue, deduplicated — with
 exact float32 squared L2 against the full-precision vectors and
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.distance import sqdist_bdrd
+from repro_torch.kernels.distance import sqdist_masked
 
 INF = float("inf")
 
@@ -35,8 +35,9 @@ def rerank_pool(cand_idx, cand_valid, res_idx):
 def score_pool(queries, pool, xv, k: int):
     """Exact distances to the gathered pool rows xv [B, P, d] → the stable
     ascending top-k (res_dist [B, k], res_idx [B, k]); missing entries are
-    +inf / -1."""
-    dd = torch.where(pool >= 0, sqdist_bdrd(queries, xv), INF)
+    +inf / -1. The distances come from K6 under the mask `pool >= 0`, so a
+    (query, row) pair's value does not depend on the batch width."""
+    dd = sqdist_masked(queries, xv.contiguous(), (pool >= 0).contiguous())
     sel = torch.argsort(dd, dim=1, stable=True)[:, :k]
     rd = torch.gather(dd, 1, sel)
     ri = torch.gather(pool, 1, sel)
@@ -49,4 +50,15 @@ def exact_rerank(queries, base_vectors, cand_idx, cand_valid, res_idx,
     res_idx [B, K0] → (res_dist [B, k] ascending, res_idx [B, k])."""
     pool = rerank_pool(cand_idx, cand_valid, res_idx)
     xv = base_vectors[pool.clamp(min=0).long()]                # [B, P, d]
+    return score_pool(queries.to(torch.float32), pool, xv, k)
+
+
+def exact_rerank_store(queries, store, cand_idx, cand_valid, res_idx,
+                       k: int):
+    """`exact_rerank` against a tiered vector store (`quant.tiering`): the
+    same dedup and scoring, the rows gathered by `store.gather`, which on
+    the host tier streams only the ≤ M + K pool rows a query. The rows are
+    the same bytes, so the result is bit for bit the device tier's."""
+    pool = rerank_pool(cand_idx, cand_valid, res_idx)
+    xv = store.gather(pool)
     return score_pool(queries.to(torch.float32), pool, xv, k)

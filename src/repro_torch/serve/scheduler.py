@@ -1,7 +1,8 @@
 """Cost-aware scheduler: probe → estimate → bucket → resume/requeue.
 
-Counterpart of `repro/serve/scheduler.py` on one device (an index-sharded
-engine comes with the scale-out slice). The queues, routing and
+Counterpart of `repro/serve/scheduler.py` on one device (a plain engine or
+an index-sharded one, whose per-shard NDC and bitmap counts the summary
+reports). The queues, routing and
 accounting are host code, as in the reference; every batch runs on the
 engine's device through the same `probe_and_features`, `predict_budgets`,
 `engine.search`, `scan_search` and planner routing as the one-shot
@@ -162,6 +163,10 @@ class CostAwareScheduler:
         # before results leave the scheduler
         self._codec = engine.codec_key(cfg)
         self._rerank = engine.effective_precision(cfg) != "float32"
+        # index-sharded engines (core.sharded) report their layout through
+        # the serving summary: a request's NDC spreads over n_shards
+        # traversals, which capacity planning needs to see. 1 = unsharded.
+        self._n_shards = int(getattr(engine, "n_shards", 1))
         self._persistent = getattr(
             get_backend(cfg.backend or engine.backend or "dense"),
             "persistent", False)
@@ -207,6 +212,36 @@ class CostAwareScheduler:
         early = (float(np.mean(lane_steps < steps))
                  if lane_steps.size and steps > 0 else 0.0)
         return launches, early
+
+    def _observe_shards(self, out, entry, n_real: int) -> None:
+        """Per-shard NDC deltas of one pump's real lanes (sharded engines
+        only). `out` / `entry` are the batch's exit and entry states;
+        entry=None means the batch started from scratch. Reads the
+        per-shard [B, S] counter the merge already holds — no kernel, one
+        small device-to-host copy after the pump's own readbacks. Summed
+        over pumps these add up to exactly Σ completed-request NDC."""
+        sh = getattr(out, "shard", None)
+        if sh is None or n_real <= 0:
+            return
+        cnt = sh.cnt[:n_real].cpu().numpy().astype(np.int64)   # [n, S]
+        if entry is not None:
+            cnt = cnt - entry.shard.cnt[:n_real].cpu().numpy()
+        self.metrics.observe_shard_ndc(cnt.sum(axis=0))
+
+    def _observe_shard_bitmap(self, stats, n_real: int) -> None:
+        """Per-shard popcounts of one freshly compiled filter bitmap
+        (sharded engines only): the [B, N] validity mask cut at the
+        engine's shard offsets. Called once per ScanStats compilation, so
+        each admitted filter row is counted once."""
+        if self._n_shards <= 1 or n_real <= 0:
+            return
+        ns = self.engine.shard_size
+        offs = self.engine.offsets
+        valid = stats.valid[:n_real]
+        counts = torch.stack([valid[:, int(o):int(o) + ns].sum()
+                              for o in offs[:self._n_shards]])
+        self.metrics.observe_shard_bitmap(
+            [int(c) for c in counts.cpu().numpy()])
 
     # ------------------------------------------------------------- ingress ----
     def _key_for(self, req: Request, plan: str) -> str:
@@ -380,6 +415,7 @@ class CostAwareScheduler:
             self._sync()
             budgets = budgets.cpu().numpy()
         cnt = st.cnt.cpu().numpy()
+        self._observe_shards(st, None, len(reqs))
         res_idx, res_dist = self._final_results(
             queries, st,
             any(int(budgets[i]) <= int(cnt[i]) for i in range(len(reqs))))
@@ -431,6 +467,7 @@ class CostAwareScheduler:
         prog = self.batcher.pad_program(reqs, width)
         with self._tr.span("plan-stage0", bt, lanes=len(reqs)) as sp:
             stats = scan_stats(self.engine, prog)
+            self._observe_shard_bitmap(stats, len(reqs))
             s0 = stage0_scan_mask(
                 self.planner, stats, prog, scfg.alpha, scfg.min_budget,
                 scfg.max_budget, self.device)[: len(reqs)]
@@ -465,6 +502,7 @@ class CostAwareScheduler:
         l0 = self._launches0()
         width, queries, st, feats = self._probe_batch(reqs, bt)
         cnt = st.cnt.cpu().numpy()
+        self._observe_shards(st, None, len(reqs))
         counts = np.zeros(width, np.int64)
         counts[: len(reqs)] = stats.counts
         with self._tr.span("plan-select", bt, lanes=len(reqs)):
@@ -538,6 +576,7 @@ class CostAwareScheduler:
         pad = width - len(reqs)
         if stats is None:
             stats = scan_stats(self.engine, prog)  # pads match nothing
+            self._observe_shard_bitmap(stats, len(reqs))
         elif pad:
             stats = ScanStats(
                 valid=torch.cat([stats.valid, stats.valid.new_zeros(
@@ -554,6 +593,7 @@ class CostAwareScheduler:
             self._sync()
         res_idx, res_dist = self._final_results(queries, st, True)
         cnt = st.cnt.cpu().numpy()
+        self._observe_shards(st, base, len(reqs))
         # scan has no lockstep trips; charge the service model the
         # distance-equivalent count (σ·N work / the per-trip lane degree)
         steps = int(np.ceil(stats.counts.max(initial=0)
@@ -606,6 +646,7 @@ class CostAwareScheduler:
             queries, out,
             cap is None or any(r.budget <= cap for r in reqs))
         cnt = out.cnt.cpu().numpy()
+        self._observe_shards(out, state, len(reqs))
         busy = (self.timer() - t0 if self.service_model is None
                 else self.service_model(steps, width))
         label = f"bucket{idx}" if plan == "traverse" else f"bucket{idx}:{plan}"
@@ -663,7 +704,7 @@ class CostAwareScheduler:
     def summary(self) -> dict:
         out = self.metrics.summary(self.ingress.n_shed,
                                    self.ingress.n_expired, self.cache)
-        out["n_shards"] = 1  # one index (sharded engines: scale-out slice)
+        out["n_shards"] = self._n_shards
         return out
 
     def calibration_report(self) -> dict | None:

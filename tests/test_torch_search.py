@@ -268,3 +268,18 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.quant", "repro_torch.quant.tiering", "repro_torch.kernels",
+    "repro_torch.core", "repro_torch.distributed", "repro_torch.obs",
+    "repro_torch.serve", "repro_torch.index", "repro_torch.launch.serve"])
+def test_each_module_imports_first(module):
+    """Each entry module imports in a fresh process, before any other of
+    the port's: no import cycle depends on which module a caller loads
+    first."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", f"import {module}"],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
