@@ -96,6 +96,19 @@ Phases, each printed as one JSON line with its wall seconds:
      search calls, and everything outside them) and `graph_recall` (the
      graph's neighbour recall@32 on 1024 rows by `knn_exact`, and recall@10
      of an exhaustive search under a filter every row passes);
+ 12b. the RAG tail: `lm_full_width` (olmo-1b at full width — 16 layers,
+     d 2048, vocab 50304, float32, ≈1.18 B parameters — built on the card
+     from a seeded torch.Generator: a [16, 18] prefill and 32 greedy
+     KV-cache decode steps, each step's logits within LM_TOL of a fresh
+     prefill over the same prefix and the greedy ids equal where the
+     top-2 margin exceeds it; a 2-layer full-width model on the CPU and
+     then on the card, same weights, within LM_XDEV_TOL; prefill ms and
+     decode ms a token beside their bounds, and a decode step's device
+     time by kernel), then `rag` (the first 16 contain requests through
+     the scheduler on the serving phases' engine and estimator, each bit
+     for bit its one-shot lane, K5, K2 and K6 launched; their ids as
+     context tokens for the full-width olmo-1b: retrieval p50 / p99,
+     prefill ms, decode ms a token a request);
  13. the planner path on composite And/Or/Not workloads: `plan_training`
      (256 "mixed" queries: oracle, probe and the two exhaustion resumes'
      seconds, converged shares, fit seconds); `plan_forced` (each plan
@@ -141,9 +154,10 @@ Phases, each printed as one JSON line with its wall seconds:
      kind); `shard_serve` (64 requests, lane width 16, direct: scheduled ≡
      one-shot, per-shard NDC adds up to Σ request NDC);
  15. `launcher`: `python -m repro_torch.launch.serve --status
-     --prometheus` in a child process at its default corpus, then with
-     `--shards 4`: exit 0 and a scrape that `validate_prometheus` accepts
-     (with shards, carrying `shard_ndc_total`);
+     --prometheus --gen-len 8` in a child process at its default corpus
+     (its `generation:` line required), then with `--shards 4`: exit 0
+     and a scrape that `validate_prometheus` accepts (with shards,
+     carrying `shard_ndc_total`);
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -2086,6 +2100,12 @@ def run_pipeline(args, device, k5_ms):
     run_serve_narrow(eng, est, evals["contain"],
                      persistent[("contain", 1.0)][0], probe)
     run_graph_recall(ds, eng, graph, evals["contain"], device)
+    # ---- the RAG tail: a full-width decoder LM over the served ids ----
+    lm = run_lm_full_width(device)
+    run_rag(eng, est, evals["contain"], persistent[("contain", 1.0)][0],
+            probe, lm)
+    del lm
+    torch.cuda.empty_cache()
     launches = {"fused_step": fused_counts["fused_step"],
                 "gbdt_predict": fused_counts["gbdt_predict"],
                 "persistent_multi_step": pers_counts["persistent_multi_step"],
@@ -3766,25 +3786,32 @@ def run_serve_auto(eng, est, planner, wl, planned, probe) -> dict:
     return counts
 
 
-def run_launcher(shards: int = 1) -> None:
+def run_launcher(shards: int = 1, gen_len: int = 0) -> None:
     """launcher: `python -m repro_torch.launch.serve --status --prometheus`
     on the card at its default corpus (`--shards S`: an index-sharded
-    engine, the corpus rounded up to a multiple of S), in a child process
-    (which reuses the kernels built above); it must exit 0 and its scrape
-    validate (with S > 1, carry `shard_ndc_total`)."""
+    engine, the corpus rounded up to a multiple of S; `--gen-len N`: the
+    RAG tail, olmo-1b tiny decoding N tokens over the served ids), in a
+    child process (which reuses the kernels built above); it must exit 0
+    and its scrape validate (with S > 1, carry `shard_ndc_total`; with
+    N > 0, print its `generation:` line)."""
     from repro_torch.obs import validate_prometheus
 
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--status",
-         "--prometheus", "--shards", str(shards)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
+         "--prometheus", "--shards", str(shards), "--gen-len", str(gen_len)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0, f"launcher exited {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
     out = proc.stdout
     require("== prometheus scrape\n" in out, "launcher printed no scrape")
     head, scrape = out.split("== prometheus scrape\n", 1)
+    gen = [ln for ln in scrape.splitlines() if ln.startswith("generation:")]
+    require(len(gen) == (1 if gen_len else 0),
+            f"launcher --gen-len {gen_len}: generation lines {gen}")
+    scrape = "\n".join(ln for ln in scrape.splitlines()
+                       if not ln.startswith("generation:")) + "\n"
     names = validate_prometheus(scrape)
     health = json.loads(head.split("== serving health\n", 1)[1])
     lines = [ln for ln in head.splitlines()
@@ -3795,7 +3822,7 @@ def run_launcher(shards: int = 1) -> None:
                 and health["summary"]["n_shards"] == shards,
                 f"launcher --shards {shards}: no per-shard counters")
     emit({"phase": "launcher", "seconds": time.perf_counter() - t,
-          "shards": shards,
+          "shards": shards, "gen_len": gen_len, "generation": gen,
           "returncode": proc.returncode, "scrape_valid": True,
           "metrics": len(names),
           "n_completed": health["summary"]["n_completed"],
@@ -3850,6 +3877,222 @@ def run_graph_recall(ds, eng, graph, wl, device) -> None:
           "exhaustive_ms": ms, "seconds": time.perf_counter() - t})
 
 
+# ------------------------------------------------ the LM of the RAG tail ----
+LM_ARCH = "olmo-1b"   # the reference launcher's default --arch, full width
+LM_SEED = 0           # the torch.Generator the weights are drawn from
+LM_BATCH = 16         # the rag phase's requests, one LM row each
+LM_PROMPT = 8         # prompt tokens after a request's 10 retrieved ids
+LM_DECODE = 32        # greedy tokens decoded after the prefill
+LM_TOL = 2e-3         # logits: decode step vs a fresh prefill, on the card
+LM_XDEV_TOL = 2e-3    # logits: the card vs the CPU, same weights
+LM_XDEV_LAYERS = 2    # depth of the card-vs-CPU model (full width)
+LM_XDEV_STEPS = 4     # its decode steps
+
+
+def greedy_agreement(got, want, tol: float) -> tuple[float, int]:
+    """(share of positions whose top-2 margin in `want` exceeds `tol` where
+    the argmaxes agree, the number of such positions)."""
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    same = got.argmax(-1) == want.argmax(-1)
+    n = int(sure.sum())
+    return (float((same & sure).sum()) / max(n, 1), n)
+
+
+def lm_bounds(cfg, n_params: int, param_bytes: int, b: int, s: int,
+              ctx: int) -> dict:
+    """Least times on the card: a decode step (every weight read once —
+    the tied embedding as the head —, its KV cache read at `ctx` slots)
+    and a prefill of [b, s] (the weights once; its matmuls' float32
+    operations, logits at the last position only)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    body = n_params - v * d                    # weights outside the embedding
+    kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.hd * 4
+    attn_ops = 4 * cfg.n_layers * cfg.n_heads * cfg.hd
+    dec_ops = 2 * (body + v * d) * b + attn_ops * b * ctx
+    pre_ops = 2 * body * b * s + 2 * v * d * b + attn_ops * b * s * s / 2
+    return {"decode_weight_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_ms": max((param_bytes + kv * ctx) / HBM_BYTES_PER_S,
+                                   dec_ops / FP32_FLOP_PER_S) * 1e3,
+            "decode_bound_by": ("bytes" if (param_bytes + kv * ctx)
+                                / HBM_BYTES_PER_S >= dec_ops / FP32_FLOP_PER_S
+                                else "operations"),
+            "prefill_bound_ms": max(param_bytes / HBM_BYTES_PER_S,
+                                    pre_ops / FP32_FLOP_PER_S) * 1e3,
+            "prefill_bound_by": ("bytes" if param_bytes / HBM_BYTES_PER_S
+                                 >= pre_ops / FP32_FLOP_PER_S
+                                 else "operations")}
+
+
+def run_lm_full_width(device):
+    """lm_full_width: olmo-1b at full width (16 layers, d 2048, 16 heads,
+    d_ff 8192, vocab 50304, float32, TF32 off) built on the card by
+    `build_model` from a seeded torch.Generator. A [16, 18] token batch is
+    prefilled and 32 tokens greedy-decoded with the KV cache; each decode
+    step's logits must equal the last-position logits of a fresh prefill
+    over the same prefix (teacher-forced) within LM_TOL, and the greedy
+    ids agree wherever the prefill's top-2 margin exceeds LM_TOL. Then the
+    same check across devices: a 2-layer model at full width on the CPU,
+    moved to the card, fed the CPU's greedy ids, within LM_XDEV_TOL.
+    Prefill ms (CUDA events) and decode ms a token at batch 16 (host clock
+    around the loop) beside their bounds. Returns the model (the rag
+    phase reuses it)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import generate
+
+    t = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    lm = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    s = 10 + LM_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, s)).astype(np.int32)).to(device)
+
+    generate(lm, tokens, 2)                                    # warm-up
+    run = generate(lm, tokens, LM_DECODE)
+    logits = run["logits"]
+    require(tuple(logits.shape) == (LM_BATCH, LM_DECODE + 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"lm_full_width: logits {tuple(logits.shape)} not finite")
+    seq = torch.cat([tokens, run["fed"]], dim=1)               # [B, 18+32]
+    errs, want = [], []
+    for step in range(LM_DECODE):
+        ref, _ = lm.prefill(seq[:, :s + step + 1])
+        want.append(ref[:, -1])
+        errs.append(float((logits[:, step + 1] - ref[:, -1]).abs().max()))
+    want = torch.stack(want, dim=1)
+    agree, n_sure = greedy_agreement(logits[:, 1:], want, LM_TOL)
+    decode_err = max(errs)
+    require(decode_err <= LM_TOL, f"lm_full_width: decode vs teacher-forced "
+            f"prefill differ by {decode_err} > {LM_TOL}")
+    require(agree == 1.0, f"lm_full_width: greedy ids differ from the "
+            f"teacher-forced prefill's on {1 - agree} of {n_sure} positions")
+    prefill_ms = time_cuda(lambda: lm.prefill(tokens), iters=10, warmup=2)
+    decode_ms = float(np.median([generate(lm, tokens, LM_DECODE)["decode_ms"]
+                                 for _ in range(3)])) / LM_DECODE
+    # where a decode step's time goes: device ms by kernel (torch.profiler)
+    cache = lm.init_cache(LM_BATCH, s + 1)
+    by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
+                                                        s))
+    del cache
+    busy_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+
+    t1 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_XDEV_LAYERS)
+    small = build_model(cfg2, device="cpu", generator=torch.Generator(
+        ).manual_seed(LM_SEED))
+    cpu = generate(small, tokens.cpu(), LM_XDEV_STEPS)
+    small.to(device)
+    card = generate(small, tokens, LM_XDEV_STEPS,
+                    forced=cpu["fed"].to(device))
+    xdev_err = float((card["logits"].cpu() - cpu["logits"]).abs().max())
+    xagree, x_sure = greedy_agreement(card["logits"].cpu(), cpu["logits"],
+                                      LM_XDEV_TOL)
+    del small
+    require(xdev_err <= LM_XDEV_TOL, f"lm_full_width: card vs CPU logits "
+            f"differ by {xdev_err} > {LM_XDEV_TOL}")
+    require(xagree == 1.0, f"lm_full_width: card vs CPU greedy ids differ on "
+            f"{1 - xagree} of {x_sure} positions")
+    bounds = lm_bounds(cfg, n_params, param_bytes, LM_BATCH, s, s + LM_DECODE)
+    emit({"phase": "lm_full_width", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "param_bytes": param_bytes, "build_s": build_s,
+          "batch": LM_BATCH, "prompt_tokens": s, "decoded": LM_DECODE,
+          "decode_vs_prefill_max_abs_err": decode_err,
+          "decode_vs_prefill_tol": LM_TOL,
+          "greedy_agree_where_margin_gt_tol": agree,
+          "greedy_positions_checked": n_sure,
+          "card_vs_cpu_layers": LM_XDEV_LAYERS,
+          "card_vs_cpu_steps": LM_XDEV_STEPS,
+          "card_vs_cpu_max_abs_err": xdev_err,
+          "card_vs_cpu_tol": LM_XDEV_TOL,
+          "card_vs_cpu_greedy_agree": xagree,
+          "card_vs_cpu_positions_checked": x_sure,
+          "card_vs_cpu_s": time.perf_counter() - t1,
+          "prefill_ms": prefill_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_ms_per_token_per_request": decode_ms / LM_BATCH,
+          **bounds,
+          "decode_share_of_weight_bound": (bounds["decode_weight_bound_ms"]
+                                           / decode_ms),
+          "decode_step_device_busy_ms": busy_ms,
+          "decode_step_idle_share": 1.0 - busy_ms / decode_ms,
+          "decode_step_kernel_names": len(by_kernel),
+          "decode_step_top_kernels_ms": top,
+          "seconds": time.perf_counter() - t})
+    return lm
+
+
+def run_rag(eng, est, wl, one, probe, lm) -> None:
+    """rag: the first 16 contain requests through `CostAwareScheduler`
+    (persistent, lane width 16, on the serving phases' float32 engine and
+    estimator), each bit for bit its lane of the one-shot batch, with
+    K5, K2 and K6 launched (counts set to 0 just before); each request's
+    10 retrieved ids (|id| mod vocab) and 8 prompt tokens
+    (`examples/serve_rag.py:72-75`) condition the full-width olmo-1b:
+    prefill, then 32 greedy KV-cache decode steps. Retrieval p50 / p99,
+    prefill ms and decode ms a token a request."""
+    import torch
+
+    from repro_torch.core import SearchConfig
+    from repro_torch.serve import (CostAwareScheduler, ServeConfig,
+                                   requests_from_workload)
+    from repro_torch.train import generate
+
+    t = time.perf_counter()
+    cfg = SearchConfig(k=10, queue_size=512, backend="persistent")
+    sched = CostAwareScheduler(eng, est, cfg, ServeConfig(
+        lane_width=16, probe_budget=probe, n_probes=2, alpha=1.0,
+        cache_capacity=0))
+    reqs = requests_from_workload(wl)[:LM_BATCH]
+    reset_counts()
+    wall = serve_run(sched, reqs)
+    counts = read_counts()
+    serve_equals_oneshot(reqs, _first_lanes(one, LM_BATCH), "rag")
+    need = ("persistent_multi_step", "gbdt_predict", "sqdist_masked")
+    require(all(counts[n] > 0 for n in need),
+            f"rag: a kernel of the path was never launched: {counts}")
+    vocab = lm.cfg.vocab_size
+    doc_ids = np.stack([r.res_idx for r in sorted(reqs,
+                                                  key=lambda r: r.rid)])
+    prompts = np.random.default_rng(3).integers(0, vocab,
+                                                (LM_BATCH, LM_PROMPT))
+    ctx = np.concatenate([np.abs(doc_ids) % vocab, prompts], axis=1)
+    tokens = torch.from_numpy(ctx.astype(np.int32)).to(eng.device)
+    run = generate(lm, tokens, LM_DECODE)
+    require(bool(torch.isfinite(run["logits"]).all()),
+            "rag: the LM's logits are not finite")
+    gen = run["ids"].cpu().numpy()
+    require(gen.shape == (LM_BATCH, LM_DECODE + 1)
+            and ((gen >= 0) & (gen < vocab)).all(),
+            f"rag: generated ids {gen.shape} out of range")
+    lat = sched.summary()["latency"]
+    emit({"phase": "rag", "requests": len(reqs), "lane_width": 16,
+          "backend": "persistent", "equals_oneshot_bitwise": True,
+          "launches": counts, "context_tokens": int(tokens.shape[1]),
+          "retrieval_p50_ms": lat["p50"] * 1e3,
+          "retrieval_p99_ms": lat["p99"] * 1e3,
+          "retrieval_wall_s": wall, "lm": LM_ARCH,
+          "prefill_ms": run["prefill_ms"], "decoded": LM_DECODE,
+          "decode_ms_per_token": run["decode_ms"] / LM_DECODE,
+          "decode_ms_per_token_per_request": (run["decode_ms"] / LM_DECODE
+                                              / LM_BATCH),
+          "sample": {"docs": doc_ids[0].tolist(),
+                     "generated": gen[0, :8].tolist()},
+          "seconds": time.perf_counter() - t})
+
+
 def run_phases(args, device) -> list:
     """Run every phase on the built kernels and return the `kernels`
     line's entries."""
@@ -3875,7 +4118,7 @@ def run_phases(args, device) -> list:
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r = run_pipeline(args, device, {"float32": k5["ms"],
                                                 "pq": k5q["pq"]["ms"]})
-    run_launcher()
+    run_launcher(gen_len=8)
     run_launcher(shards=SHARDS)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}

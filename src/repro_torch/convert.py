@@ -154,3 +154,52 @@ def planner_to_torch(planner) -> Planner:
                    static=estimator_to_torch(planner.static),
                    scan_dist_cost=float(planner.scan_dist_cost),
                    scan_floor=int(planner.scan_floor))
+
+
+def lm_params_to_torch(cfg, values, device=None):
+    """The reference's decoder-LM parameters → a port `DecoderLM` that
+    computes the same thing.
+
+    `values` is `split_tree(model.init_params(key))[0]` of the reference
+    as a nested dict of numpy arrays; `cfg` the port's `ArchConfig` of the
+    same architecture. Each `seg{si}/pos{pi}` leaf carries a leading
+    n_groups axis (the reference scans over groups); group g's slice
+    becomes layer g·len(period) + pi. `embed` stays tied to the head where
+    `cfg.tie_embeddings` is set."""
+    from repro_torch.models.transformer import DecoderLM
+
+    model = DecoderLM(cfg, device=device)
+    dev = model.device
+
+    def load(pd, leaves):
+        if set(pd.keys()) != set(leaves):
+            raise ValueError(f"expected leaves {sorted(pd.keys())}, got "
+                             f"{sorted(leaves)}")
+        for name, a in leaves.items():
+            t = torch.from_numpy(np.array(a, order="C"))
+            if tuple(t.shape) != tuple(pd[name].shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                                 f"{tuple(pd[name].shape)}")
+            pd[name].data.copy_(t.to(dev, pd[name].dtype))
+
+    model.embed.data.copy_(torch.from_numpy(np.array(values["embed"])).to(
+        dev, model.embed.dtype))
+    load(model.final_norm, values["final_norm"])
+    if not cfg.tie_embeddings:
+        model.head.data.copy_(torch.from_numpy(np.array(values["head"])).to(
+            dev, model.head.dtype))
+    li = 0
+    for si, seg in enumerate(model.segments):
+        sp = values[f"seg{si}"]
+        for g in range(seg.n_groups):
+            for pi in range(len(seg.period)):
+                leaf = sp[f"pos{pi}"]
+                block = model.layers[li + g * len(seg.period) + pi]
+                for part in ("norm1", "attn", "norm2", "ffn"):
+                    load(block[part], {n: np.asarray(a)[g]
+                                       for n, a in leaf[part].items()})
+        li += seg.n_groups * len(seg.period)
+    if li != len(model.layers):
+        raise ValueError(f"{li} layers in the tree, {len(model.layers)} in "
+                         "the model")
+    return model

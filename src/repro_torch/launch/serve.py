@@ -18,8 +18,13 @@ It runs on the CUDA device and raises when there is none, unless
 kernel K1, "dense" is plain PyTorch). `--shards S` > 1 deploys an
 index-axis-sharded engine (`core.sharded`, the loop over shards on one
 device); its per-shard telemetry shows in `--status` and `--prometheus`.
-The reference's `--gen-len` / `--arch` (a decoder LM over the retrieved
-ids) are not ported.
+`--gen-len N` adds the filtered-RAG tail on the same device: each served
+request's retrieved ids, as context tokens ahead of an 8-token prompt,
+condition the `tiny()` config of `--arch` (default olmo-1b; a dense
+decoder LM, weights drawn from seed 0), which prefills and greedy-decodes
+N tokens with a KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --gen-len 8 --arch olmo-1b
 """
 from __future__ import annotations
 
@@ -126,6 +131,12 @@ def main(argv=None):
     ap.add_argument("--queue-size", type=int, default=128,
                     help="search beam width M")
     ap.add_argument("--k", type=int, default=5)
+    ap.add_argument("--gen-len", type=int, default=0,
+                    help="greedy-decode N tokens of a decoder LM conditioned "
+                         "on each request's retrieved ids (the RAG tail)")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="the LM of the RAG tail (its tiny() config; dense "
+                         "family)")
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "int8", "pq"],
                     help="engine vector-store precision: compressed-domain "
@@ -242,7 +253,46 @@ def main(argv=None):
     if args.prometheus:
         print("== prometheus scrape")
         print(sched.prometheus(), end="")
+
+    if args.gen_len > 0:
+        _generate(args, reqs)
     return sched
+
+
+def _generate(args, reqs, model=None):
+    """Filtered-RAG tail: retrieved ids condition a decoder LM.
+
+    Each served request's ids (|id| mod vocab) followed by an 8-token
+    prompt (seeded numpy draws, as the reference's) are prefilled as one
+    batch; the first maximum of the logits is fed back for
+    `args.gen_len` − 1 KV-cache decode steps (`train.generate`). `model`
+    defaults to `build_model(get_arch(args.arch).tiny())` on
+    `args.device` with seed 0. Prints the `generation:` line; returns the
+    generated ids [b, gen_len] (None when no request was served)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import generate
+
+    done = [r for r in reqs if r.res_idx is not None]
+    if not done:
+        print("generation: skipped (no served requests)")
+        return None
+    if model is None:
+        model = build_model(get_arch(args.arch).tiny(), device=args.device)
+    dev, vocab = model.device, model.cfg.vocab_size
+    b = len(done)
+    doc_ids = np.stack([np.abs(r.res_idx) % vocab for r in done])
+    prompts = np.random.default_rng(0).integers(0, vocab, (b, 8))
+    tokens = torch.from_numpy(np.concatenate([doc_ids, prompts], axis=1)
+                              .astype(np.int32)).to(dev)
+    run = generate(model, tokens, args.gen_len - 1)
+    gen = run["ids"].cpu().numpy()
+    ms = run["prefill_ms"] + run["decode_ms"]
+    print(f"generation: {ms/b:.1f} ms/req ({args.gen_len} tokens, "
+          f"{model.cfg.name} tiny, {b} requests)")
+    return gen
 
 
 if __name__ == "__main__":

@@ -1,0 +1,209 @@
+"""DecoderLM — the decoder-only LM of the dense family, serving half.
+
+Counterpart of `repro/models/transformer.py`. The reference plans a model
+as segments, each a scanned stack of groups applying a static period of
+block types:
+
+  olmo/granite          period = (gqa-global+mlp,)            x L groups
+  h2o-danube3 (SWA)     period = (gqa-local+mlp,)             x L
+  gemma3 (5:1)          period = (local x5, global)           x L/6
+
+Here the same plan unrolls into an `nn.ModuleList` of layers, layer
+g·len(period) + i applying period position i of group g: no scan, and no
+remat (which only matters for training). The sharding constraints of the
+reference's backbone are no-ops on one device and are dropped; they come
+back with the mesh. Training (`loss`, the chunked cross-entropy) and the
+other families (MoE, MLA, MTP, SSM, hybrid, VLM, enc-dec) are not ported
+yet; `models.zoo.build_model` refuses them.
+
+A cache is a list with one {"k", "v"} dict per layer, [B, S, KV, hd]
+(S = min(window, capacity) for a sliding-window layer, a rolling
+buffer). Decode writes it in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import apply_norm, dense_init, init_norm
+
+
+class BlockType(NamedTuple):
+    mixer: str = "gqa"      # the only mixer ported
+    window: int = 0         # 0 = global attention
+    ffn: str = "dense"      # the only FFN ported
+
+
+class Segment(NamedTuple):
+    period: tuple           # tuple[BlockType]
+    n_groups: int
+
+
+class Ctx(NamedTuple):
+    mode: str                              # prefill | decode
+    positions: torch.Tensor | None = None  # [B, S] for prefill
+    pos: torch.Tensor | None = None        # [B] decode position
+
+
+def layer_plan(cfg: ArchConfig) -> list[Segment]:
+    """The segments of a dense-family config: global, `local` (every layer
+    a window) or `local_global` (period − 1 local layers, then a global
+    one). The reference's unrolled prefix holds MoE models' dense layers
+    only, so it is always empty here."""
+    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: layer_plan covers the dense family only")
+    if cfg.attn_kind == "local":
+        return [Segment((BlockType(window=cfg.local_window),),
+                        cfg.n_layers)]
+    if cfg.attn_kind == "local_global":
+        p = cfg.local_global_period
+        per = (BlockType(window=cfg.local_window),) * (p - 1) + (BlockType(),)
+        return [Segment(per, cfg.n_layers // p)]
+    return [Segment((BlockType(),), cfg.n_layers)]
+
+
+def _init_block(cfg: ArchConfig, generator, device) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "norm1": init_norm(cfg, cfg.d_model, device),
+        "attn": attn.init_attention(cfg, generator, device),
+        "norm2": init_norm(cfg, cfg.d_model, device),
+        "ffn": ffn_mod.init_mlp(cfg, generator, device),
+    })
+
+
+def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
+                      device) -> dict:
+    """Zero K/V for one gqa block: capacity s_max, or min(window, s_max)
+    for a sliding-window block."""
+    s = min(bt.window, s_max) if bt.window else s_max
+    shape = (b, s, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def _pad_cache_seq(full, part):
+    """Place a prefill-length cache `part` into the capacity-sized `full`
+    at t = 0, in place; returns `full`."""
+    for f, p in zip(full, part):
+        for name, t in p.items():
+            f[name][:, :t.shape[1]] = t.to(f[name].dtype)
+    return full
+
+
+class BlockApplier:
+    """Applies one gqa block in prefill or decode mode."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def __call__(self, bt: BlockType, bp, x, ctx: Ctx, cache=None):
+        cfg = self.cfg
+        h = apply_norm(cfg, bp["norm1"], x)
+        if ctx.mode == "decode":
+            out, new_cache = attn.attention_decode(
+                cfg, bp["attn"], h, cache, pos=ctx.pos, window=bt.window)
+        else:
+            out, (kk, vv) = attn.attention_forward(
+                cfg, bp["attn"], h, positions=ctx.positions,
+                window=bt.window)
+            if bt.window:  # rolling window cache: keep the last W roped keys
+                w = min(bt.window, kk.shape[1])
+                new_cache = {"k": kk[:, -w:], "v": vv[:, -w:]}
+            else:
+                new_cache = {"k": kk, "v": vv}
+        x = x + out
+        h2 = apply_norm(cfg, bp["norm2"], x)
+        return x + ffn_mod.mlp_forward(cfg, bp["ffn"], h2), new_cache
+
+
+class DecoderLM(nn.Module):
+    """The dense decoder LM on `device` (the card by default).
+
+    With a `generator`, every weight is drawn from it as the reference's
+    `init_params` draws (normal · 1/√fan_in; norms at their constants);
+    without one the weights are left uninitialised for a caller that
+    loads them (`convert.lm_params_to_torch`)."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.segments = layer_plan(cfg)
+        dev = resolve_device(device)
+        self.block_types = [bt for seg in self.segments
+                            for _ in range(seg.n_groups) for bt in seg.period]
+        d, dt = cfg.d_model, cfg.param_dtype
+        self.embed = dense_init((cfg.vocab_size, d), d, dt, generator, dev)
+        self.final_norm = init_norm(cfg, d, dev)
+        self.head = (None if cfg.tie_embeddings else
+                     dense_init((d, cfg.vocab_size), d, dt, generator, dev))
+        self.layers = nn.ModuleList(_init_block(cfg, generator, dev)
+                                    for _ in self.block_types)
+        self._applier = BlockApplier(cfg)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init_cache(self, b: int, s_max: int) -> list:
+        return [_init_block_cache(self.cfg, bt, b, s_max, self.device)
+                for bt in self.block_types]
+
+    # ---------- forward ----------
+    def _backbone(self, x, ctx: Ctx, cache=None):
+        new_cache = []
+        for li, (bt, bp) in enumerate(zip(self.block_types, self.layers)):
+            x, nc = self._applier(bt, bp, x, ctx,
+                                  None if cache is None else cache[li])
+            new_cache.append(nc)
+        return x, new_cache
+
+    def _embed(self, tokens):
+        return torch.nn.functional.embedding(
+            tokens.long(), self.embed).to(self.cfg.compute_dtype)
+
+    def _logits(self, x):
+        x = apply_norm(self.cfg, self.final_norm, x)
+        head = self.embed.T if self.cfg.tie_embeddings else self.head
+        return x @ head.to(self.cfg.compute_dtype)
+
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Full-sequence forward over tokens [B, S]; returns (last-position
+        logits [B, 1, V], a prefill-length cache: `train.serve_step.
+        generate` places it in a capacity cache before decoding)."""
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        ctx = Ctx(mode="prefill", positions=positions)
+        h, cache = self._backbone(self._embed(tokens), ctx)
+        return self._logits(h[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos):
+        """One token: tokens [B, 1] at position `pos`, a Python int (every
+        row there) or an int tensor [B]. Writes the cache in place;
+        returns (logits [B, 1, V], cache). An int position beyond a global
+        layer's capacity raises here, on the host, without waiting for the
+        card (the reference's `dynamic_update_slice` would clamp it onto
+        the last slot); a tensor's positions are the caller's to keep
+        inside it, as `train.serve_step.generate` does by sizing the
+        cache."""
+        if isinstance(pos, int):
+            caps = [c["k"].shape[1] for bt, c in zip(self.block_types, cache)
+                    if not bt.window]
+            if caps and pos >= min(caps):
+                raise ValueError(
+                    f"decode position {pos} is beyond the KV cache's "
+                    f"capacity of {min(caps)} slots")
+            pos = torch.full((tokens.shape[0],), pos, dtype=torch.int32,
+                             device=tokens.device)
+        ctx = Ctx(mode="decode", pos=pos)
+        h, cache = self._backbone(self._embed(tokens), ctx, cache)
+        return self._logits(h), cache

@@ -1,0 +1,37 @@
+"""build_model(cfg) — the single entry point from config to model."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import DecoderLM
+
+# family or feature → the ROADMAP.md item that ports it
+UNPORTED = {
+    "moe": "Queue 1, item 5b (MoE)",
+    "use_mla": "Queue 1, item 5c (MLA and MTP)",
+    "mtp": "Queue 1, item 5c (MLA and MTP)",
+    "ssm": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
+    "hybrid": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
+    "vlm": "Queue 1, item 5e (VLM cross-attention)",
+    "encdec": "Queue 1, item 5f (enc-dec)",
+}
+
+
+def build_model(cfg: ArchConfig, device=None,
+                generator: torch.Generator | None = None) -> DecoderLM:
+    """The dense decoder LM of `cfg` on `device` (the card by default),
+    its weights drawn from `generator` (default: seed 0 on that device).
+    Raises NotImplementedError for a family or feature not ported yet,
+    naming its ROADMAP.md item; nothing falls back."""
+    what = ("moe" if cfg.family == "moe" or cfg.n_experts else
+            "use_mla" if cfg.use_mla else "mtp" if cfg.mtp else cfg.family)
+    if what != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported to repro_torch yet "
+            f"(ROADMAP.md {UNPORTED.get(what, 'Queue 1, item 5')})")
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return DecoderLM(cfg, device=dev, generator=generator)

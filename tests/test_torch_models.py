@@ -1,0 +1,466 @@
+"""Parity of the port's dense decoder LM (`repro_torch.models`) with the
+reference's (`repro.models`), on the CPU.
+
+Inputs are drawn from seeded numpy generators and go through both
+packages. Module level: the three norms, `apply_rope`, `flash_attention`
+(causal and bidirectional, a window, a `q_offset`, a `kv_chunk` smaller
+than Skv and not dividing it, g > 1), `decode_attention`,
+`attention_forward` / `attention_decode` (global and windowed) and
+`mlp_forward` (SiLU-gated and GELU). Model level: the reference's
+`init_params(key(0))` carried across by `convert.lm_params_to_torch`, a
+prefill, then 6 decode steps fed the reference's greedy ids
+(teacher-forced, so a near-tie cannot fork the two trajectories), for the
+`tiny()` configs of olmo-1b (non-parametric LN, tied), granite-3-2b
+(GQA), h2o-danube-3-4b (sliding window, prefill longer than the window)
+and gemma3-12b (local/global); logits, every cache leaf and the greedy
+ids are compared.
+
+Tolerances: float32 activations and logits within atol 1e-4 + rtol 1e-4
+(XLA:CPU and torch reduce in different orders; the largest difference
+measured is 5.4e-6, at the model level); the norms and RoPE within 1e-5
+(measured ≤ 9.6e-7); greedy ids equal wherever the reference's top-2
+margin exceeds 1e-3.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import get_arch as j_get_arch
+from repro.models import attention as j_attn
+from repro.models import build_model as j_build_model
+from repro.models import common as j_common
+from repro.models import ffn as j_ffn
+from repro.models import split_tree
+from repro.models.transformer import _pad_cache_seq as j_pad_cache_seq
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.convert import lm_params_to_torch
+from repro_torch.models import attention, build_model, common, ffn
+from repro_torch.models.transformer import _pad_cache_seq
+from repro_torch.train import (generate, greedy, make_decode_step,
+                               make_prefill)
+
+ATOL = RTOL = 1e-4      # float32 activations / logits
+MARGIN = 1e-3           # greedy ids compared where the top-2 margin exceeds it
+DECODE_STEPS = 6
+DENSE = ["olmo-1b", "granite-3-2b", "h2o-danube-3-4b", "gemma3-12b"]
+# the reference's config fields for training (remat, scan) and the
+# roofline tooling (unroll_inner), neither ported yet
+NOT_PORTED_FIELDS = {"remat", "scan_layers", "unroll_inner"}
+
+
+def close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               atol=atol, rtol=rtol)
+
+
+def randn(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def both(a):
+    """One numpy array as (jax array, torch tensor)."""
+    return jnp.asarray(a), torch.from_numpy(np.array(a))
+
+
+# -------------------------------------------------------------- configs ----
+@pytest.mark.parametrize("name", sorted(J_ARCHS))
+def test_registry_matches_reference(name):
+    """Every architecture field for field, and its tiny() config (dtypes
+    as torch's float32). The reference's fields that the port does not
+    carry yet are exactly NOT_PORTED_FIELDS."""
+    port = {f.name for f in dataclasses.fields(ARCHS[name])}
+    ref = {f.name for f in dataclasses.fields(J_ARCHS[name])}
+    assert ref - port == NOT_PORTED_FIELDS and port <= ref
+    for mk in (lambda c: c, lambda c: c.tiny()):
+        want, got = mk(J_ARCHS[name]), mk(ARCHS[name])
+        for f in dataclasses.fields(got):
+            a, b = getattr(want, f.name), getattr(got, f.name)
+            if f.name in ("param_dtype", "compute_dtype"):
+                assert b == torch.float32 and np.dtype(a) == np.float32
+            else:
+                assert a == b, (name, f.name)
+        assert got.hd == want.hd
+    assert get_arch(name) is ARCHS[name]
+    cfg = get_arch(name).with_dtypes(torch.bfloat16, torch.float32)
+    assert cfg.param_dtype == torch.bfloat16
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
+
+
+# ---------------------------------------------------------------- norms ----
+@pytest.mark.parametrize("kind", ["rms", "layernorm", "nonparam"])
+def test_norms_match_reference(kind):
+    rng = np.random.default_rng(1)
+    x = randn(rng, 3, 5, 64, scale=2.0) + 0.5
+    scale, bias = randn(rng, 64, scale=0.3), randn(rng, 64, scale=0.3)
+    (jx, tx), (js, ts), (jb, tb) = both(x), both(scale), both(bias)
+    if kind == "rms":
+        want, got = j_common.rms_norm(jx, js), common.rms_norm(tx, ts)
+    elif kind == "layernorm":
+        want = j_common.layer_norm(jx, js, jb)
+        got = common.layer_norm(tx, ts, tb)
+    else:
+        want = j_common.nonparam_layer_norm(jx)
+        got = common.nonparam_layer_norm(tx)
+    close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 1000000.0])
+def test_apply_rope_matches_reference(theta):
+    rng = np.random.default_rng(2)
+    x = randn(rng, 2, 9, 4, 16)
+    pos = rng.integers(0, 300, (2, 9)).astype(np.int32)
+    (jx, tx), (jp, tp) = both(x), both(pos)
+    close(common.apply_rope(tx, tp, theta), j_common.apply_rope(jx, jp, theta),
+          atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- flash ----
+FLASH_CASES = {
+    # name: (sq, skv, h, kv, causal, window, q_offset, kv_chunk)
+    "causal": (12, 12, 4, 4, True, 0, 0, 1024),
+    "bidirectional": (12, 12, 4, 4, False, 0, 0, 1024),
+    "window": (20, 20, 4, 4, True, 5, 0, 1024),
+    "window_bidirectional": (20, 20, 4, 4, False, 6, 0, 1024),
+    "q_offset": (6, 20, 4, 4, True, 0, 14, 1024),
+    "q_offset_window": (6, 20, 4, 4, True, 4, 14, 8),
+    "chunk_not_dividing": (20, 20, 4, 4, True, 0, 0, 7),
+    "chunk_bidirectional": (13, 23, 4, 4, False, 0, 0, 5),
+    "gqa_g2": (12, 12, 4, 2, True, 0, 0, 5),
+    "gqa_g4_window": (17, 17, 8, 2, True, 6, 0, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_matches_reference(case):
+    sq, skv, h, kv, causal, window, q_offset, chunk = FLASH_CASES[case]
+    rng = np.random.default_rng(3)
+    q, k, v = (randn(rng, 2, sq, h, 16), randn(rng, 2, skv, kv, 16),
+               randn(rng, 2, skv, kv, 16))
+    (jq, tq), (jk, tk), (jv, tv) = both(q), both(k), both(v)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_chunk=chunk)
+    close(attention.flash_attention(tq, tk, tv, **kw),
+          j_attn.flash_attention(jq, jk, jv, **kw))
+
+
+def test_decode_attention_matches_reference():
+    rng = np.random.default_rng(4)
+    q, kc, vc = (randn(rng, 3, 1, 4, 16), randn(rng, 3, 10, 2, 16),
+                 randn(rng, 3, 10, 2, 16))
+    valid = np.asarray([1, 7, 10], np.int32)
+    args = [both(a) for a in (q, kc, vc, valid)]
+    close(attention.decode_attention(*(t for _, t in args)),
+          j_attn.decode_attention(*(j for j, _ in args)))
+
+
+# ------------------------------------------------------ attention layers ----
+def _layer_params(rng, cfg):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": randn(rng, d, h * hd, scale=d ** -0.5),
+            "wk": randn(rng, d, kv * hd, scale=d ** -0.5),
+            "wv": randn(rng, d, kv * hd, scale=d ** -0.5),
+            "wo": randn(rng, h * hd, d, scale=(h * hd) ** -0.5)}
+
+
+def _split(p):
+    return ({n: jnp.asarray(a) for n, a in p.items()},
+            {n: torch.from_numpy(a) for n, a in p.items()})
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_attention_forward_and_decode_match_reference(window):
+    """A GQA layer (granite tiny: 4 heads over 2 KV heads): the prefill
+    output and its K/V, then 3 decode steps into a cache of capacity 12
+    (window 5: a rolling buffer of 5 slots) — outputs and cache."""
+    jcfg, cfg = j_get_arch("granite-3-2b").tiny(), get_arch("granite-3-2b").tiny()
+    rng = np.random.default_rng(5)
+    jp, tp = _split(_layer_params(rng, cfg))
+    b, s = 2, 8
+    x = randn(rng, b, s, cfg.d_model)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    (jx, tx), (jpos, tpos) = both(x), both(pos)
+    jout, (jk, jv) = jax.jit(functools.partial(
+        j_attn.attention_forward, jcfg, window=window))(jp, jx,
+                                                        positions=jpos)
+    out, (k, v) = attention.attention_forward(cfg, tp, tx, positions=tpos,
+                                              window=window)
+    for g, w in ((out, jout), (k, jk), (v, jv)):
+        close(g, w)
+    cap = min(window, 12) if window else 12
+    keep = min(window, s) if window else s
+    jcache = {"k": jnp.zeros((b, cap, cfg.n_kv_heads, cfg.hd)),
+              "v": jnp.zeros((b, cap, cfg.n_kv_heads, cfg.hd))}
+    jcache = {n: c.at[:, :keep].set(t[:, -keep:])
+              for (n, c), t in zip(jcache.items(), (jk, jv))}
+    cache = {n: torch.from_numpy(np.array(c)) for n, c in jcache.items()}
+    j_decode = jax.jit(functools.partial(j_attn.attention_decode, jcfg,
+                                         window=window))
+    for t in range(3):
+        xt = randn(rng, b, 1, cfg.d_model)
+        p = np.full((b,), s + t, np.int32)
+        (jxt, txt), (jpt, tpt) = both(xt), both(p)
+        jo, jcache = j_decode(jp, jxt, jcache, pos=jpt)
+        o, cache = attention.attention_decode(cfg, tp, txt, cache, pos=tpt,
+                                              window=window)
+        close(o, jo)
+        for n in ("k", "v"):
+            close(cache[n], jcache[n])
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_forward_matches_reference(act):
+    base = get_arch("olmo-1b").tiny()
+    jcfg = dataclasses.replace(j_get_arch("olmo-1b").tiny(), act=act)
+    cfg = dataclasses.replace(base, act=act)
+    rng = np.random.default_rng(6)
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"w_in": randn(rng, d, f, scale=d ** -0.5),
+         "w_out": randn(rng, f, d, scale=f ** -0.5)}
+    if act == "silu":
+        p["w_gate"] = randn(rng, d, f, scale=d ** -0.5)
+    jp, tp = _split(p)
+    x = randn(rng, 2, 5, d, scale=2.0)
+    (jx, tx) = both(x)
+    close(ffn.mlp_forward(cfg, tp, tx), j_ffn.mlp_forward(jcfg, jp, jx))
+    # the port's own init draws the same leaves
+    g = torch.Generator().manual_seed(0)
+    assert set(ffn.init_mlp(cfg, g, "cpu").keys()) == set(p)
+
+
+# ---------------------------------------------------------- model level ----
+PREFILL = {"olmo-1b": 16, "granite-3-2b": 16, "h2o-danube-3-4b": 40,
+           "gemma3-12b": 40}
+
+
+def _ref_cache_layers(cache, model):
+    """The reference's cache tree {seg{si}: {pos{pi}: {k, v} [G, ...]}} as
+    the port's per-layer list (layer g·len(period) + pi)."""
+    out = []
+    for si, seg in enumerate(model.segments):
+        per = len(seg.period)
+        for g in range(seg.n_groups):
+            for pi in range(per):
+                leaf = cache[f"seg{si}"][f"pos{pi}"]
+                out.append({n: np.asarray(a)[g] for n, a in leaf.items()})
+    return out
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def trajectory(request):
+    """One config's reference run (jitted once): init_params(key(0)), a
+    prefill of PREFILL[name] seeded tokens, then DECODE_STEPS greedy
+    decode steps; the logits, caches and ids of every step."""
+    name = request.param
+    jcfg = j_get_arch(name).tiny()
+    jm = j_build_model(jcfg)
+    prm, _ = split_tree(jm.init_params(jax.random.key(0)))
+    b, s = 3, PREFILL[name]
+    tokens = np.random.default_rng(7).integers(
+        0, jcfg.vocab_size, (b, s)).astype(np.int32)
+    logits, part = jax.jit(jm.prefill)(prm, {"tokens": jnp.asarray(tokens)})
+    steps = [(np.asarray(logits), _ref_cache_layers(part, jm))]
+    cache, _ = split_tree(jm.init_cache(b, s + DECODE_STEPS))
+    cache = j_pad_cache_seq(cache, part)
+    decode = jax.jit(jm.decode_step)
+    ids = []
+    for t in range(DECODE_STEPS):
+        cur = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        ids.append(np.asarray(cur))
+        logits, cache = decode(prm, cache, cur,
+                               jnp.full((b,), s + t, jnp.int32), None)
+        steps.append((np.asarray(logits), _ref_cache_layers(cache, jm)))
+    return dict(name=name, values=jax.tree.map(np.asarray, prm),
+                tokens=tokens, steps=steps, ids=ids)
+
+
+def _assert_greedy(got_logits, want_logits):
+    want = np.asarray(want_logits)[:, -1, :]
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > MARGIN
+    got = greedy(got_logits).numpy()
+    np.testing.assert_array_equal(got[sure], want.argmax(-1)[sure])
+
+
+def test_prefill_and_decode_match_reference(trajectory):
+    """Converted parameters: prefill logits and cache, then each decode
+    step's logits, every cache leaf and the greedy ids."""
+    tr = trajectory
+    cfg = get_arch(tr["name"]).tiny()
+    model = lm_params_to_torch(cfg, tr["values"], device="cpu")
+    b, s = tr["tokens"].shape
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    logits, part = prefill(torch.from_numpy(tr["tokens"]))
+    want_logits, want_cache = tr["steps"][0]
+    close(logits, want_logits)
+    _assert_greedy(logits, want_logits)
+    assert len(part) == len(want_cache) == cfg.n_layers
+    for got, want in zip(part, want_cache):
+        for n in ("k", "v"):
+            close(got[n], want[n])
+    cache = _pad_cache_seq(model.init_cache(b, s + DECODE_STEPS), part)
+    for t, cur in enumerate(tr["ids"]):
+        logits, nxt, cache = decode(cache, torch.from_numpy(np.array(cur)),
+                                    torch.full((b,), s + t,
+                                               dtype=torch.int32))
+        want_logits, want_cache = tr["steps"][t + 1]
+        close(logits, want_logits)
+        _assert_greedy(logits, want_logits)
+        assert nxt.dtype == torch.int32 and nxt.shape == (b,)
+        for got, want in zip(cache, want_cache):
+            for n in ("k", "v"):
+                assert got[n].shape == want[n].shape
+                close(got[n], want[n])
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "granite-3-2b", "gemma3-12b"])
+def test_decode_equals_teacher_forced_prefill(name):
+    """The port alone, its own init: each decode step's logits equal the
+    last-position logits of a fresh prefill over the same prefix (every
+    prefix shorter than the window)."""
+    cfg = get_arch(name).tiny()
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+    b, s, n = 2, 6, 8
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (b, s + n)))
+    _, part = model.prefill(toks[:, :s])
+    cache = _pad_cache_seq(model.init_cache(b, s + n), part)
+    for t in range(n):
+        got, cache = model.decode_step(cache, toks[:, s + t:s + t + 1],
+                                       torch.full((b,), s + t))
+        want, _ = model.prefill(toks[:, :s + t + 1])
+        close(got, want)
+
+
+@pytest.mark.parametrize("s", [64, 40])
+def test_sliding_window_cache_after_a_long_prefill(s):
+    """h2o-danube tiny (window W = 32), a prefill of s > W tokens, one
+    decode step. Both packages agree at every s. With s % W == 0 the
+    decode equals a full forward over s + 1 tokens; with s % W ≠ 0 it does
+    not, in either package: the prefill leaves the last W keys in slots
+    0..W−1, oldest first, and decode overwrites slot s % W, which does not
+    hold the oldest key (a reference caveat, ROADMAP.md Queue 3)."""
+    name = "h2o-danube-3-4b"
+    jcfg, cfg = j_get_arch(name).tiny(), get_arch(name).tiny()
+    w = cfg.local_window
+    jm = j_build_model(jcfg)
+    prm, _ = split_tree(jm.init_params(jax.random.key(0)))
+    model = lm_params_to_torch(cfg, jax.tree.map(np.asarray, prm),
+                               device="cpu")
+    b = 2
+    toks = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    prefill = jax.jit(jm.prefill)
+    full, _ = prefill(prm, {"tokens": jnp.asarray(toks)})
+    _, jpart = prefill(prm, {"tokens": jnp.asarray(toks[:, :s])})
+    jcache, _ = split_tree(jm.init_cache(b, s + 4))
+    jcache = j_pad_cache_seq(jcache, jpart)
+    want, _ = jax.jit(jm.decode_step)(prm, jcache, jnp.asarray(toks[:, s:]),
+                                      jnp.full((b,), s, jnp.int32), None)
+    _, part = model.prefill(torch.from_numpy(toks[:, :s]))
+    cache = _pad_cache_seq(model.init_cache(b, s + 4), part)
+    got, _ = model.decode_step(cache, torch.from_numpy(toks[:, s:]),
+                               torch.full((b,), s, dtype=torch.int32))
+    close(got, want)
+    gap = float(np.abs(np.asarray(want) - np.asarray(full)).max())
+    if s % w == 0:
+        assert gap < ATOL, gap
+    else:
+        assert gap > 0.1, gap
+
+
+def test_decode_beyond_capacity_raises():
+    """A global cache of capacity C takes int positions 0..C−1; position C
+    raises on the host (the reference would clamp the write onto slot
+    C − 1) and writes nothing."""
+    cfg = get_arch("olmo-1b").tiny()
+    model = build_model(cfg, device="cpu")
+    b, s = 2, 4
+    toks = torch.zeros((b, s), dtype=torch.int64)
+    _, part = model.prefill(toks)
+    cache = _pad_cache_seq(model.init_cache(b, s + 1), part)
+    model.decode_step(cache, toks[:, :1], s)
+    before = [{n: t.clone() for n, t in c.items()} for c in cache]
+    with pytest.raises(ValueError, match="capacity"):
+        model.decode_step(cache, toks[:, :1], s + 1)
+    for c, was in zip(cache, before):
+        for n in ("k", "v"):
+            assert torch.equal(c[n], was[n])
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "h2o-danube-3-4b"])
+def test_generate_feeds_back_greedy_ids(name):
+    """`generate`: n steps inside the cache it sizes, each fed the
+    previous greedy id, each step's logits those of a fresh prefill over
+    the tokens fed so far; forced ids are fed as given."""
+    cfg = get_arch(name).tiny()
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(4))
+    b, s, n = 2, 5, 6
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32))
+    run = generate(model, toks, n)
+    assert run["logits"].shape == (b, n + 1, cfg.vocab_size)
+    assert run["ids"].dtype == torch.int32 and run["ids"].shape == (b, n + 1)
+    assert torch.equal(run["fed"], run["ids"][:, :n])
+    np.testing.assert_array_equal(run["ids"].numpy(),
+                                  run["logits"].argmax(-1).numpy())
+    seq = torch.cat([toks, run["fed"]], dim=1)
+    for t in range(n + 1):
+        want, _ = model.prefill(seq[:, :s + t])
+        close(run["logits"][:, t], want[:, -1])
+    forced = torch.flip(run["fed"], dims=[1])
+    again = generate(model, toks, n, forced=forced)
+    assert torch.equal(again["fed"], forced)
+    close(again["logits"][:, 0], run["logits"][:, 0])
+
+
+def test_greedy_takes_the_first_maximum():
+    logits = torch.tensor([[[0.0, 2.0, 2.0, 1.0]], [[5.0, 5.0, 5.0, 5.0]]])
+    np.testing.assert_array_equal(greedy(logits).numpy(), [1, 0])
+    np.testing.assert_array_equal(
+        greedy(logits).numpy(),
+        np.asarray(jnp.argmax(jnp.asarray(logits.numpy())[:, -1], axis=-1)))
+
+
+def test_port_init_draws_the_reference_distributions():
+    """build_model's own weights: the reference's leaf shapes (the
+    converter accepts them one to one), normal · 1/√fan_in, norms at
+    their constants, and the same weights for the same seed."""
+    cfg = get_arch("granite-3-2b").tiny()
+    jm = j_build_model(j_get_arch("granite-3-2b").tiny())
+    vals = jax.tree.map(np.asarray, split_tree(
+        jm.init_params(jax.random.key(0)))[0])
+    lm_params_to_torch(cfg, vals, device="cpu")   # shapes match or raise
+    m1 = build_model(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(5))
+    m2 = build_model(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(5))
+    for (n1, p1), (_, p2) in zip(m1.named_parameters(), m2.named_parameters()):
+        assert torch.equal(p1, p2), n1
+    wq = m1.layers[0]["attn"]["wq"]
+    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.1
+    assert float(m1.layers[0]["norm1"]["scale"].abs().max()) == 0.0
+    n_port = sum(p.numel() for p in m1.parameters())
+    assert n_port == sum(a.size for a in jax.tree.leaves(vals))
+
+
+UNPORTED = sorted(n for n, c in J_ARCHS.items() if c.family != "dense")
+
+
+@pytest.mark.parametrize("name", UNPORTED + ["use_mla", "mtp"])
+def test_build_model_refuses_unported_families(name):
+    """MoE, SSM, hybrid, VLM, enc-dec, MLA and MTP raise, naming their
+    ROADMAP.md item; nothing falls back to another model."""
+    if name in ("use_mla", "mtp"):
+        cfg = dataclasses.replace(get_arch("olmo-1b").tiny(), **{name: True})
+    else:
+        cfg = get_arch(name).tiny()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item 5"):
+        build_model(cfg, device="cpu")
