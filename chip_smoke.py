@@ -158,6 +158,21 @@ Phases, each printed as one JSON line with its wall seconds:
      (its `generation:` line required), then with `--shards 4`: exit 0
      and a scrape that `validate_prometheus` accepts (with shards,
      carrying `shard_ndc_total`);
+ 15b. `lm_train`, last, so that every earlier phase runs as before (TF32
+     off): olmo-1b at full width built on the card, 6 AdamW steps
+     (float32 moments, lr 3e-4, grad_accum 2, remat) on one seeded
+     [8, 64] batch — every loss finite, the last below the first —, step
+     ms and tokens/s beside the step's bound, a step under torch's sync
+     debug mode "error" (no host sync), one step's device time by kernel
+     and idle share, the state's bytes and the card's peak; 2 steps with
+     int8 moments and int8 error feedback (moment bytes against float32
+     moments); a 2-layer full-width model's loss, gradients, parameters
+     and moments after one step on the CPU and on the card, same
+     weights, within LM_TRAIN_XDEV_TOL; resume ≡ uninterrupted on that
+     model (2 steps, save, restore into a fresh model's state — equal bit
+     for bit —, 2 more, against 4 uninterrupted; LM_TRAIN_RESUME_TOL);
+     and `python -m repro_torch.launch.train` as a child process, 4
+     steps with a checkpoint every 2, then `--resume --steps 6`;
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -4093,6 +4108,349 @@ def run_rag(eng, est, wl, one, probe, lm) -> None:
           "seconds": time.perf_counter() - t})
 
 
+# ------------------------------------------------------- LM training ----
+TRAIN_BATCH, TRAIN_SEQ = 8, 64  # the reference launcher's --batch, --seq
+TRAIN_ACCUM = 2                 # microbatches a step
+TRAIN_STEPS = 6                 # steps of the full-width run
+# card vs CPU after one step of a 2-layer full-width model, same weights
+# and batch: loss (relative), each gradient and moment leaf (× its max
+# |.|), parameters (× lr) where the CPU's |g| exceeds 10× the gradient
+# tolerance (the step's sign is sure there) and everywhere (a first
+# AdamW step moves a parameter by lr·(±1 + wd·p), so a sign that ulps
+# flip moves it by at most 2·lr)
+LM_TRAIN_XDEV_TOL = {"loss": 1e-5, "grad": 1e-4, "moment": 1e-4,
+                     "param_sure": 1e-3, "param": 2.0}
+# resume vs uninterrupted, steps 3–4 (max |Δ| over every state leaf);
+# 0: bit for bit
+LM_TRAIN_RESUME_TOL = 0.0
+
+
+def state_leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(state_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in state_leaves(tree).values())
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    la, lb = state_leaves(a), state_leaves(b)
+    require(la.keys() == lb.keys(), "lm_train: state trees differ")
+    return max(float((la[k].detach().double()
+                      - lb[k].detach().to(la[k].device).double())
+                     .abs().max()) for k in la)
+
+
+def train_card_vs_cpu(cfg, tokens, device) -> dict:
+    """One AdamW step (float32 moments, grad_accum 1) of a full-width
+    model cut to LM_XDEV_LAYERS layers, on the CPU and on the card from
+    the same weights and batch; the largest differences, against
+    LM_TRAIN_XDEV_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_update,
+                                   loss_and_grads, make_init_state)
+
+    t = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_XDEV_LAYERS)
+    cpu = build_model(cfg2, device="cpu", generator=torch.Generator(
+        ).manual_seed(LM_SEED))
+    card = DecoderLM(cfg2, device=device)
+    card.load_state_dict(cpu.state_dict())
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=1)
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        st = make_init_state(m, tc)
+        loss, _, grads = loss_and_grads(m, st["params"],
+                                        {"tokens": tokens.to(m.device)})
+        adamw_update(st["params"], grads, st["opt"], tc.opt)
+        out[name] = (float(loss), grads, st)
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["card"]
+    tol, lr = LM_TRAIN_XDEV_TOL, tc.opt.lr
+    loss_err = abs(lg - lc) / abs(lc)
+    grad_err = moment_err = param_sure = param_all = 0.0
+    unsure = 0
+    for k, g in gc.items():
+        gmax = float(g.abs().max())
+        grad_err = max(grad_err, float((gg[k].cpu() - g).abs().max()) / gmax)
+        for which in ("m", "v"):
+            a, b = sc["opt"][which][k], sg["opt"][which][k].cpu()
+            moment_err = max(moment_err, float((b - a).abs().max())
+                             / float(a.abs().max()))
+        d = (sg["params"][k].detach().cpu() - sc["params"][k].detach()).abs()
+        sure = g.abs() > 10 * tol["grad"] * gmax
+        unsure += int((~sure).sum())
+        param_all = max(param_all, float(d.max()) / lr)
+        if bool(sure.any()):
+            param_sure = max(param_sure, float(d[sure].max()) / lr)
+    res = {"layers": LM_XDEV_LAYERS,
+           "params": sum(p.numel() for p in cpu.parameters()),
+           "loss_cpu": lc, "loss_card": lg, "loss_rel_err": loss_err,
+           "grad_err_of_max": grad_err, "moment_err_of_max": moment_err,
+           "param_err_sure_of_lr": param_sure, "param_err_of_lr": param_all,
+           "unsure_elements": unsure, "tol": tol,
+           "seconds": time.perf_counter() - t}
+    require(loss_err <= tol["loss"] and grad_err <= tol["grad"]
+            and moment_err <= tol["moment"] and param_sure <= tol["param_sure"]
+            and param_all <= tol["param"],
+            f"lm_train: card vs CPU beyond LM_TRAIN_XDEV_TOL: {res}")
+    return res
+
+
+def train_resume(cfg, batches, device) -> dict:
+    """Resume ≡ uninterrupted on a full-width model cut to
+    LM_XDEV_LAYERS layers: 4 steps straight; 2 steps, save, restore into
+    the state of a model drawn from another seed (every leaf must come
+    back bit for bit), 2 more steps; steps 3–4 against the straight run
+    within LM_TRAIN_RESUME_TOL. The checkpoint goes under a git-ignored
+    temporary directory, removed afterwards."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, CheckpointManager,
+                                   TrainConfig, load_state_, make_init_state,
+                                   make_train_step)
+
+    t = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_XDEV_LAYERS)
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+
+    def fresh(seed):
+        m = build_model(cfg2, device=device, generator=torch.Generator(
+            device=device).manual_seed(seed))
+        return m, make_init_state(m, tc), make_train_step(m, tc)
+
+    _, full, step = fresh(LM_SEED)
+    straight = []
+    for b in batches:
+        full, met = step(full, b)
+        straight.append(met["loss"])
+    _, state, step = fresh(LM_SEED)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_train_ckpt_", dir=root)
+    try:
+        mgr = CheckpointManager(tmp)
+        t1 = time.perf_counter()
+        path = mgr.save(2, state)
+        save_s = time.perf_counter() - t1
+        disk = os.path.getsize(os.path.join(path, "arrays.npz"))
+        _, state2, step2 = fresh(LM_SEED + 1)
+        t1 = time.perf_counter()
+        restored, manifest = mgr.restore_latest(state2)
+        load_state_(state2, restored)
+        restore_s = time.perf_counter() - t1
+        del restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    restored_err = max_abs_diff(state, state2)
+    require(restored_err == 0.0 and manifest["step"] == 2,
+            f"lm_train: restored state differs from the saved one by "
+            f"{restored_err}")
+    resumed = []
+    for b in batches[2:]:
+        state2, met = step2(state2, b)
+        resumed.append(met["loss"])
+    err = max_abs_diff(full, state2)
+    loss_err = max(abs(float(a) - float(b))
+                   for a, b in zip(straight[2:], resumed))
+    res = {"layers": LM_XDEV_LAYERS, "checkpoint_bytes": disk,
+           "save_s": save_s, "restore_s": restore_s,
+           "restored_bitwise": True, "steps_3_4_max_abs_diff": err,
+           "steps_3_4_loss_abs_diff": loss_err,
+           "steps_3_4_bitwise": err == 0.0 and loss_err == 0.0,
+           "tol": LM_TRAIN_RESUME_TOL,
+           "losses": [float(x) for x in straight],
+           "seconds": time.perf_counter() - t}
+    require(err <= LM_TRAIN_RESUME_TOL and loss_err <= LM_TRAIN_RESUME_TOL,
+            f"lm_train: resumed steps 3-4 differ from the uninterrupted "
+            f"run: {res}")
+    return res
+
+
+def train_launcher(ckpt_dir: str, *extra: str) -> subprocess.Popen:
+    """`python -m repro_torch.launch.train` (the tiny olmo-1b on the card,
+    a checkpoint every 2 steps under `ckpt_dir`) started as a child
+    process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--ckpt-every",
+         "2", "--ckpt-dir", ckpt_dir, *extra], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def launcher_output(proc: subprocess.Popen) -> list:
+    """The child's stdout lines once it has exited 0."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"train launcher {proc.args[3:]} exited "
+            f"{proc.returncode}: {err[-2000:]}")
+    return out.splitlines()
+
+
+def without_host_sync(fn):
+    """fn() with torch's sync debug mode at "error": any call that makes
+    the host wait for the card raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def run_lm_train(device) -> None:
+    """lm_train: olmo-1b at full width (float32, TF32 off) built on the
+    card from a seeded torch.Generator; TRAIN_STEPS AdamW steps (float32
+    moments at the AdamWConfig default lr 3e-4, grad_accum TRAIN_ACCUM,
+    remat) on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch: every loss
+    finite and the last below the first; step ms (host clock,
+    synchronised, median of steps 2–6) and tokens/s beside the step's
+    bound — operations 6 · (non-embedding parameters + the tied head's
+    V·d) · tokens at FP32_FLOP_PER_S, and the optimizer's bytes (p, g, m,
+    v read, p, m, v written: 28 B a parameter) at HBM_BYTES_PER_S, the
+    larger; remat's recompute is not counted —; a step that makes no host
+    sync (`without_host_sync`); one step's device time by kernel and its
+    idle share; the state's bytes and the card's peak. Then 2 steps with
+    int8 moments and int8_ef (the first without a host sync); card ≡ CPU;
+    resume ≡ uninterrupted; the train launcher (its first run beside
+    those two checks, the --resume run after them)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   make_init_state, make_train_step)
+
+    t = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    rng = np.random.default_rng(LM_SEED)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
+        device)} for _ in range(4)]
+    batch = batches[0]
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    require(cfg.remat, "lm_train: remat is off")
+    state = make_init_state(model, tc)
+    step = make_train_step(model, tc)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        (state, met), ms = wall_ms(lambda: step(state, batch))
+        losses.append(met["loss"])
+        step_ms.append(ms)
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"lm_train: losses {losses} not finite or not falling")
+    ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ops = 6 * n_params * tokens   # non-embedding + the tied head's V·d
+    opt_bytes = 28 * n_params
+    bound_ms = max(ops / FP32_FLOP_PER_S, opt_bytes / HBM_BYTES_PER_S) * 1e3
+    state, _ = without_host_sync(lambda: step(state, batch))
+    by_kernel = kernel_breakdown(lambda: step(state, batch), iters=1)
+    busy_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    moment_bytes = tree_bytes(state["opt"]["m"]) + tree_bytes(
+        state["opt"]["v"])
+    del state, step
+
+    # int8 moments and int8 error feedback at full width, 2 steps
+    tc8 = TrainConfig(opt=AdamWConfig(moment_dtype="int8"),
+                      grad_accum=TRAIN_ACCUM, grad_compression="int8_ef")
+    state8 = make_init_state(model, tc8)
+    step8 = make_train_step(model, tc8)
+    state8, met = without_host_sync(lambda: step8(state8, batch))
+    int8_losses = [met["loss"]]
+    state8, met = step8(state8, batch)
+    int8_losses.append(met["loss"])
+    int8_losses = [float(x) for x in torch.stack(int8_losses).cpu()]
+    require(all(np.isfinite(int8_losses)),
+            f"lm_train: int8 moments gave losses {int8_losses}")
+    int8_moment_bytes = tree_bytes(state8["opt"]["m"]) + tree_bytes(
+        state8["opt"]["v"])
+    peak = torch.cuda.max_memory_allocated()
+    del state8, step8, model
+    torch.cuda.empty_cache()
+
+    # the launcher, 4 steps with a checkpoint every 2 (beside the next
+    # two checks), then --resume --steps 6
+    t1 = time.perf_counter()
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="lm_train_launcher_", dir=root)
+    first = train_launcher(ckpt, "--steps", "4")
+    try:
+        xdev = train_card_vs_cpu(cfg, batch["tokens"], device)
+        torch.cuda.empty_cache()
+        resume = train_resume(cfg, batches, device)
+        torch.cuda.empty_cache()
+        runs = [launcher_output(first), launcher_output(
+            train_launcher(ckpt, "--steps", "6", "--resume"))]
+    finally:
+        if first.poll() is None:
+            first.kill()
+            first.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = [ln for ln in runs[1] if ln.startswith("resumed from step")]
+    require(resumed == ["resumed from step 4"]
+            and not any("resumed" in ln for ln in runs[0]),
+            f"train launcher: resume lines {resumed}")
+    launcher = {"first": runs[0], "resumed": runs[1],
+                "seconds": time.perf_counter() - t1}
+    emit({"phase": "lm_train", "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "grad_accum": TRAIN_ACCUM, "remat": cfg.remat, "lr": tc.opt.lr,
+          "losses": losses, "step_ms": step_ms, "step_ms_median_2_6": ms,
+          "step_host_syncs": 0,
+          "tokens_per_s": tokens / ms * 1e3,
+          "bound_ms": bound_ms, "bound_ops": ops, "bound_bytes": opt_bytes,
+          "bound_by": ("operations" if ops / FP32_FLOP_PER_S
+                       >= opt_bytes / HBM_BYTES_PER_S else "bytes"),
+          "share_of_bound": bound_ms / ms,
+          "step_device_busy_ms": busy_ms,
+          "step_idle_share": 1.0 - busy_ms / ms,
+          "step_kernel_names": len(by_kernel),
+          "step_top_kernels_ms": top,
+          "state_bytes_p_g_m_v": 2 * param_bytes + moment_bytes,
+          "moment_bytes_float32": moment_bytes,
+          "moment_bytes_int8": int8_moment_bytes,
+          "int8_ef_losses": int8_losses,
+          "torch_max_allocated_mib": peak / 2**20,
+          "card_vs_cpu": xdev, "resume": resume, "launcher": launcher,
+          "seconds": time.perf_counter() - t})
+
+
 def run_phases(args, device) -> list:
     """Run every phase on the built kernels and return the `kernels`
     line's entries."""
@@ -4120,6 +4478,7 @@ def run_phases(args, device) -> list:
                                                 "pq": k5q["pq"]["ms"]})
     run_launcher(gen_len=8)
     run_launcher(shards=SHARDS)
+    run_lm_train(device)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")

@@ -2,11 +2,12 @@
 
 Counterpart of `repro/configs/base.py`: the same frozen dataclass, with
 `param_dtype` / `compute_dtype` as torch dtypes. `tiny()` derives the
-reduced same-family config the CPU tests use. The reference's `remat` and
-`scan_layers` come back with training (ROADMAP.md Queue 1, item 5a);
-its `unroll_inner`, `ShapeConfig` grid and analytic parameter counts
-(`n_params`, `n_active_params`) belong to the dry-run / roofline tooling,
-which is not ported yet (item 5g).
+reduced same-family config the CPU tests use. `remat` checkpoints each
+period of layers in training (`DecoderLM.loss`). The reference's
+`scan_layers` is not carried: nothing reads it (the port unrolls its
+layers). Its `unroll_inner`, `ShapeConfig` grid and analytic parameter
+counts (`n_params`, `n_active_params`) belong to the dry-run / roofline
+tooling, which is not ported yet (ROADMAP.md Queue 1, item 5g).
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ class ArchConfig:
     sub_quadratic: bool = False     # eligible for long_500k
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    remat: bool = True              # recompute each period on backward
     source: str = ""                # provenance note
 
     @property

@@ -156,6 +156,83 @@ def planner_to_torch(planner) -> Planner:
                    scan_floor=int(planner.scan_floor))
 
 
+_LM_PARTS = ("norm1", "attn", "norm2", "ffn")
+
+
+def _lm_tree(model, leaf, stack):
+    """The reference's parameter tree of `model`: leaf(port parameter
+    name) at each leaf; a `seg{si}/pos{pi}` leaf, which carries a leading
+    n_groups axis in the reference (it scans over groups), is
+    stack([leaf of layer g·len(period) + pi for each group g]). Empty
+    norm dicts (non-parametric LN) stay as {}."""
+    tree = {"embed": leaf("embed"),
+            "final_norm": {n: leaf(f"final_norm.{n}")
+                           for n in model.final_norm}}
+    if not model.cfg.tie_embeddings:
+        tree["head"] = leaf("head")
+    li = 0
+    for si, seg in enumerate(model.segments):
+        per = len(seg.period)
+        tree[f"seg{si}"] = {
+            f"pos{pi}": {part: {n: stack([
+                leaf(f"layers.{li + g * per + pi}.{part}.{n}")
+                for g in range(seg.n_groups)])
+                for n in model.layers[li + pi][part]}
+                for part in _LM_PARTS}
+            for pi in range(per)}
+        li += seg.n_groups * per
+    return tree
+
+
+def _lm_names(model) -> dict:
+    """`_lm_tree` with port parameter names at its leaves (a list of
+    names, one a group, for a stacked leaf)."""
+    return _lm_tree(model, lambda n: n, list)
+
+
+def _stack(xs):
+    if isinstance(xs[0], dict):
+        return {k: _stack([x[k] for x in xs]) for k in xs[0]}
+    return np.stack(xs)
+
+
+def _walk(names, values, fn, where: str = "") -> None:
+    """fn(port name, the reference's leaf) for every leaf of the names
+    tree, a stacked leaf split by group; raises ValueError where the
+    reference's tree holds other keys or group counts. A leaf may be a
+    dict ({"q", "scale"} of an int8 moment)."""
+    if isinstance(names, dict):
+        if not isinstance(values, dict) or set(names) != set(values):
+            got = sorted(values) if isinstance(values, dict) else values
+            raise ValueError(f"{where or 'tree'}: expected keys "
+                             f"{sorted(names)}, got {got}")
+        for k in names:
+            _walk(names[k], values[k], fn, f"{where}/{k}")
+    elif isinstance(names, list):
+        for g, n in enumerate(names):
+            fn(n, _take(values, g, len(names), where))
+    else:
+        fn(names, values)
+
+
+def _take(v, g: int, n_groups: int, where: str):
+    if isinstance(v, dict):
+        return {k: _take(x, g, n_groups, where) for k, x in v.items()}
+    a = np.asarray(v)
+    if a.shape[0] != n_groups:
+        raise ValueError(f"{where}: {a.shape[0]} groups in the tree, "
+                         f"{n_groups} in the model")
+    return a[g]
+
+
+def _copy_into(dst: torch.Tensor, a, name: str) -> None:
+    t = torch.from_numpy(np.array(a, order="C"))
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(dst.shape)}")
+    dst.data.copy_(t.to(dst.device, dst.dtype))
+
+
 def lm_params_to_torch(cfg, values, device=None):
     """The reference's decoder-LM parameters → a port `DecoderLM` that
     computes the same thing.
@@ -169,37 +246,79 @@ def lm_params_to_torch(cfg, values, device=None):
     from repro_torch.models.transformer import DecoderLM
 
     model = DecoderLM(cfg, device=device)
-    dev = model.device
-
-    def load(pd, leaves):
-        if set(pd.keys()) != set(leaves):
-            raise ValueError(f"expected leaves {sorted(pd.keys())}, got "
-                             f"{sorted(leaves)}")
-        for name, a in leaves.items():
-            t = torch.from_numpy(np.array(a, order="C"))
-            if tuple(t.shape) != tuple(pd[name].shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                                 f"{tuple(pd[name].shape)}")
-            pd[name].data.copy_(t.to(dev, pd[name].dtype))
-
-    model.embed.data.copy_(torch.from_numpy(np.array(values["embed"])).to(
-        dev, model.embed.dtype))
-    load(model.final_norm, values["final_norm"])
-    if not cfg.tie_embeddings:
-        model.head.data.copy_(torch.from_numpy(np.array(values["head"])).to(
-            dev, model.head.dtype))
-    li = 0
-    for si, seg in enumerate(model.segments):
-        sp = values[f"seg{si}"]
-        for g in range(seg.n_groups):
-            for pi in range(len(seg.period)):
-                leaf = sp[f"pos{pi}"]
-                block = model.layers[li + g * len(seg.period) + pi]
-                for part in ("norm1", "attn", "norm2", "ffn"):
-                    load(block[part], {n: np.asarray(a)[g]
-                                       for n, a in leaf[part].items()})
-        li += seg.n_groups * len(seg.period)
-    if li != len(model.layers):
-        raise ValueError(f"{li} layers in the tree, {len(model.layers)} in "
-                         "the model")
+    params = dict(model.named_parameters())
+    _walk(_lm_names(model), values,
+          lambda n, a: _copy_into(params[n], a, n))
     return model
+
+
+def lm_train_state_to_torch(cfg, tc, values, device=None):
+    """The reference's train state → (a port `DecoderLM`, its train state
+    from `train.make_init_state(model, tc)`) holding the same values.
+
+    `values` is `split_tree(make_init_state(model, tc)(key))[0]` of the
+    reference, or a state after steps, as a nested dict of numpy arrays:
+    "params", "opt" ({"m", "v", "count"}; under int8 moments each moment
+    leaf is {"q", "scale"}), "step" and, under "int8_ef", "ef_error".
+    Every tree of parameter shape is unstacked as `lm_params_to_torch`
+    unstacks the parameters."""
+    from repro_torch.train.train_step import make_init_state
+
+    model = lm_params_to_torch(cfg, values["params"], device)
+    state = make_init_state(model, tc)
+    if set(values) != set(state):
+        raise ValueError(f"state keys {sorted(values)}, expected "
+                         f"{sorted(state)}")
+    names = _lm_names(model)
+
+    def load(dst: dict):
+        def fn(n, a):
+            if isinstance(dst[n], dict):
+                for k in dst[n]:
+                    _copy_into(dst[n][k], a[k], f"{n}/{k}")
+            else:
+                _copy_into(dst[n], a, n)
+        return fn
+
+    for which in ("m", "v"):
+        _walk(names, values["opt"][which], load(state["opt"][which]))
+    if "ef_error" in state:
+        _walk(names, values["ef_error"], load(state["ef_error"]))
+    state["opt"]["count"].fill_(int(np.asarray(values["opt"]["count"])))
+    state["step"].fill_(int(np.asarray(values["step"])))
+    return model, state
+
+
+def lm_leaves_to_numpy(model, leaves: dict) -> dict:
+    """{port parameter name: tensor, or {"q", "scale"} of an int8 moment}
+    (parameters, gradients, moments) → the reference's parameter tree of
+    numpy arrays, the per-layer leaves stacked into `seg{si}/pos{pi}`
+    leaves over groups, bfloat16 as float32."""
+    def leaf(n):
+        v = leaves[n]
+        if isinstance(v, dict):
+            return {k: _numpy(x) for k, x in v.items()}
+        return _numpy(v)
+
+    return _lm_tree(model, leaf, _stack)
+
+
+def lm_train_state_to_numpy(model, state) -> dict:
+    """A port train state → the reference's layout as nested numpy arrays
+    (the inverse of `lm_train_state_to_torch`)."""
+    opt = state["opt"]
+    out = {"params": lm_leaves_to_numpy(model, state["params"]),
+           "opt": {"m": lm_leaves_to_numpy(model, opt["m"]),
+                   "v": lm_leaves_to_numpy(model, opt["v"]),
+                   "count": _numpy(opt["count"])},
+           "step": _numpy(state["step"])}
+    if "ef_error" in state:
+        out["ef_error"] = lm_leaves_to_numpy(model, state["ef_error"])
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()

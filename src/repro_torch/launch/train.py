@@ -1,0 +1,94 @@
+"""Training launcher: seeded token batches → train step → checkpoints
+and restart → straggler monitor, on one device.
+
+Counterpart of `repro/launch/train.py` without the mesh (which comes
+with ROADMAP.md Queue 1, items 3 and 5h). It trains the `tiny()` config
+of `--arch` unless `--full-config` is given, on the CUDA device, and
+raises when there is none unless `--device cpu` is given. Families that
+`models.build_model` refuses raise here too.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+        --steps 50 --batch 8 --seq 64 [--full-config] [--resume]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--full-config", action="store_true",
+                    help="the architecture at its published size")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device, which "
+                         "must exist)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.fault_tolerance import StepMonitor
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, CheckpointManager,
+                                   TrainConfig, load_state_, make_init_state,
+                                   make_train_step)
+
+    cfg = get_arch(args.arch)
+    if not args.full_config:
+        cfg = cfg.tiny()
+    model = build_model(cfg, device=args.device)
+    dev = model.device
+    tc = TrainConfig(opt=AdamWConfig(lr=args.lr), grad_accum=args.grad_accum)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"device {dev} ({kind}), {cfg.name}"
+          f"{'' if args.full_config else ' tiny'}: "
+          f"{sum(p.numel() for p in model.parameters())} parameters")
+
+    state = make_init_state(model, tc)
+    mgr = CheckpointManager(args.ckpt_dir, keep=3)
+    start = 0
+    if args.resume and mgr.latest_step() is not None:
+        restored, manifest = mgr.restore_latest(state)
+        load_state_(state, restored)
+        start = manifest["step"]
+        print(f"resumed from step {start}")
+
+    step_fn = make_train_step(model, tc)
+    rng = np.random.default_rng(0)
+    mon = StepMonitor()
+    t0 = time.time()
+    for i in range(start, args.steps):
+        tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+        mon.start()
+        state, metrics = step_fn(state, batch)
+        ev = mon.stop()
+        if ev:
+            print(f"[straggler] step {ev.step}: {ev.duration:.2f}s "
+                  f"(median {ev.median:.2f}s) — rollback candidates ready")
+        if (i + 1) % 10 == 0:
+            print(f"step {i+1:4d} loss={float(metrics['loss']):.4f} "
+                  f"({(time.time()-t0)/(i+1-start):.2f}s/step)")
+        if (i + 1) % args.ckpt_every == 0:
+            path = mgr.save(i + 1, state)
+            print(f"checkpoint -> {path}")
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

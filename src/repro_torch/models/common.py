@@ -6,6 +6,9 @@ Counterpart of `repro/models/common.py`. Parameters live in
 ParameterDict or a plain dict of tensors. Every init helper draws from an
 explicit `torch.Generator`; `jax.random` cannot be reproduced in torch,
 so parity with the reference goes through `convert.lm_params_to_torch`.
+Parameters are trainable (`requires_grad`); the serving entry points
+(`DecoderLM.prefill` / `decode_step`, `train.serve_step.generate`) run
+under `torch.no_grad`, so serving builds no autograd graph.
 """
 from __future__ import annotations
 
@@ -23,18 +26,15 @@ def dense_init(shape, in_axis_size: int, dtype,
     left uninitialised, for a caller that loads its values
     (`convert.lm_params_to_torch`)."""
     if generator is None:
-        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                            requires_grad=False)
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     v = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     v = v * (1.0 / math.sqrt(max(in_axis_size, 1)))
-    return nn.Parameter(v.to(device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(v.to(device=device, dtype=dtype))
 
 
 def _fill(shape, value: float, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------- norms ----

@@ -1,4 +1,5 @@
-"""DecoderLM — the decoder-only LM of the dense family, serving half.
+"""DecoderLM — the decoder-only LM of the dense family: training loss,
+prefill and KV-cache decode.
 
 Counterpart of `repro/models/transformer.py`. The reference plans a model
 as segments, each a scanned stack of groups applying a static period of
@@ -9,12 +10,15 @@ block types:
   gemma3 (5:1)          period = (local x5, global)           x L/6
 
 Here the same plan unrolls into an `nn.ModuleList` of layers, layer
-g·len(period) + i applying period position i of group g: no scan, and no
-remat (which only matters for training). The sharding constraints of the
-reference's backbone are no-ops on one device and are dropped; they come
-back with the mesh. Training (`loss`, the chunked cross-entropy) and the
-other families (MoE, MLA, MTP, SSM, hybrid, VLM, enc-dec) are not ported
-yet; `models.zoo.build_model` refuses them.
+g·len(period) + i applying period position i of group g, with no scan.
+In training (`loss`) with `cfg.remat`, each group's layers are
+checkpointed together and recomputed on backward, as the reference
+checkpoints each scanned group; the cross-entropy runs over sequence
+chunks, each recomputed on backward, so no [B, S, V] logits tensor is
+held. The sharding constraints of the reference's backbone are no-ops on
+one device and are dropped; they come back with the mesh. The other
+families (MoE, MLA, MTP, SSM, hybrid, VLM, enc-dec) are not ported yet;
+`models.zoo.build_model` refuses them.
 
 A cache is a list with one {"k", "v"} dict per layer, [B, S, KV, hd]
 (S = min(window, capacity) for a sliding-window layer, a rolling
@@ -25,7 +29,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -46,8 +52,8 @@ class Segment(NamedTuple):
 
 
 class Ctx(NamedTuple):
-    mode: str                              # prefill | decode
-    positions: torch.Tensor | None = None  # [B, S] for prefill
+    mode: str                              # train | prefill | decode
+    positions: torch.Tensor | None = None  # [B, S] for train / prefill
     pos: torch.Tensor | None = None        # [B] decode position
 
 
@@ -98,7 +104,8 @@ def _pad_cache_seq(full, part):
 
 
 class BlockApplier:
-    """Applies one gqa block in prefill or decode mode."""
+    """Applies one gqa block in train, prefill or decode mode (train
+    builds no cache and returns None for it)."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -113,7 +120,9 @@ class BlockApplier:
             out, (kk, vv) = attn.attention_forward(
                 cfg, bp["attn"], h, positions=ctx.positions,
                 window=bt.window)
-            if bt.window:  # rolling window cache: keep the last W roped keys
+            if ctx.mode == "train":
+                new_cache = None
+            elif bt.window:  # rolling window cache: the last W roped keys
                 w = min(bt.window, kk.shape[1])
                 new_cache = {"k": kk[:, -w:], "v": vv[:, -w:]}
             else:
@@ -165,6 +174,29 @@ class DecoderLM(nn.Module):
             new_cache.append(nc)
         return x, new_cache
 
+    def _train_backbone(self, x, ctx: Ctx):
+        """The backbone in train mode, group by group; with `cfg.remat`
+        each group (one period of layers) is checkpointed, keeping only
+        its input for backward."""
+        start = 0
+        for seg in self.segments:
+            per = len(seg.period)
+            for _ in range(seg.n_groups):
+                group = range(start, start + per)
+                if self.cfg.remat:
+                    x = checkpoint(self._group, x, group, ctx,
+                                   use_reentrant=False)
+                else:
+                    x = self._group(x, group, ctx)
+                start += per
+        return x
+
+    def _group(self, x, layers, ctx: Ctx):
+        for li in layers:
+            x, _ = self._applier(self.block_types[li], self.layers[li], x,
+                                 ctx)
+        return x
+
     def _embed(self, tokens):
         return torch.nn.functional.embedding(
             tokens.long(), self.embed).to(self.cfg.compute_dtype)
@@ -173,6 +205,28 @@ class DecoderLM(nn.Module):
         x = apply_norm(self.cfg, self.final_norm, x)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return x @ head.to(self.cfg.compute_dtype)
+
+    def loss(self, batch):
+        """Next-token cross-entropy over tokens [B, S] (`batch["tokens"]`):
+        labels shifted by one, the last position masked. Returns (loss,
+        {"ce", "aux"}), 0-d float32 tensors; `aux`, the MoE router loss,
+        is 0 in the dense family, and loss = ce + router_aux_weight·aux."""
+        cfg = self.cfg
+        if cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: the MTP head is not ported to repro_torch yet "
+                "(ROADMAP.md Queue 1, item 5c (MLA and MTP))")
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h = self._train_backbone(self._embed(tokens),
+                                 Ctx(mode="train", positions=positions))
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+        mask[:, -1] = 0.0
+        ce = _xent_chunked(self._logits, h, labels, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens):
@@ -207,3 +261,43 @@ class DecoderLM(nn.Module):
         ctx = Ctx(mode="decode", pos=pos)
         h, cache = self._backbone(self._embed(tokens), ctx, cache)
         return self._logits(h), cache
+
+
+def _xent(logits, labels):
+    """Mean cross-entropy of logits [..., V] against labels [...], in
+    float32."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def _xent_chunk(head_fn, hh, ll, mm):
+    """(masked cross-entropy sum, mask sum) of one sequence chunk."""
+    logits = head_fn(hh).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ll[..., None].long())[..., 0]
+    return ((lse - gold) * mm).sum(), mm.sum()
+
+
+def _xent_chunked(head_fn, h, labels, mask, chunk: int = 512):
+    """Masked mean cross-entropy of head_fn(h) over sequence chunks of
+    `chunk` positions (the last one padded and masked), float32 sums
+    carried in chunk order. Each chunk is recomputed on backward, so at
+    most one chunk's [B, chunk, V] logits is live."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(nc):
+        sl = slice(j * c, (j + 1) * c)
+        ce, n = checkpoint(_xent_chunk, head_fn, h[:, sl], labels[:, sl],
+                           mask[:, sl], use_reentrant=False)
+        tot, cnt = tot + ce, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

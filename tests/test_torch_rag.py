@@ -159,7 +159,7 @@ def test_generate_builds_its_own_model(served):
 
 
 EXAMPLES = ["serve_rag_torch.py", "quickstart_torch.py",
-            "adaptive_termination_demo_torch.py"]
+            "adaptive_termination_demo_torch.py", "train_tiny_lm_torch.py"]
 PORT_TREES = ["src/repro_torch/configs", "src/repro_torch/models",
               "src/repro_torch/train", "src/repro_torch/launch",
               "src/repro_torch/convert.py"]
