@@ -59,8 +59,10 @@ Phases, each printed as one JSON line with its wall seconds:
   8. dataset, graph build, ground truth (the exact oracle on K6's row-id
      variant) and estimator training, with the share of training lanes
      whose exhaustive traversal reaches recall 10/10 beside the share
-     whose W_q label converged; K2 on the trained forest, bit for bit the
-     tree-order sum (`k2_trained_check`);
+     whose W_q label converged, and the share of the first PLAIN_LABELS =
+     128 labels that the plain path gives alike;
+     K2 on the trained forest, bit for bit the tree-order sum
+     (`k2_trained_check`);
   9. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
      contain-label and a range workload of 64 lanes each: recall@10, mean
      NDC, e2e ms (median of 3 calls), per-stage ms (a separate stage-by-
@@ -79,7 +81,9 @@ Phases, each printed as one JSON line with its wall seconds:
  11. a `profile` line per backend (fused, persistent) for one batch:
      device busy ms, idle share, kernel launches per lockstep step,
      host-to-device copies, and forest uploads, which must be 0 (the
-     estimator keeps its forest on the card after its first call);
+     estimator keeps its forest on the card after its first call); the
+     profiler traces the card's activity only (the host's op events of
+     the fused batch took 20–28 s more to gather);
  12. observability and serving on the persistent path: `obs_e2e`
      (contain α=1 through `e2e_search` plain and with a tracer and
      explain=True: every SearchState field and dispatch_counters delta
@@ -123,7 +127,9 @@ Phases, each printed as one JSON line with its wall seconds:
      resubmission hits the cache with identical results; the plan mix);
  14. per codec (int8, PQ): the quantized engine's build (seconds,
      `index_nbytes`, `store_ratio`), training labels with the compressed
-     target, the estimator, and `e2e_search` with the terminal rerank on
+     target on the first QUANT_TRAIN = 128 of the 512 training queries
+     (a depth cut), the estimator, and `e2e_search` with the
+     terminal rerank on
      contain and range at α=1 with backends fused (K3 / K4), persistent
      (K5's codec branch; every SearchState field equal to fused's, bit
      for bit) and dense (≥ 95% of lanes identical to fused, recall
@@ -155,9 +161,11 @@ Phases, each printed as one JSON line with its wall seconds:
      one-shot, per-shard NDC adds up to Σ request NDC);
  15. `launcher`: `python -m repro_torch.launch.serve --status
      --prometheus --gen-len 8` in a child process at its default corpus
-     (its `generation:` line required), then with `--shards 4`: exit 0
-     and a scrape that `validate_prometheus` accepts (with shards,
-     carrying `shard_ndc_total`);
+     (its `generation:` line required), then with `--shards 4 --arch
+     phi3.5-moe-42b-a6.6b` (the MoE's tiny config decodes behind the
+     sharded retrieval; its `generation:` line required): exit 0 and a
+     scrape that `validate_prometheus` accepts (with shards, carrying
+     `shard_ndc_total`);
  15b. `lm_train`, last, so that every earlier phase runs as before (TF32
      off): olmo-1b at full width built on the card, 6 AdamW steps
      (float32 moments, lr 3e-4, grad_accum 2, remat) on one seeded
@@ -173,6 +181,29 @@ Phases, each printed as one JSON line with its wall seconds:
      for bit —, 2 more, against 4 uninterrupted; LM_TRAIN_RESUME_TOL);
      and `python -m repro_torch.launch.train` as a child process, 4
      steps with a checkpoint every 2, then `--resume --steps 6`;
+ 15c. `lm_moe`, last (TF32 off), on a card holding no earlier
+     model: phi3.5-moe-42b-a6.6b at full width (d 4096, 32 heads / 8 KV
+     heads of 128, 16 experts top-2 of d_ff 6400, vocab 32064, untied,
+     float32) from a seeded generator. (a) Serving, depth cut to 8 of 32
+     layers (42.66 GB; all 32 are 168 GB): the rag phase's 16 requests'
+     ids and 8 prompt tokens prefilled, 32 greedy decode steps, every
+     logit finite; decode ≡ a teacher-forced prefill within LM_TOL on
+     the rows whose prefill dropped no assignment, at the published
+     capacity factor and, same weights, at capacity factor E/k for 8
+     steps (no drop possible; ≥ 8 rows compared), drops a row printed;
+     prefill ms and decode ms a token beside the weight-read and the
+     padded-work bounds; a decode step's device time by kernel. (b) One
+     full-width MoE layer on the card and the CPU, same weights, [2, 32]
+     (cap 8): forward with the aux loss and the gradients of Σ out·r +
+     aux; ids and keep equal where the routing gaps exceed 1e-6, out, aux
+     and every gradient within MOE_XDEV_TOL. (c) Training, depth cut to 2
+     layers (2.86 B parameters): 6 AdamW steps (float32 moments, lr 3e-4,
+     grad_accum 2, remat) on one seeded [8, 64] batch, losses and aux
+     finite and falling, step ms and tokens/s beside the step's bound, a
+     step under sync debug mode "error", a step's kernels and idle share,
+     state bytes and peak; resume ≡ uninterrupted bit for bit at 1 layer
+     (the state after 2 steps copied on the card, restored after the
+     uninterrupted 2 more);
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -1937,9 +1968,11 @@ def run_pipeline(args, device, k5_ms):
     train_s = time.perf_counter() - t
     est = CostEstimator.fit(td.features, td.w_q, n_trees=200, depth=5)
     fit_s = time.perf_counter() - t - train_s
-    # the same labels through the plain path: how often W_q differs when
-    # the traversal's distances come from K1 instead of plain PyTorch
-    td_plain = generate_training_data(eng, ds, wl_train,
+    # the first chunk's labels through the plain path: how often W_q
+    # differs when the traversal's distances come from K1 instead of plain
+    # PyTorch (PLAIN_LABELS queries, a depth cut)
+    td_plain = generate_training_data(eng, ds,
+                                      first_queries(wl_train, PLAIN_LABELS),
                                       SearchConfig(k=10, queue_size=512,
                                                    backend="dense"),
                                       probe_budget=probe, chunk=128,
@@ -1949,7 +1982,8 @@ def run_pipeline(args, device, k5_ms):
           "converged_frac": float(td.converged.mean()),
           "w_q_median": float(np.median(td.w_q)),
           "w_q_equal_plain_vs_kernel_frac": float(
-              (td.w_q == td_plain.w_q).mean()),
+              (td.w_q[:PLAIN_LABELS] == td_plain.w_q).mean()),
+          "w_q_plain_queries": int(td_plain.w_q.shape[0]),
           "features": int(td.features.shape[1]),
           **convergence_check(eng, wl_train, td, probe, chunk=128)})
     k2_trained_check(est, td.features, device)
@@ -2117,8 +2151,8 @@ def run_pipeline(args, device, k5_ms):
     run_graph_recall(ds, eng, graph, evals["contain"], device)
     # ---- the RAG tail: a full-width decoder LM over the served ids ----
     lm = run_lm_full_width(device)
-    run_rag(eng, est, evals["contain"], persistent[("contain", 1.0)][0],
-            probe, lm)
+    rag_ids = run_rag(eng, est, evals["contain"],
+                      persistent[("contain", 1.0)][0], probe, lm)
     del lm
     torch.cuda.empty_cache()
     launches = {"fused_step": fused_counts["fused_step"],
@@ -2144,7 +2178,7 @@ def run_pipeline(args, device, k5_ms):
     torch.cuda.empty_cache()
     launches.update(run_quant(ds, graph, wl_train, evals, gts, probe,
                               device, plan_evals, plan_gts, k5_ms))
-    return launches, k6r
+    return launches, k6r, rag_ids
 
 
 # ---------------------------------------------------------- scale-out ----
@@ -2903,11 +2937,26 @@ def profile_planned(eng, planner, wl, probe, wall_unprofiled_ms):
                            "device_ms": us / 1e3} for e, us in top]})
 
 
+QUANT_TRAIN = 128  # training queries of each codec's estimator
+PLAIN_LABELS = 128  # training queries labelled again on the plain path
+
+
+def first_queries(wl, n: int):
+    """The first n queries of a single-kind workload."""
+    import dataclasses
+
+    return dataclasses.replace(wl, queries=wl.queries[:n],
+                               spec=wl.filter_slice(0, n),
+                               sigma_global=wl.sigma_global[:n],
+                               hardness=wl.hardness[:n])
+
+
 def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
               plan_gts, k5_ms):
     """The quantized engines on the same dataset and graph: per codec,
     build (train + encode on the card), training labels with the
-    compressed convergence target, the estimator, and e2e_search with the
+    compressed convergence target on the first QUANT_TRAIN training
+    queries, the estimator, and e2e_search with the
     terminal exact rerank on contain and range at α=1, backends fused
     (K3 / K4 + K2, the path's launches counted), persistent (K5's codec
     branch + K2, counted) and dense (plain); then the planner on the same
@@ -2922,6 +2971,7 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
 
     cells = [(name, 1.0) for name in evals]
     launches = {}
+    wl_train = first_queries(wl_train, QUANT_TRAIN)
     for precision in ("int8", "pq"):
         t = time.perf_counter()
         qeng = SearchEngine.build(ds, graph, device=device,
@@ -3354,7 +3404,10 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms,
     """Where one e2e batch spends its time: device-busy time (kernels
     only, from torch.profiler / CUPTI), the idle share against the same
     cell's unprofiled median wall time, kernel launches per lockstep step,
-    and the top kernels by device time."""
+    and the top kernels by device time. Only the card's activity is
+    traced: every number here is a device event's, and the host's op
+    events of the fused batch (≈66,500 launches) took 20–28 s more to
+    gather."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3363,8 +3416,7 @@ def profile_e2e(eng, est, wl, probe, backend, wall_unprofiled_ms,
     c = SearchConfig(k=10, queue_size=512, backend=backend)
     torch.cuda.synchronize()
     u0 = FOREST_UPLOADS[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         d0 = dispatch_counters()
         t = time.perf_counter()
         res = e2e_search(eng, est, c, wl.queries, wl.spec, probe_budget=probe)
@@ -3801,30 +3853,50 @@ def run_serve_auto(eng, est, planner, wl, planned, probe) -> dict:
     return counts
 
 
-def run_launcher(shards: int = 1, gen_len: int = 0) -> None:
+def run_launchers(*runs) -> None:
     """launcher: `python -m repro_torch.launch.serve --status --prometheus`
-    on the card at its default corpus (`--shards S`: an index-sharded
-    engine, the corpus rounded up to a multiple of S; `--gen-len N`: the
-    RAG tail, olmo-1b tiny decoding N tokens over the served ids), in a
-    child process (which reuses the kernels built above); it must exit 0
-    and its scrape validate (with S > 1, carry `shard_ndc_total`; with
-    N > 0, print its `generation:` line)."""
-    from repro_torch.obs import validate_prometheus
-
+    on the card at its default corpus, one child process per (S, N,
+    arch) of `runs`, all started together: `--shards S` (an
+    index-sharded engine, the corpus rounded up to a multiple of S),
+    `--gen-len N` (the RAG tail, the tiny config of `--arch` decoding N
+    tokens over the served ids). The children reuse
+    the kernels built above. Each must exit 0 and its scrape validate
+    (with S > 1, carry `shard_ndc_total`; with N > 0, print its
+    `generation:` line, which names the arch). A line's `seconds` is the
+    wall time since the previous line, so the lines add up to the
+    phase's."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t = time.perf_counter()
-    proc = subprocess.run(
+    procs = [(run, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--status",
-         "--prometheus", "--shards", str(shards), "--gen-len", str(gen_len)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    require(proc.returncode == 0, f"launcher exited {proc.returncode}: "
-            f"{proc.stderr[-2000:]}")
-    out = proc.stdout
+         "--prometheus", "--shards", str(run[0]), "--gen-len", str(run[1]),
+         "--arch", run[2]], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for run in runs]
+    try:
+        for run, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            launcher_check(*run, proc.returncode, out, err,
+                           time.perf_counter() - t)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def launcher_check(shards: int, gen_len: int, arch: str, returncode: int,
+                   out: str, err: str, wall_s: float) -> None:
+    """One launcher child's checks and its `launcher` line."""
+    from repro_torch.obs import validate_prometheus
+
+    require(returncode == 0, f"launcher exited {returncode}: {err[-2000:]}")
     require("== prometheus scrape\n" in out, "launcher printed no scrape")
     head, scrape = out.split("== prometheus scrape\n", 1)
     gen = [ln for ln in scrape.splitlines() if ln.startswith("generation:")]
-    require(len(gen) == (1 if gen_len else 0),
-            f"launcher --gen-len {gen_len}: generation lines {gen}")
+    require(len(gen) == (1 if gen_len else 0)
+            and all(f"{arch} tiny" in ln for ln in gen),
+            f"launcher --gen-len {gen_len} --arch {arch}: generation lines "
+            f"{gen}")
     scrape = "\n".join(ln for ln in scrape.splitlines()
                        if not ln.startswith("generation:")) + "\n"
     names = validate_prometheus(scrape)
@@ -3836,9 +3908,9 @@ def run_launcher(shards: int = 1, gen_len: int = 0) -> None:
         require(names.get("repro_shard_ndc_total") == shards
                 and health["summary"]["n_shards"] == shards,
                 f"launcher --shards {shards}: no per-shard counters")
-    emit({"phase": "launcher", "seconds": time.perf_counter() - t,
-          "shards": shards, "gen_len": gen_len, "generation": gen,
-          "returncode": proc.returncode, "scrape_valid": True,
+    emit({"phase": "launcher", "since_start_s": wall_s,
+          "shards": shards, "gen_len": gen_len, "arch": arch,
+          "generation": gen, "returncode": returncode, "scrape_valid": True,
           "metrics": len(names),
           "n_completed": health["summary"]["n_completed"],
           "healthy": health["healthy"], "report": lines})
@@ -4049,7 +4121,7 @@ def run_lm_full_width(device):
     return lm
 
 
-def run_rag(eng, est, wl, one, probe, lm) -> None:
+def run_rag(eng, est, wl, one, probe, lm):
     """rag: the first 16 contain requests through `CostAwareScheduler`
     (persistent, lane width 16, on the serving phases' float32 engine and
     estimator), each bit for bit its lane of the one-shot batch, with
@@ -4057,7 +4129,8 @@ def run_rag(eng, est, wl, one, probe, lm) -> None:
     10 retrieved ids (|id| mod vocab) and 8 prompt tokens
     (`examples/serve_rag.py:72-75`) condition the full-width olmo-1b:
     prefill, then 32 greedy KV-cache decode steps. Retrieval p50 / p99,
-    prefill ms and decode ms a token a request."""
+    prefill ms and decode ms a token a request. Returns the requests'
+    retrieved ids [16, 10] (`lm_moe` serves them again)."""
     import torch
 
     from repro_torch.core import SearchConfig
@@ -4106,6 +4179,7 @@ def run_rag(eng, est, wl, one, probe, lm) -> None:
           "sample": {"docs": doc_ids[0].tolist(),
                      "generated": gen[0, :8].tolist()},
           "seconds": time.perf_counter() - t})
+    return doc_ids
 
 
 # ------------------------------------------------------- LM training ----
@@ -4451,6 +4525,490 @@ def run_lm_train(device) -> None:
           "seconds": time.perf_counter() - t})
 
 
+# ------------------------------------------------------------ the MoE ----
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# depth cuts at full width, float32: a layer is 1,300,307,968 parameters,
+# embed and head 262,668,288; 8 layers are 42.66 GB (all 32: 168 GB, more
+# than the card); 2 layers train in ≈20 B a parameter (p, the float32
+# gradient accumulator, m, v, and AdamW's temporaries)
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+# resume ≡ uninterrupted on 1 layer (1.56 B parameters): its p, m, v
+# (18.8 GB) and their copy fit on the card beside a step; 2 layers' 34 GB
+# took 46 s to the host and back on an H100 machine
+MOE_RESUME_LAYERS = 1
+MOE_XDEV_SHAPE = (2, 32)   # one full-width layer's input, card vs CPU (cap 8)
+MOE_ROUTE_MARGIN = 1e-6    # ids / keep compared where routing gaps exceed it
+# card vs CPU on that layer: out and each gradient leaf × their CPU max |.|,
+# aux relative (float32 both, TF32 off; the sums' orders differ)
+MOE_XDEV_TOL = {"out": 1e-4, "aux": 1e-5, "grad": 1e-4}
+MOE_MIN_ROWS = 8           # of LM_BATCH rows, compared decode vs prefill
+MOE_NO_DROP_STEPS = 8      # decode steps of the no-drop capacity's check
+
+
+def moe_work(cfg, lm, b: int, s: int) -> dict:
+    """Operations of one forward of `lm` over [b, s] tokens, per-row
+    dispatch: the expert products over the padded [b, E, cap, d] buffers
+    (as `ffn._moe` computes them), the same products over the b·s·k
+    assignments alone, and the attention and router projections
+    (attention scores and the head are the caller's)."""
+    from repro_torch.models.ffn import capacity
+
+    layers = len(lm.block_types)
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s, 8)
+    attn = sum(p.numel() for p in lm.layers[0]["attn"].parameters())
+    slot_ops = 2 * 3 * d * f
+    return {"cap": cap, "slot_rows_per_layer": b * e * cap,
+            "assignments_per_layer": b * s * k,
+            "expert_ops": layers * slot_ops * b * e * cap,
+            "useful_expert_ops": layers * slot_ops * b * s * k,
+            "dense_ops": layers * 2 * (attn + d * e) * b * s}
+
+
+def moe_serve_bounds(cfg, lm, param_bytes: int, b: int, s: int,
+                     ctx: int) -> dict:
+    """Least times of a decode step (one token a row, `ctx` cached slots)
+    and of a prefill of [b, s]: every weight read once (each expert is
+    read for its padded slots) at HBM_BYTES_PER_S, and the operations of
+    the function as `moe_work` counts them at FP32_FLOP_PER_S; beside
+    them the operations of the useful work (the b·s·k assignments)."""
+    layers = len(lm.block_types)
+    head = 2 * cfg.d_model * cfg.vocab_size * b
+    score = 4 * layers * cfg.n_heads * cfg.hd * b
+    kv = 2 * layers * b * cfg.n_kv_heads * cfg.hd * 4 * ctx
+    out = {}
+    for name, ss, attn_ops, extra in (("decode", 1, score * ctx, kv),
+                                      ("prefill", s, score * s * s / 2, 0)):
+        w = moe_work(cfg, lm, b, ss)
+        ops = w["expert_ops"] + w["dense_ops"] + attn_ops + head
+        useful = w["useful_expert_ops"] + w["dense_ops"] + attn_ops + head
+        out[name] = {
+            "cap": w["cap"], "slot_rows_per_layer": w["slot_rows_per_layer"],
+            "assignments_per_layer": w["assignments_per_layer"],
+            "weight_bound_ms": (param_bytes + extra) / HBM_BYTES_PER_S * 1e3,
+            "ops": ops, "work_bound_ms": ops / FP32_FLOP_PER_S * 1e3,
+            "useful_ops": useful,
+            "useful_work_bound_ms": useful / FP32_FLOP_PER_S * 1e3,
+            "padded_expert_work_x": w["expert_ops"] / w["useful_expert_ops"]}
+    return out
+
+
+def decode_vs_prefill(lm, tokens, steps: int) -> tuple[dict, dict]:
+    """`generate` over tokens [B, S] for `steps` greedy steps, every
+    logit finite; then each step's logits against a fresh prefill over
+    the same prefix (teacher-forced), on the rows whose prefill dropped no
+    MoE assignment in any layer — a decode step drops none, and where
+    that prefill dropped none, neither did the first (its prefix, under
+    the same capacity while S ≤ 51). Returns (the comparison, the run)."""
+    import torch
+
+    from repro_torch.train import generate
+
+    b, s = tokens.shape
+    run = generate(lm, tokens, steps)
+    logits = run["logits"]
+    require(tuple(logits.shape) == (b, steps + 1, lm.cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"lm_moe: logits {tuple(logits.shape)} not finite")
+    first = []
+    lm.prefill(tokens, drops=first)
+    seq = torch.cat([tokens, run["fed"]], dim=1)
+    errs = torch.zeros((b, steps), device=tokens.device)
+    clean = torch.zeros((b, steps), dtype=torch.bool, device=tokens.device)
+    drops, want = [], []
+    for step in range(steps):
+        dr = []
+        ref, _ = lm.prefill(seq[:, :s + step + 1], drops=dr)
+        per_row = torch.stack(dr).sum(0)
+        clean[:, step] = per_row == 0
+        drops.append(per_row)
+        errs[:, step] = (logits[:, step + 1] - ref[:, -1]).abs().amax(-1)
+        want.append(ref[:, -1])
+    want = torch.stack(want, dim=1)
+    n_pairs = int(clean.sum())
+    agree, n_sure = greedy_agreement(logits[:, 1:][clean], want[clean],
+                                     LM_TOL)
+    return {"capacity_factor": lm.cfg.capacity_factor, "steps": steps,
+            "first_prefill_drops_by_row": torch.stack(first).sum(0).tolist(),
+            "teacher_forced_drops_by_step": torch.stack(drops, 1).sum(
+                0).tolist(),
+            "rows_compared_any_step": int(clean.any(1).sum()),
+            "rows_compared_first_step": int(clean[:, 0].sum()),
+            "rows_compared_every_step": int(clean.all(1).sum()),
+            "pairs_compared": n_pairs, "pairs": b * steps,
+            "decode_vs_prefill_max_abs_err": (float(errs[clean].max())
+                                              if n_pairs else None),
+            "greedy_agree_where_margin_gt_tol": agree,
+            "greedy_positions_checked": n_sure}, run
+
+
+def moe_serve(device, doc_ids) -> dict:
+    """lm_moe (a): MOE_ARCH at full width cut to MOE_SERVE_LAYERS layers,
+    built on the card from a seeded torch.Generator; the rag phase's 16
+    requests' retrieved ids (|id| mod vocab) and 8 prompt tokens
+    prefilled, then greedy KV-cache decode steps (`decode_vs_prefill`):
+    LM_DECODE at its published capacity factor (1.25) and, same weights,
+    MOE_NO_DROP_STEPS at capacity factor E/k (capacity S + 1 a row: no
+    assignment can drop; its teacher-forced prefills pad every expert to
+    S + 1 slots, ≈5× a decode step's work, hence fewer steps). Seeded
+    random weights route a prompt's tokens alike (the causal attention's
+    average dominates the residual stream from the first layer), so at
+    1.25 the prefills drop in every row, and the decode ≡ prefill check
+    (within LM_TOL, greedy ids equal past the margin) needs the no-drop
+    run, on at least MOE_MIN_ROWS rows; the published run's drop-free
+    rows are compared too, however few. Prefill ms (CUDA events) and
+    decode ms a token (host clock, median of 3 runs) of the published
+    run beside their bounds; a decode step's device time by kernel."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import generate
+
+    t = time.perf_counter()
+    published = dataclasses.replace(get_arch(MOE_ARCH),
+                                    n_layers=MOE_SERVE_LAYERS)
+    vocab = published.vocab_size
+    prompts = np.random.default_rng(3).integers(0, vocab,
+                                                (LM_BATCH, LM_PROMPT))
+    ctx = np.concatenate([np.abs(doc_ids) % vocab, prompts], axis=1)
+    tokens = torch.from_numpy(ctx.astype(np.int32)).to(device)
+    b, s = tokens.shape
+    no_drop = dataclasses.replace(
+        published, capacity_factor=published.n_experts / published.top_k)
+    checks = {}
+    for name, cfg, steps in (("no_drop", no_drop, MOE_NO_DROP_STEPS),
+                             ("published", published, LM_DECODE)):
+        t1 = time.perf_counter()
+        lm = build_model(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(LM_SEED))
+        generate(lm, tokens, 2)                                # warm-up
+        checks[name], run = decode_vs_prefill(lm, tokens, steps)
+        checks[name]["seconds"] = time.perf_counter() - t1
+        if name == "no_drop":
+            del lm, run
+            torch.cuda.empty_cache()
+    nd, pub = checks["no_drop"], checks["published"]
+    require(not any(nd["teacher_forced_drops_by_step"])
+            and not any(nd["first_prefill_drops_by_row"]),
+            f"lm_moe: capacity factor E/k dropped assignments: {nd}")
+    require(nd["rows_compared_every_step"] >= MOE_MIN_ROWS,
+            f"lm_moe: only {nd['rows_compared_every_step']} rows compared")
+    for c in (nd, pub):
+        err = c["decode_vs_prefill_max_abs_err"]
+        require(err is None or err <= LM_TOL,
+                f"lm_moe: decode vs teacher-forced prefill differ by {err} "
+                f"> {LM_TOL} (capacity factor {c['capacity_factor']})")
+        require(c["greedy_positions_checked"] == 0
+                or c["greedy_agree_where_margin_gt_tol"] == 1.0,
+                f"lm_moe: greedy ids differ from the teacher-forced "
+                f"prefill's: {c}")
+    cfg = published
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    prefill_ms = time_cuda(lambda: lm.prefill(tokens), iters=5, warmup=1)
+    decode_ms = float(np.median([run["decode_ms"]] + [
+        generate(lm, tokens, LM_DECODE)["decode_ms"] for _ in range(2)])
+    ) / LM_DECODE
+    cache = lm.init_cache(b, s + 1)
+    by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
+                                                        s))
+    bounds = moe_serve_bounds(cfg, lm, param_bytes, b, s, s + LM_DECODE)
+    del cache, lm, run
+    torch.cuda.empty_cache()
+    busy_ms = sum(by_kernel.values())
+    dec, pre = bounds["decode"], bounds["prefill"]
+    return {"layers": cfg.n_layers, "of_layers": get_arch(MOE_ARCH).n_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "experts": cfg.n_experts,
+            "top_k": cfg.top_k, "moe_d_ff": cfg.moe_d_ff, "vocab": vocab,
+            "params": n_params, "param_bytes": param_bytes,
+            "batch": b, "prompt_tokens": s, "decoded": LM_DECODE,
+            "decode_vs_prefill_tol": LM_TOL,
+            "decode_vs_prefill": checks,
+            "prefill_ms": prefill_ms,
+            "prefill_weight_bound_ms": pre["weight_bound_ms"],
+            "prefill_work_bound_ms": pre["work_bound_ms"],
+            "decode_ms_per_token": decode_ms,
+            "decode_ms_per_token_per_request": decode_ms / b,
+            "decode_weight_bound_ms": dec["weight_bound_ms"],
+            "decode_work_bound_ms": dec["work_bound_ms"],
+            "decode_share_of_bound": max(dec["weight_bound_ms"],
+                                         dec["work_bound_ms"]) / decode_ms,
+            "bounds": bounds,
+            "decode_step_device_busy_ms": busy_ms,
+            "decode_step_idle_share": 1.0 - busy_ms / decode_ms,
+            "decode_step_kernel_names": len(by_kernel),
+            "decode_step_top_kernels_ms": dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+            "seconds": time.perf_counter() - t}
+
+
+def moe_layer_card_vs_cpu(device) -> dict:
+    """lm_moe (b): one MoE layer of MOE_ARCH at full width (1.26 B
+    parameters), weights drawn on the card from a seeded generator and
+    copied to the CPU; a seeded hidden state MOE_XDEV_SHAPE and cotangent
+    r. Forward with the aux loss, then the gradients of Σ out·r + aux
+    (every weight and the input), on both devices. The expert ids equal
+    wherever a token's routing gaps (between its first k + 1 sorted
+    probabilities, on the CPU) exceed MOE_ROUTE_MARGIN, the keep mask on
+    every row whose tokens all do; out, aux and each gradient leaf within
+    MOE_XDEV_TOL."""
+    import torch
+    from torch import nn
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ffn
+
+    t = time.perf_counter()
+    cfg = get_arch(MOE_ARCH)
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    card = ffn.init_moe(cfg, g, device)
+    b, s = MOE_XDEV_SHAPE
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    r = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    cpu = nn.ParameterDict({k: nn.Parameter(v.detach().cpu())
+                            for k, v in card.items()})
+    cap = ffn.capacity(cfg, s, 8)
+    res = {}
+    for name, p in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        xx = x.to(p["router"].device).requires_grad_()
+        out, aux = ffn.moe_forward(cfg, p, xx, return_aux=True)
+        leaves = list(p.values()) + [xx]
+        grads = torch.autograd.grad(
+            (out * r.to(xx.device)).sum() + aux, leaves)
+        with torch.no_grad():
+            route = ffn.route(cfg, p, xx, cap)
+        res[name] = {"out": out.detach().cpu(), "aux": float(aux.detach()),
+                     "grads": dict(zip(list(p) + ["x"],
+                                       (gg.cpu() for gg in grads))),
+                     "route": route, "s": time.perf_counter() - t1}
+        del out, grads, leaves
+    c, k = res["cpu"], cfg.top_k
+    top = torch.sort(c["route"].probs, dim=-1, descending=True).values
+    gaps = (top[..., :k] - top[..., 1:k + 1]).amin(-1)           # [b, s]
+    sure = gaps > MOE_ROUTE_MARGIN
+    ids = [res[n]["route"].expert.cpu().reshape(b, s, k) for n in res]
+    keeps = [res[n]["route"].keep.cpu() for n in res]
+    rows = sure.all(1)
+    ids_equal = bool((ids[0] == ids[1])[sure].all())
+    keep_equal = bool((keeps[0] == keeps[1])[rows].all())
+    out_err = float((res["card"]["out"] - c["out"]).abs().max()
+                    / c["out"].abs().max())
+    aux_err = abs(res["card"]["aux"] - c["aux"]) / abs(c["aux"])
+    grad_err = {n: float((res["card"]["grads"][n] - gc).abs().max()
+                         / gc.abs().max())
+                for n, gc in c["grads"].items()}
+    drops = [int(res[n]["route"].drops.sum()) for n in res]
+    aux = [res[n]["aux"] for n in res]
+    secs = {f"{n}_s": res[n]["s"] for n in res}
+    del card, cpu, res, x, r
+    torch.cuda.empty_cache()
+    out = {"shape": [b, s], "cap": cap, "params": cfg.d_model * cfg.n_experts
+           + 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff,
+           "tokens_routing_sure": int(sure.sum()), "tokens": b * s,
+           "rows_all_sure": int(rows.sum()), "min_routing_gap": float(
+               gaps.min()), "ids_equal_where_sure": ids_equal,
+           "keep_equal_on_sure_rows": keep_equal,
+           "drops_card_cpu": drops, "out_err_of_max": out_err,
+           "aux_card_cpu": aux, "aux_rel_err": aux_err,
+           "grad_err_of_max": grad_err, "tol": MOE_XDEV_TOL, **secs,
+           "seconds": time.perf_counter() - t}
+    require(ids_equal and keep_equal and int(rows.sum()) > 0,
+            f"lm_moe: card vs CPU routing differs: {out}")
+    require(out_err <= MOE_XDEV_TOL["out"] and aux_err <= MOE_XDEV_TOL["aux"]
+            and max(grad_err.values()) <= MOE_XDEV_TOL["grad"],
+            f"lm_moe: card vs CPU beyond MOE_XDEV_TOL: {out}")
+    return out
+
+
+def moe_train_bound(cfg, lm, n_params: int, tokens: int) -> dict:
+    """Least time of a training step over TRAIN_ACCUM microbatches of
+    `tokens` tokens in all: operations 3 × a forward's (`moe_work` at the
+    microbatch's shape, the untied head over every position; remat's
+    recompute not counted) at FP32_FLOP_PER_S, and the optimizer's bytes
+    (p, g, m, v read, p, m, v written: 28 B a parameter) at
+    HBM_BYTES_PER_S, the larger; and the same over the useful work."""
+    b = TRAIN_BATCH // TRAIN_ACCUM
+    w = moe_work(cfg, lm, b, TRAIN_SEQ)
+    head = 2 * cfg.d_model * cfg.vocab_size * b * TRAIN_SEQ
+    layers = len(lm.block_types)
+    score = 4 * layers * cfg.n_heads * cfg.hd * b * TRAIN_SEQ ** 2 / 2
+    ops = 3 * TRAIN_ACCUM * (w["expert_ops"] + w["dense_ops"] + head + score)
+    useful = 3 * TRAIN_ACCUM * (w["useful_expert_ops"] + w["dense_ops"]
+                                + head + score)
+    opt_bytes = 28 * n_params
+    ms = max(ops / FP32_FLOP_PER_S, opt_bytes / HBM_BYTES_PER_S) * 1e3
+    return {"bound_ms": ms, "bound_ops": ops, "bound_bytes": opt_bytes,
+            "bound_by": ("operations" if ops / FP32_FLOP_PER_S
+                         >= opt_bytes / HBM_BYTES_PER_S else "bytes"),
+            "useful_ops": useful,
+            "useful_bound_ms": max(useful / FP32_FLOP_PER_S,
+                                   opt_bytes / HBM_BYTES_PER_S) * 1e3,
+            "cap": w["cap"], "slot_rows_per_layer": w["slot_rows_per_layer"],
+            "assignments_per_layer": w["assignments_per_layer"]}
+
+
+def moe_resume(batches, device) -> dict:
+    """Resume ≡ uninterrupted on MOE_ARCH at full width cut to
+    MOE_RESUME_LAYERS layers: 2 steps, a copy of every state leaf on the
+    card (the checkpoint; the file path is `lm_train`'s), 2 more steps
+    (the uninterrupted run); then the copy restored into the live state —
+    the uninterrupted state taking its place, leaf by leaf — and the same
+    2 steps again. Both runs' steps 3–4: every state leaf and loss bit
+    for bit (LM_TRAIN_RESUME_TOL)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, TrainConfig, make_init_state,
+                                   make_train_step)
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_RESUME_LAYERS)
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    state = make_init_state(model, tc)
+    step = make_train_step(model, tc)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    leaves = state_leaves(state)
+    saved = {k: v.detach().clone() for k, v in leaves.items()}
+    straight = []
+    for b in batches[2:]:
+        state, met = step(state, b)
+        straight.append(met["loss"])
+    with torch.no_grad():
+        for k, v in leaves.items():
+            done = v.detach().clone()
+            v.copy_(saved[k])
+            saved[k] = done
+    resumed = []
+    for b in batches[2:]:
+        state, met = step(state, b)
+        resumed.append(met["loss"])
+    with torch.no_grad():
+        err = max(float((v - saved[k]).abs().max())
+                  for k, v in leaves.items())
+        same = all(torch.equal(v, saved[k]) for k, v in leaves.items())
+    loss_err = max(abs(float(a) - float(b))
+                   for a, b in zip(straight, resumed))
+    state_bytes = tree_bytes(state)
+    del state, step, model, leaves, saved
+    torch.cuda.empty_cache()
+    res = {"layers": cfg.n_layers, "state_bytes_p_m_v": state_bytes,
+           "steps_3_4_max_abs_diff": err, "steps_3_4_loss_abs_diff": loss_err,
+           "steps_3_4_bitwise": same and loss_err == 0.0,
+           "tol": LM_TRAIN_RESUME_TOL,
+           "losses_3_4": [float(x) for x in straight],
+           "seconds": time.perf_counter() - t}
+    require(same and err <= LM_TRAIN_RESUME_TOL
+            and loss_err <= LM_TRAIN_RESUME_TOL,
+            f"lm_moe: resumed steps 3-4 differ from the uninterrupted run: "
+            f"{res}")
+    return res
+
+
+def moe_train(device) -> dict:
+    """lm_moe (c): MOE_ARCH at full width cut to MOE_TRAIN_LAYERS layers
+    (float32, TF32 off) built on the card from a seeded generator;
+    TRAIN_STEPS AdamW steps (float32 moments, lr 3e-4, grad_accum
+    TRAIN_ACCUM, remat) on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch (cap
+    16 an expert a row): every loss and aux finite, the last loss below
+    the first; step ms (median of steps 2–6) and tokens/s beside the
+    step's bound (`moe_train_bound`); a step under torch's sync debug
+    mode "error"; one step's device time by kernel and idle share; the
+    state's bytes and torch's peak; then `moe_resume` (MOE_RESUME_LAYERS
+    layers)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, TrainConfig, make_init_state,
+                                   make_train_step)
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    require(cfg.remat, "lm_moe: remat is off")
+    rng = np.random.default_rng(LM_SEED)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
+        device)} for _ in range(4)]
+    batch = batches[0]
+    model = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    state = make_init_state(model, tc)
+    step = make_train_step(model, tc)
+    losses, auxs, step_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        (state, met), ms = wall_ms(lambda: step(state, batch))
+        losses.append(met["loss"])
+        auxs.append(met["aux"])
+        step_ms.append(ms)
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    auxs = [float(x) for x in torch.stack(auxs).cpu()]
+    require(all(np.isfinite(losses + auxs)) and losses[-1] < losses[0],
+            f"lm_moe: losses {losses}, aux {auxs} not finite or not falling")
+    ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = moe_train_bound(cfg, model, n_params, tokens)
+    state, _ = without_host_sync(lambda: step(state, batch))
+    by_kernel = kernel_breakdown(lambda: step(state, batch), iters=1)
+    busy_ms = sum(by_kernel.values())
+    moment_bytes = tree_bytes(state["opt"]["m"]) + tree_bytes(
+        state["opt"]["v"])
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, model
+    torch.cuda.empty_cache()
+    resume = moe_resume(batches, device)
+    return {"layers": cfg.n_layers, "params": n_params,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "grad_accum": TRAIN_ACCUM,
+            "remat": cfg.remat, "lr": tc.opt.lr, "moments": "float32",
+            "losses": losses, "aux": auxs, "step_ms": step_ms,
+            "step_ms_median_2_6": ms, "tokens_per_s": tokens / ms * 1e3,
+            **bound, "share_of_bound": bound["bound_ms"] / ms,
+            "step_host_syncs": 0,
+            "step_device_busy_ms": busy_ms,
+            "step_idle_share": 1.0 - busy_ms / ms,
+            "step_kernel_names": len(by_kernel),
+            "step_top_kernels_ms": dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+            "state_bytes_p_g_m_v": 2 * param_bytes + moment_bytes,
+            "torch_max_allocated_mib": peak / 2**20,
+            "resume": resume, "seconds": time.perf_counter() - t}
+
+
+def run_lm_moe(device, doc_ids) -> None:
+    """lm_moe, last (TF32 off): `moe_serve`, `moe_layer_card_vs_cpu` and
+    `moe_train`, each on a card holding none of the earlier phases'
+    models."""
+    import torch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    serve = moe_serve(device, doc_ids)
+    layer = moe_layer_card_vs_cpu(device)
+    train = moe_train(device)
+    emit({"phase": "lm_moe", "arch": MOE_ARCH,
+          "allocated_at_start_mib": held / 2**20, "serve": serve,
+          "layer_card_vs_cpu": layer, "train": train,
+          "seconds": time.perf_counter() - t})
+
+
 def run_phases(args, device) -> list:
     """Run every phase on the built kernels and return the `kernels`
     line's entries."""
@@ -4474,11 +5032,11 @@ def run_phases(args, device) -> list:
     k7 = check_k7(device)
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
-    launches, k6r = run_pipeline(args, device, {"float32": k5["ms"],
-                                                "pq": k5q["pq"]["ms"]})
-    run_launcher(gen_len=8)
-    run_launcher(shards=SHARDS)
+    launches, k6r, rag_ids = run_pipeline(
+        args, device, {"float32": k5["ms"], "pq": k5q["pq"]["ms"]})
+    run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH))
     run_lm_train(device)
+    run_lm_moe(device, rag_ids)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")

@@ -7,8 +7,9 @@ Reads the JSON phase lines of each run's standard output, pairs the n-th
 line of each phase in one with the n-th of the same phase in the other,
 and compares every field that is a result: ids, counts, recalls, NDC,
 plan shares, equalities, shapes. Fields that are measurements (times,
-rates, clocks, card memory, the profiler's kernel counts and copies,
-which vary from run to run of one tree) are left out by name
+rates, clocks, card memory, idle shares and shares of a bound, the
+profiler's kernel counts and copies, which vary from run to run of one
+tree) are left out by name
 (`MEASURED`). Prints one JSON line per phase line that differs, with the
 differing fields, then a summary line {"phase_lines": n, "equal": m, "differ": [...],
 "only_before": [...], "only_after": [...]}.
@@ -21,7 +22,8 @@ import sys
 
 # measurement fields, by name: times, rates, clocks, memory, profiler counts
 MEASURED = re.compile(
-    r"(^|_)(ms|seconds|s|mib)$|_ms_|^(ms|wall_ms|e2e_ms|fused_e2e_ms|"
+    r"(^|_)(ms|seconds|s|mib)$|_ms_|(^|_)(idle_share|share_of_bound|"
+    r"share_of_weight_bound)$|^(ms|wall_ms|e2e_ms|fused_e2e_ms|"
     r"device_idle_share|kernel_ms|top_kernels|stage_seconds|"
     r"kernel_launches|kernel_launches_per_step|htod_copies|nvidia_smi|"
     r"torch|cuda|hbm_bytes_per_s|sm_mhz|profiler_ms|timed_launch|busy|"

@@ -13,6 +13,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.estimator import CostEstimator
@@ -159,26 +160,48 @@ def planner_to_torch(planner) -> Planner:
 _LM_PARTS = ("norm1", "attn", "norm2", "ffn")
 
 
+def _part_names(mod, prefix: str) -> dict:
+    """{key: port parameter name} of a block part, nested where the part
+    nests (an MoE's "shared" MLP); {} for a non-parametric norm."""
+    return {n: (_part_names(v, f"{prefix}.{n}") if isinstance(v, nn.Module)
+                else f"{prefix}.{n}") for n, v in mod.items()}
+
+
+def _zip_names(trees: list, fn):
+    """One tree of the shape the `trees` (names trees of equal shape)
+    share, fn([their names]) at each leaf."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_names([t[k] for t in trees], fn) for k in trees[0]}
+    return fn(trees)
+
+
 def _lm_tree(model, leaf, stack):
     """The reference's parameter tree of `model`: leaf(port parameter
-    name) at each leaf; a `seg{si}/pos{pi}` leaf, which carries a leading
-    n_groups axis in the reference (it scans over groups), is
-    stack([leaf of layer g·len(period) + pi for each group g]). Empty
-    norm dicts (non-parametric LN) stay as {}."""
+    name) at each leaf. A `prefix{i}` block is layer i (unstacked, as the
+    reference unrolls its prefix); a `seg{si}/pos{pi}` leaf, which carries
+    a leading n_groups axis in the reference (it scans over groups), is
+    stack([leaf of layer g·len(period) + pi for each group g]), counted
+    after the prefix. Empty norm dicts (non-parametric LN) stay as {}."""
     tree = {"embed": leaf("embed"),
             "final_norm": {n: leaf(f"final_norm.{n}")
                            for n in model.final_norm}}
     if not model.cfg.tie_embeddings:
         tree["head"] = leaf("head")
-    li = 0
+
+    def block(li: int) -> dict:
+        return {part: _part_names(model.layers[li][part],
+                                  f"layers.{li}.{part}")
+                for part in _LM_PARTS}
+
+    for i in range(len(model.prefix)):
+        tree[f"prefix{i}"] = _zip_names([block(i)], lambda ns: leaf(ns[0]))
+    li = len(model.prefix)
     for si, seg in enumerate(model.segments):
         per = len(seg.period)
         tree[f"seg{si}"] = {
-            f"pos{pi}": {part: {n: stack([
-                leaf(f"layers.{li + g * per + pi}.{part}.{n}")
-                for g in range(seg.n_groups)])
-                for n in model.layers[li + pi][part]}
-                for part in _LM_PARTS}
+            f"pos{pi}": _zip_names(
+                [block(li + g * per + pi) for g in range(seg.n_groups)],
+                lambda ns: stack([leaf(n) for n in ns]))
             for pi in range(per)}
         li += seg.n_groups * per
     return tree

@@ -1,5 +1,5 @@
-"""The LM zoo's serving path (counterpart of `repro/models`): the dense
-decoder family, prefill and KV-cache decode."""
+"""The LM zoo (counterpart of `repro/models`): the dense and MoE decoder
+families — training loss, prefill and KV-cache decode."""
 from repro_torch.models.transformer import (BlockType, Ctx, DecoderLM,
                                             Segment)
 from repro_torch.models.zoo import build_model

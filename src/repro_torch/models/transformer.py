@@ -1,28 +1,36 @@
-"""DecoderLM — the decoder-only LM of the dense family: training loss,
-prefill and KV-cache decode.
+"""DecoderLM — the decoder-only LM of the dense and MoE families:
+training loss, prefill and KV-cache decode.
 
 Counterpart of `repro/models/transformer.py`. The reference plans a model
-as segments, each a scanned stack of groups applying a static period of
-block types:
+as an unrolled prefix of blocks, then segments, each a scanned stack of
+groups applying a static period of block types:
 
   olmo/granite          period = (gqa-global+mlp,)            x L groups
   h2o-danube3 (SWA)     period = (gqa-local+mlp,)             x L
   gemma3 (5:1)          period = (local x5, global)           x L/6
+  phi3.5-moe            period = (gqa-global+moe,)            x L
+  first_dense_layers=n  prefix = n (gqa+mlp), then the MoE period
 
-Here the same plan unrolls into an `nn.ModuleList` of layers, layer
-g·len(period) + i applying period position i of group g, with no scan.
-In training (`loss`) with `cfg.remat`, each group's layers are
-checkpointed together and recomputed on backward, as the reference
-checkpoints each scanned group; the cross-entropy runs over sequence
-chunks, each recomputed on backward, so no [B, S, V] logits tensor is
-held. The sharding constraints of the reference's backbone are no-ops on
-one device and are dropped; they come back with the mesh. The other
-families (MoE, MLA, MTP, SSM, hybrid, VLM, enc-dec) are not ported yet;
+Here the same plan unrolls into an `nn.ModuleList` of layers: the prefix
+first, then layer g·len(period) + i of a segment applying period
+position i of group g, with no scan. In training (`loss`) with
+`cfg.remat`, each prefix block and each group's layers are checkpointed
+and recomputed on backward, as the reference checkpoints them; the MoE
+load-balance loss of every MoE block is summed through them in layer
+order, as the reference's scan carries it, and the loss is ce +
+router_aux_weight · aux. The cross-entropy runs over sequence chunks,
+each recomputed on backward, so no [B, S, V] logits tensor is held. The
+sharding constraints of the reference's backbone are no-ops on one
+device and are dropped; they come back with the mesh. MLA, MTP and the
+SSM, hybrid, VLM and enc-dec families are not ported yet;
 `models.zoo.build_model` refuses them.
 
 A cache is a list with one {"k", "v"} dict per layer, [B, S, KV, hd]
 (S = min(window, capacity) for a sliding-window layer, a rolling
-buffer). Decode writes it in place.
+buffer). Decode writes it in place. Prefill and decode run the MoE
+without its aux loss, as the reference does; a decode step routes one
+token a row, so its capacity (8) is never reached and it drops nothing,
+while a prefill may drop (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from repro_torch.models.common import apply_norm, dense_init, init_norm
 class BlockType(NamedTuple):
     mixer: str = "gqa"      # the only mixer ported
     window: int = 0         # 0 = global attention
-    ffn: str = "dense"      # the only FFN ported
+    ffn: str = "dense"      # dense | moe
 
 
 class Segment(NamedTuple):
@@ -55,32 +63,41 @@ class Ctx(NamedTuple):
     mode: str                              # train | prefill | decode
     positions: torch.Tensor | None = None  # [B, S] for train / prefill
     pos: torch.Tensor | None = None        # [B] decode position
+    drops: list | None = None              # receives MoE drops a row
 
 
-def layer_plan(cfg: ArchConfig) -> list[Segment]:
-    """The segments of a dense-family config: global, `local` (every layer
-    a window) or `local_global` (period − 1 local layers, then a global
-    one). The reference's unrolled prefix holds MoE models' dense layers
-    only, so it is always empty here."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
+def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
+    """(segments, unrolled prefix block types) of a gqa config of the dense
+    or MoE family: global, `local` (every layer a window) or
+    `local_global` (period − 1 local layers, then a global one); the FFN
+    an MoE where `cfg.n_experts` is set; with global attention, the first
+    `first_dense_layers` blocks a dense prefix."""
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: layer_plan covers the dense family only")
+            f"{cfg.name}: layer_plan covers the gqa dense and MoE families "
+            "only")
+    ffn = "moe" if cfg.n_experts else "dense"
     if cfg.attn_kind == "local":
-        return [Segment((BlockType(window=cfg.local_window),),
-                        cfg.n_layers)]
+        return [Segment((BlockType(window=cfg.local_window, ffn=ffn),),
+                        cfg.n_layers)], []
     if cfg.attn_kind == "local_global":
         p = cfg.local_global_period
-        per = (BlockType(window=cfg.local_window),) * (p - 1) + (BlockType(),)
-        return [Segment(per, cfg.n_layers // p)]
-    return [Segment((BlockType(),), cfg.n_layers)]
+        per = ((BlockType(window=cfg.local_window, ffn=ffn),) * (p - 1)
+               + (BlockType(ffn=ffn),))
+        return [Segment(per, cfg.n_layers // p)], []
+    n = cfg.first_dense_layers
+    return ([Segment((BlockType(ffn=ffn),), cfg.n_layers - n)],
+            [BlockType()] * n)
 
 
-def _init_block(cfg: ArchConfig, generator, device) -> nn.ModuleDict:
+def _init_block(cfg: ArchConfig, bt: BlockType, generator, device
+                ) -> nn.ModuleDict:
+    init_ffn = ffn_mod.init_moe if bt.ffn == "moe" else ffn_mod.init_mlp
     return nn.ModuleDict({
         "norm1": init_norm(cfg, cfg.d_model, device),
         "attn": attn.init_attention(cfg, generator, device),
         "norm2": init_norm(cfg, cfg.d_model, device),
-        "ffn": ffn_mod.init_mlp(cfg, generator, device),
+        "ffn": init_ffn(cfg, generator, device),
     })
 
 
@@ -104,8 +121,9 @@ def _pad_cache_seq(full, part):
 
 
 class BlockApplier:
-    """Applies one gqa block in train, prefill or decode mode (train
-    builds no cache and returns None for it)."""
+    """Applies one gqa block in train, prefill or decode mode: (x, cache,
+    aux). Train builds no cache and returns None for it; aux is the MoE
+    load-balance loss of an MoE block in train mode, else None."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -129,11 +147,19 @@ class BlockApplier:
                 new_cache = {"k": kk, "v": vv}
         x = x + out
         h2 = apply_norm(cfg, bp["norm2"], x)
-        return x + ffn_mod.mlp_forward(cfg, bp["ffn"], h2), new_cache
+        aux = None
+        if bt.ffn == "dense":
+            out = ffn_mod.mlp_forward(cfg, bp["ffn"], h2)
+        elif ctx.mode == "train":
+            out, aux = ffn_mod.moe_forward(cfg, bp["ffn"], h2,
+                                           return_aux=True)
+        else:
+            out = ffn_mod.moe_forward(cfg, bp["ffn"], h2, drops=ctx.drops)
+        return x + out, new_cache, aux
 
 
 class DecoderLM(nn.Module):
-    """The dense decoder LM on `device` (the card by default).
+    """The dense or MoE decoder LM on `device` (the card by default).
 
     With a `generator`, every weight is drawn from it as the reference's
     `init_params` draws (normal · 1/√fan_in; norms at their constants);
@@ -144,17 +170,18 @@ class DecoderLM(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
-        self.segments = layer_plan(cfg)
+        self.segments, self.prefix = layer_plan(cfg)
         dev = resolve_device(device)
-        self.block_types = [bt for seg in self.segments
-                            for _ in range(seg.n_groups) for bt in seg.period]
+        self.block_types = self.prefix + [
+            bt for seg in self.segments for _ in range(seg.n_groups)
+            for bt in seg.period]
         d, dt = cfg.d_model, cfg.param_dtype
         self.embed = dense_init((cfg.vocab_size, d), d, dt, generator, dev)
         self.final_norm = init_norm(cfg, d, dev)
         self.head = (None if cfg.tie_embeddings else
                      dense_init((d, cfg.vocab_size), d, dt, generator, dev))
-        self.layers = nn.ModuleList(_init_block(cfg, generator, dev)
-                                    for _ in self.block_types)
+        self.layers = nn.ModuleList(_init_block(cfg, bt, generator, dev)
+                                    for bt in self.block_types)
         self._applier = BlockApplier(cfg)
 
     @property
@@ -169,33 +196,39 @@ class DecoderLM(nn.Module):
     def _backbone(self, x, ctx: Ctx, cache=None):
         new_cache = []
         for li, (bt, bp) in enumerate(zip(self.block_types, self.layers)):
-            x, nc = self._applier(bt, bp, x, ctx,
-                                  None if cache is None else cache[li])
+            x, nc, _ = self._applier(bt, bp, x, ctx,
+                                     None if cache is None else cache[li])
             new_cache.append(nc)
         return x, new_cache
 
     def _train_backbone(self, x, ctx: Ctx):
-        """The backbone in train mode, group by group; with `cfg.remat`
-        each group (one period of layers) is checkpointed, keeping only
-        its input for backward."""
-        start = 0
+        """The backbone in train mode: each prefix block, then each group
+        (one period of layers); with `cfg.remat` each is checkpointed,
+        keeping only its input for backward. Returns (x, the MoE aux
+        losses summed in layer order, float32 0-d)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        groups = [range(i, i + 1) for i in range(len(self.prefix))]
+        start = len(self.prefix)
         for seg in self.segments:
             per = len(seg.period)
             for _ in range(seg.n_groups):
-                group = range(start, start + per)
-                if self.cfg.remat:
-                    x = checkpoint(self._group, x, group, ctx,
-                                   use_reentrant=False)
-                else:
-                    x = self._group(x, group, ctx)
+                groups.append(range(start, start + per))
                 start += per
-        return x
+        for group in groups:
+            if self.cfg.remat:
+                x, aux = checkpoint(self._group, x, aux, group, ctx,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._group(x, aux, group, ctx)
+        return x, aux
 
-    def _group(self, x, layers, ctx: Ctx):
+    def _group(self, x, aux, layers, ctx: Ctx):
         for li in layers:
-            x, _ = self._applier(self.block_types[li], self.layers[li], x,
-                                 ctx)
-        return x
+            x, _, a = self._applier(self.block_types[li], self.layers[li],
+                                    x, ctx)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _embed(self, tokens):
         return torch.nn.functional.embedding(
@@ -209,8 +242,9 @@ class DecoderLM(nn.Module):
     def loss(self, batch):
         """Next-token cross-entropy over tokens [B, S] (`batch["tokens"]`):
         labels shifted by one, the last position masked. Returns (loss,
-        {"ce", "aux"}), 0-d float32 tensors; `aux`, the MoE router loss,
-        is 0 in the dense family, and loss = ce + router_aux_weight·aux."""
+        {"ce", "aux"}), 0-d float32 tensors; `aux`, the MoE load-balance
+        loss summed over the MoE blocks, is 0 in the dense family, and
+        loss = ce + router_aux_weight·aux."""
         cfg = self.cfg
         if cfg.mtp:
             raise NotImplementedError(
@@ -219,23 +253,24 @@ class DecoderLM(nn.Module):
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h = self._train_backbone(self._embed(tokens),
-                                 Ctx(mode="train", positions=positions))
+        h, aux = self._train_backbone(self._embed(tokens),
+                                      Ctx(mode="train", positions=positions))
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
         ce = _xent_chunked(self._logits, h, labels, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
-    def prefill(self, tokens):
+    def prefill(self, tokens, drops: list | None = None):
         """Full-sequence forward over tokens [B, S]; returns (last-position
         logits [B, 1, V], a prefill-length cache: `train.serve_step.
-        generate` places it in a capacity cache before decoding)."""
+        generate` places it in a capacity cache before decoding). `drops`,
+        a list, receives each MoE block's dropped assignments a dispatch
+        row (`ffn.moe_forward`), in layer order."""
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        ctx = Ctx(mode="prefill", positions=positions)
+        ctx = Ctx(mode="prefill", positions=positions, drops=drops)
         h, cache = self._backbone(self._embed(tokens), ctx)
         return self._logits(h[:, -1:]), cache
 

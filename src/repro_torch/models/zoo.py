@@ -9,7 +9,6 @@ from repro_torch.models.transformer import DecoderLM
 
 # family or feature → the ROADMAP.md item that ports it
 UNPORTED = {
-    "moe": "Queue 1, item 5b (MoE)",
     "use_mla": "Queue 1, item 5c (MLA and MTP)",
     "mtp": "Queue 1, item 5c (MLA and MTP)",
     "ssm": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
@@ -21,13 +20,13 @@ UNPORTED = {
 
 def build_model(cfg: ArchConfig, device=None,
                 generator: torch.Generator | None = None) -> DecoderLM:
-    """The dense decoder LM of `cfg` on `device` (the card by default),
-    its weights drawn from `generator` (default: seed 0 on that device).
-    Raises NotImplementedError for a family or feature not ported yet,
-    naming its ROADMAP.md item; nothing falls back."""
-    what = ("moe" if cfg.family == "moe" or cfg.n_experts else
-            "use_mla" if cfg.use_mla else "mtp" if cfg.mtp else cfg.family)
-    if what != "dense":
+    """The decoder LM of `cfg` (dense, or MoE with gqa attention) on
+    `device` (the card by default), its weights drawn from `generator`
+    (default: seed 0 on that device). Raises NotImplementedError for a
+    family or feature not ported yet, naming its ROADMAP.md item; nothing
+    falls back."""
+    what = ("use_mla" if cfg.use_mla else "mtp" if cfg.mtp else cfg.family)
+    if what not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported to repro_torch yet "
             f"(ROADMAP.md {UNPORTED.get(what, 'Queue 1, item 5')})")
