@@ -160,11 +160,13 @@ Phases, each printed as one JSON line with its wall seconds:
      kind); `shard_serve` (64 requests, lane width 16, direct: scheduled ≡
      one-shot, per-shard NDC adds up to Σ request NDC);
  15. `launcher`: `python -m repro_torch.launch.serve --status
-     --prometheus --gen-len 8` in a child process at its default corpus
-     (its `generation:` line required), then with `--shards 4 --arch
-     phi3.5-moe-42b-a6.6b` (the MoE's tiny config decodes behind the
-     sharded retrieval; its `generation:` line required): exit 0 and a
-     scrape that `validate_prometheus` accepts (with shards, carrying
+     --prometheus --gen-len 8` in three child processes started
+     together, at its default corpus: olmo-1b's tiny config, the MoE's
+     (`--shards 4 --arch phi3.5-moe-42b-a6.6b`, behind the sharded
+     retrieval) and deepseek-v3's (`--arch deepseek-v3-671b`: MLA and its
+     latent cache behind K5, K2 and K6); each must exit 0, print its
+     `generation:` line naming its arch, and give a scrape that
+     `validate_prometheus` accepts (with shards, carrying
      `shard_ndc_total`);
  15b. `lm_train`, last, so that every earlier phase runs as before (TF32
      off): olmo-1b at full width built on the card, 6 AdamW steps
@@ -204,6 +206,30 @@ Phases, each printed as one JSON line with its wall seconds:
      state bytes and peak; resume ≡ uninterrupted bit for bit at 1 layer
      (the state after 2 steps copied on the card, restored after the
      uninterrupted 2 more);
+ 15d. `lm_mla`, last (TF32 off), on a card holding no earlier model:
+     deepseek-v3-671b at its published widths (d 7168, 128 heads, q_lora
+     1536, kv_lora 512, rope 64, nope 128, v 128, d_ff 18432 in the dense
+     prefix, 256 experts top-8 of d_ff 2048 and one shared, vocab
+     129280, untied, float32) from a seeded generator. (a) Serving at the
+     3 dense-prefix layers and 1 MoE layer of 61, without the MTP block
+     (15.10 B parameters, 60.4 GB): the rag phase's 16 requests' ids and
+     8 prompt tokens prefilled (K/V materialised from the latent), 8
+     greedy absorbed decode steps over the latent cache; decode ≡ a
+     teacher-forced prefill within LM_TOL at capacity factor E/k (32:
+     nothing drops; all 16 rows), drops a row at the published 1.25;
+     prefill and decode ms beside the weight-read and padded-work
+     bounds, a decode step's kernels, the cache's bytes a token beside
+     gqa K/V's. (b) One full-width MLA + dense block (0.58 B) on the card
+     and the CPU, same weights, [2, 32]: the prefill's output and latent
+     cache, an absorbed decode step's output and cache, every gradient
+     in train mode, within MLA_XDEV_TOL. (c) Training with the MTP head,
+     1 dense + 1 MoE layer, 16 of 256 experts (top-8 and the shared
+     expert kept; 4.41 B): 6 AdamW steps (int8 moments, grad_accum 2,
+     remat) on one seeded [8, 64] batch, loss, ce, aux and mtp_ce finite
+     and the loss falling, step ms and tokens/s beside the bound, a step
+     under sync debug "error", kernels, peak allocated; resume ≡
+     uninterrupted bit for bit at 1 MoE layer and the MTP block (3.83 B,
+     grad_accum 1: the MoE dispatch's slot-order backward at top-8);
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -4594,13 +4620,16 @@ def moe_serve_bounds(cfg, lm, param_bytes: int, b: int, s: int,
     return out
 
 
-def decode_vs_prefill(lm, tokens, steps: int) -> tuple[dict, dict]:
+def decode_vs_prefill(lm, tokens, steps: int, what: str
+                      ) -> tuple[dict, dict]:
     """`generate` over tokens [B, S] for `steps` greedy steps, every
     logit finite; then each step's logits against a fresh prefill over
     the same prefix (teacher-forced), on the rows whose prefill dropped no
     MoE assignment in any layer — a decode step drops none, and where
     that prefill dropped none, neither did the first (its prefix, under
-    the same capacity while S ≤ 51). Returns (the comparison, the run)."""
+    the same capacity: phi3.5-moe's while S ≤ 51, deepseek-v3's while S ≤
+    179). Returns (the comparison, the run); `what` names the phase in a
+    failure."""
     import torch
 
     from repro_torch.train import generate
@@ -4610,7 +4639,7 @@ def decode_vs_prefill(lm, tokens, steps: int) -> tuple[dict, dict]:
     logits = run["logits"]
     require(tuple(logits.shape) == (b, steps + 1, lm.cfg.vocab_size)
             and bool(torch.isfinite(logits).all()),
-            f"lm_moe: logits {tuple(logits.shape)} not finite")
+            f"{what}: logits {tuple(logits.shape)} not finite")
     first = []
     lm.prefill(tokens, drops=first)
     seq = torch.cat([tokens, run["fed"]], dim=1)
@@ -4643,6 +4672,84 @@ def decode_vs_prefill(lm, tokens, steps: int) -> tuple[dict, dict]:
             "greedy_positions_checked": n_sure}, run
 
 
+def rag_tokens(doc_ids, vocab: int, device):
+    """[LM_BATCH, 10 + LM_PROMPT] int32 on `device`: the rag phase's
+    requests' retrieved ids (|id| mod vocab), then LM_PROMPT seeded prompt
+    tokens a row."""
+    import torch
+
+    prompts = np.random.default_rng(3).integers(0, vocab,
+                                                (LM_BATCH, LM_PROMPT))
+    ctx = np.concatenate([np.abs(doc_ids) % vocab, prompts], axis=1)
+    return torch.from_numpy(ctx.astype(np.int32)).to(device)
+
+
+def serve_decode_checks(published, tokens, device, no_drop_steps: int,
+                        steps: int, what: str):
+    """`decode_vs_prefill` on the model of `published` built on the card
+    from LM_SEED: first, same weights, at capacity factor E/k (capacity S
+    + 1 a row: no assignment can drop) for `no_drop_steps` steps — every
+    decode step ≡ its teacher-forced prefill within LM_TOL on at least
+    MOE_MIN_ROWS rows, greedy ids equal past that margin —, then at the
+    published capacity factor for `steps` steps (drops a row; its
+    drop-free rows, however few, compared too). Returns (both checks, the
+    published model, its run)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import generate
+
+    no_drop = dataclasses.replace(
+        published, capacity_factor=published.n_experts / published.top_k)
+    checks = {}
+    for name, cfg, n in (("no_drop", no_drop, no_drop_steps),
+                         ("published", published, steps)):
+        t1 = time.perf_counter()
+        lm = build_model(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(LM_SEED))
+        generate(lm, tokens, 2)                                # warm-up
+        checks[name], run = decode_vs_prefill(lm, tokens, n, what)
+        checks[name]["seconds"] = time.perf_counter() - t1
+        if name == "no_drop":
+            del lm, run
+            torch.cuda.empty_cache()
+    nd, pub = checks["no_drop"], checks["published"]
+    require(not any(nd["teacher_forced_drops_by_step"])
+            and not any(nd["first_prefill_drops_by_row"]),
+            f"{what}: capacity factor E/k dropped assignments: {nd}")
+    require(nd["rows_compared_every_step"] >= MOE_MIN_ROWS,
+            f"{what}: only {nd['rows_compared_every_step']} rows compared")
+    for c in (nd, pub):
+        err = c["decode_vs_prefill_max_abs_err"]
+        require(err is None or err <= LM_TOL,
+                f"{what}: decode vs teacher-forced prefill differ by {err} "
+                f"> {LM_TOL} (capacity factor {c['capacity_factor']})")
+        require(c["greedy_positions_checked"] == 0
+                or c["greedy_agree_where_margin_gt_tol"] == 1.0,
+                f"{what}: greedy ids differ from the teacher-forced "
+                f"prefill's: {c}")
+    return checks, lm, run
+
+
+def serve_timing(lm, tokens, run, steps: int):
+    """(prefill ms of tokens [B, S] by CUDA events, mean of 5; decode ms a
+    token on the host clock, the median of `run`'s `steps` and 2 more such
+    `generate` runs; a decode step's device ms by kernel, at position S of
+    a fresh cache)."""
+    from repro_torch.train import generate
+
+    b, s = tokens.shape
+    prefill_ms = time_cuda(lambda: lm.prefill(tokens), iters=5, warmup=1)
+    decode_ms = float(np.median([run["decode_ms"]] + [
+        generate(lm, tokens, steps)["decode_ms"] for _ in range(2)])) / steps
+    cache = lm.init_cache(b, s + 1)
+    by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
+                                                        s))
+    return prefill_ms, decode_ms, by_kernel
+
+
 def moe_serve(device, doc_ids) -> dict:
     """lm_moe (a): MOE_ARCH at full width cut to MOE_SERVE_LAYERS layers,
     built on the card from a seeded torch.Generator; the rag phase's 16
@@ -4665,59 +4772,23 @@ def moe_serve(device, doc_ids) -> dict:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
-    from repro_torch.train import generate
 
     t = time.perf_counter()
     published = dataclasses.replace(get_arch(MOE_ARCH),
                                     n_layers=MOE_SERVE_LAYERS)
     vocab = published.vocab_size
-    prompts = np.random.default_rng(3).integers(0, vocab,
-                                                (LM_BATCH, LM_PROMPT))
-    ctx = np.concatenate([np.abs(doc_ids) % vocab, prompts], axis=1)
-    tokens = torch.from_numpy(ctx.astype(np.int32)).to(device)
+    tokens = rag_tokens(doc_ids, vocab, device)
     b, s = tokens.shape
-    no_drop = dataclasses.replace(
-        published, capacity_factor=published.n_experts / published.top_k)
-    checks = {}
-    for name, cfg, steps in (("no_drop", no_drop, MOE_NO_DROP_STEPS),
-                             ("published", published, LM_DECODE)):
-        t1 = time.perf_counter()
-        lm = build_model(cfg, device=device, generator=torch.Generator(
-            device=device).manual_seed(LM_SEED))
-        generate(lm, tokens, 2)                                # warm-up
-        checks[name], run = decode_vs_prefill(lm, tokens, steps)
-        checks[name]["seconds"] = time.perf_counter() - t1
-        if name == "no_drop":
-            del lm, run
-            torch.cuda.empty_cache()
-    nd, pub = checks["no_drop"], checks["published"]
-    require(not any(nd["teacher_forced_drops_by_step"])
-            and not any(nd["first_prefill_drops_by_row"]),
-            f"lm_moe: capacity factor E/k dropped assignments: {nd}")
-    require(nd["rows_compared_every_step"] >= MOE_MIN_ROWS,
-            f"lm_moe: only {nd['rows_compared_every_step']} rows compared")
-    for c in (nd, pub):
-        err = c["decode_vs_prefill_max_abs_err"]
-        require(err is None or err <= LM_TOL,
-                f"lm_moe: decode vs teacher-forced prefill differ by {err} "
-                f"> {LM_TOL} (capacity factor {c['capacity_factor']})")
-        require(c["greedy_positions_checked"] == 0
-                or c["greedy_agree_where_margin_gt_tol"] == 1.0,
-                f"lm_moe: greedy ids differ from the teacher-forced "
-                f"prefill's: {c}")
+    checks, lm, run = serve_decode_checks(published, tokens, device,
+                                          MOE_NO_DROP_STEPS, LM_DECODE,
+                                          "lm_moe")
     cfg = published
     n_params = sum(p.numel() for p in lm.parameters())
     param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    prefill_ms = time_cuda(lambda: lm.prefill(tokens), iters=5, warmup=1)
-    decode_ms = float(np.median([run["decode_ms"]] + [
-        generate(lm, tokens, LM_DECODE)["decode_ms"] for _ in range(2)])
-    ) / LM_DECODE
-    cache = lm.init_cache(b, s + 1)
-    by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
-                                                        s))
+    prefill_ms, decode_ms, by_kernel = serve_timing(lm, tokens, run,
+                                                    LM_DECODE)
     bounds = moe_serve_bounds(cfg, lm, param_bytes, b, s, s + LM_DECODE)
-    del cache, lm, run
+    del lm, run
     torch.cuda.empty_cache()
     busy_ms = sum(by_kernel.values())
     dec, pre = bounds["decode"], bounds["prefill"]
@@ -4855,24 +4926,32 @@ def moe_train_bound(cfg, lm, n_params: int, tokens: int) -> dict:
 
 def moe_resume(batches, device) -> dict:
     """Resume ≡ uninterrupted on MOE_ARCH at full width cut to
-    MOE_RESUME_LAYERS layers: 2 steps, a copy of every state leaf on the
-    card (the checkpoint; the file path is `lm_train`'s), 2 more steps
-    (the uninterrupted run); then the copy restored into the live state —
-    the uninterrupted state taking its place, leaf by leaf — and the same
-    2 steps again. Both runs' steps 3–4: every state leaf and loss bit
-    for bit (LM_TRAIN_RESUME_TOL)."""
+    MOE_RESUME_LAYERS layers (float32 moments, grad_accum TRAIN_ACCUM):
+    `resume_on_card`."""
     import dataclasses
 
-    import torch
-
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
-    from repro_torch.train import (AdamWConfig, TrainConfig, make_init_state,
-                                   make_train_step)
+    from repro_torch.train import AdamWConfig, TrainConfig
 
-    t = time.perf_counter()
     cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_RESUME_LAYERS)
     tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    return resume_on_card(cfg, tc, batches, device, "lm_moe")
+
+
+def resume_on_card(cfg, tc, batches, device, what: str) -> dict:
+    """Resume ≡ uninterrupted on the model of `cfg` built on the card from
+    LM_SEED, trained under `tc` on 4 `batches`: 2 steps, a copy of every
+    state leaf on the card (the checkpoint; the file path is
+    `lm_train`'s), 2 more steps (the uninterrupted run); then the copy
+    restored into the live state — the uninterrupted state taking its
+    place, leaf by leaf — and the same 2 steps again. Both runs' steps
+    3–4: every state leaf and loss bit for bit (LM_TRAIN_RESUME_TOL)."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import make_init_state, make_train_step
+
+    t = time.perf_counter()
     model = build_model(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(LM_SEED))
     state = make_init_state(model, tc)
@@ -4895,7 +4974,7 @@ def moe_resume(batches, device) -> dict:
         state, met = step(state, b)
         resumed.append(met["loss"])
     with torch.no_grad():
-        err = max(float((v - saved[k]).abs().max())
+        err = max(float((v.float() - saved[k].float()).abs().max())
                   for k, v in leaves.items())
         same = all(torch.equal(v, saved[k]) for k, v in leaves.items())
     loss_err = max(abs(float(a) - float(b))
@@ -4903,7 +4982,10 @@ def moe_resume(batches, device) -> dict:
     state_bytes = tree_bytes(state)
     del state, step, model, leaves, saved
     torch.cuda.empty_cache()
-    res = {"layers": cfg.n_layers, "state_bytes_p_m_v": state_bytes,
+    res = {"layers": cfg.n_layers, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "mtp": cfg.mtp,
+           "moments": tc.opt.moment_dtype, "grad_accum": tc.grad_accum,
+           "state_bytes_p_m_v": state_bytes,
            "steps_3_4_max_abs_diff": err, "steps_3_4_loss_abs_diff": loss_err,
            "steps_3_4_bitwise": same and loss_err == 0.0,
            "tol": LM_TRAIN_RESUME_TOL,
@@ -4911,34 +4993,41 @@ def moe_resume(batches, device) -> dict:
            "seconds": time.perf_counter() - t}
     require(same and err <= LM_TRAIN_RESUME_TOL
             and loss_err <= LM_TRAIN_RESUME_TOL,
-            f"lm_moe: resumed steps 3-4 differ from the uninterrupted run: "
+            f"{what}: resumed steps 3-4 differ from the uninterrupted run: "
             f"{res}")
     return res
 
 
-def moe_train(device) -> dict:
-    """lm_moe (c): MOE_ARCH at full width cut to MOE_TRAIN_LAYERS layers
-    (float32, TF32 off) built on the card from a seeded generator;
-    TRAIN_STEPS AdamW steps (float32 moments, lr 3e-4, grad_accum
-    TRAIN_ACCUM, remat) on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch (cap
-    16 an expert a row): every loss and aux finite, the last loss below
-    the first; step ms (median of steps 2–6) and tokens/s beside the
-    step's bound (`moe_train_bound`); a step under torch's sync debug
-    mode "error"; one step's device time by kernel and idle share; the
-    state's bytes and torch's peak; then `moe_resume` (MOE_RESUME_LAYERS
-    layers)."""
-    import dataclasses
+TORCH_PEAKS = {"allocated": [0], "reserved": [0]}  # before each reset
 
+
+def reset_peak() -> None:
+    """Start a phase's own torch peak (`torch.cuda.max_memory_allocated`),
+    keeping the run's so far in TORCH_PEAKS for the `memory` line."""
     import torch
 
-    from repro_torch.configs import get_arch
-    from repro_torch.models import build_model
-    from repro_torch.train import (AdamWConfig, TrainConfig, make_init_state,
-                                   make_train_step)
+    TORCH_PEAKS["allocated"].append(torch.cuda.max_memory_allocated())
+    TORCH_PEAKS["reserved"].append(torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
 
-    t = time.perf_counter()
-    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
-    require(cfg.remat, "lm_moe: remat is off")
+
+def train_run(cfg, tc, bound_fn, device, what: str):
+    """TRAIN_STEPS steps under `tc` of the model of `cfg` (float32, TF32
+    off, remat) built on `device` from LM_SEED, on one seeded
+    [TRAIN_BATCH, TRAIN_SEQ] batch: every metric (loss, ce, aux and, with
+    an MTP head, mtp_ce) finite, the last loss below the first; step ms
+    (median of steps 2–6) and tokens/s beside the step's bound
+    (`bound_fn(model, n_params)`); a step under torch's sync debug mode
+    "error"; one step's device time by kernel and idle share; the state's
+    bytes and the run's peak allocation. Returns (the record, 4 seeded
+    batches for a resume check)."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import make_init_state, make_train_step
+
+    require(cfg.remat, f"{what}: remat is off")
+    reset_peak()
     rng = np.random.default_rng(LM_SEED)
     batches = [{"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
@@ -4949,22 +5038,23 @@ def moe_train(device) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
     state = make_init_state(model, tc)
     step = make_train_step(model, tc)
-    losses, auxs, step_ms = [], [], []
+    mets, step_ms = {}, []
     for _ in range(TRAIN_STEPS):
         (state, met), ms = wall_ms(lambda: step(state, batch))
-        losses.append(met["loss"])
-        auxs.append(met["aux"])
+        for k, v in met.items():
+            mets.setdefault(k, []).append(v)
         step_ms.append(ms)
-    losses = [float(x) for x in torch.stack(losses).cpu()]
-    auxs = [float(x) for x in torch.stack(auxs).cpu()]
-    require(all(np.isfinite(losses + auxs)) and losses[-1] < losses[0],
-            f"lm_moe: losses {losses}, aux {auxs} not finite or not falling")
+    mets = {k: [float(x) for x in torch.stack(v).cpu()]
+            for k, v in mets.items()}
+    losses = mets["loss"]
+    require(all(np.isfinite(sum(mets.values(), [])))
+            and losses[-1] < losses[0],
+            f"{what}: metrics {mets} not finite or the loss not falling")
     ms = float(np.median(step_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    bound = moe_train_bound(cfg, model, n_params, tokens)
+    bound = bound_fn(model, n_params)
     state, _ = without_host_sync(lambda: step(state, batch))
     by_kernel = kernel_breakdown(lambda: step(state, batch), iters=1)
     busy_ms = sum(by_kernel.values())
@@ -4973,11 +5063,13 @@ def moe_train(device) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del state, step, model
     torch.cuda.empty_cache()
-    resume = moe_resume(batches, device)
+    extra = {k: v for k, v in mets.items() if k not in ("loss", "aux")}
     return {"layers": cfg.n_layers, "params": n_params,
-            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "grad_accum": TRAIN_ACCUM,
-            "remat": cfg.remat, "lr": tc.opt.lr, "moments": "float32",
-            "losses": losses, "aux": auxs, "step_ms": step_ms,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "grad_accum": tc.grad_accum, "remat": cfg.remat,
+            "lr": tc.opt.lr, "moments": tc.opt.moment_dtype,
+            "losses": losses, "aux": mets["aux"], **extra,
+            "step_ms": step_ms,
             "step_ms_median_2_6": ms, "tokens_per_s": tokens / ms * 1e3,
             **bound, "share_of_bound": bound["bound_ms"] / ms,
             "step_host_syncs": 0,
@@ -4987,8 +5079,28 @@ def moe_train(device) -> dict:
             "step_top_kernels_ms": dict(sorted(
                 by_kernel.items(), key=lambda kv: -kv[1])[:8]),
             "state_bytes_p_g_m_v": 2 * param_bytes + moment_bytes,
-            "torch_max_allocated_mib": peak / 2**20,
-            "resume": resume, "seconds": time.perf_counter() - t}
+            "torch_max_allocated_mib": peak / 2**20}, batches
+
+
+def moe_train(device) -> dict:
+    """lm_moe (c): MOE_ARCH at full width cut to MOE_TRAIN_LAYERS layers,
+    `train_run` with float32 moments, lr 3e-4 and grad_accum TRAIN_ACCUM
+    (cap 16 an expert a row), its bound `moe_train_bound`; then
+    `moe_resume` (MOE_RESUME_LAYERS layers)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    res, batches = train_run(
+        cfg, tc, lambda model, n: moe_train_bound(
+            cfg, model, n, TRAIN_BATCH * TRAIN_SEQ), device, "lm_moe")
+    res["resume"] = moe_resume(batches, device)
+    res["seconds"] = time.perf_counter() - t
+    return res
 
 
 def run_lm_moe(device, doc_ids) -> None:
@@ -5006,6 +5118,347 @@ def run_lm_moe(device, doc_ids) -> None:
     emit({"phase": "lm_moe", "arch": MOE_ARCH,
           "allocated_at_start_mib": held / 2**20, "serve": serve,
           "layer_card_vs_cpu": layer, "train": train,
+          "seconds": time.perf_counter() - t})
+
+
+MLA_ARCH = "deepseek-v3-671b"
+# cuts at full width, float32, by layers and experts only (the registry's
+# widths): an MLA block is 187,107,328 parameters, a dense-prefix block
+# 583,483,392, a 256-expert MoE block 11,507,286,016 (46.0 GB), the untied
+# embedding and head 1,853,358,080. Serving: the 3 dense-prefix layers and
+# the first MoE layer of 61, without the MTP block (prefill and decode never
+# read it): 15,111,101,440 parameters, 60.4 GB.
+MLA_SERVE_LAYERS = 4
+MLA_DECODE = 8             # greedy tokens after the rag phase's 18 a row
+# training: 1 dense and 1 MoE layer plus the MTP block, 16 of 256 experts
+# (top-8 and the shared expert kept): 4,411,455,488 parameters; float32
+# moments would peak ≈ 93 GB, int8 ones ≈ 62 GB
+MLA_TRAIN_LAYERS = 2
+MLA_TRAIN_EXPERTS = 16
+MLA_MOMENTS = "int8"
+# resume ≡ uninterrupted at the smallest cut with a top-8 MoE block and the
+# MTP block: 1 MoE layer and the MTP block, 16 experts (3,827,972,096
+# parameters); its state and the state's copy (23.2 GB each) fit beside a
+# step at grad_accum 1, not at 2 (another 15.3 GB accumulator)
+MLA_RESUME_LAYERS = 1
+MLA_RESUME_ACCUM = 1
+MLA_XDEV_SHAPE = (2, 32)   # one full-width MLA + dense block's input
+# card vs CPU on that block, each × its CPU max |.| (float32 both, TF32 off):
+# the prefill's output and latent cache, the absorbed decode's output and
+# cache, every gradient leaf of Σ out·r in train mode
+MLA_XDEV_TOL = {"prefill": 1e-4, "decode": 1e-4, "grad": 1e-4}
+# AdamW's bytes a parameter under int8 moments: p read and written, the
+# float32 gradient read, m and v read and written at 1 B and their float32
+# scale a block of 128 (4 · 4/128 B)
+INT8_OPT_BYTES = 4 + 4 + 4 + 4 * 1 + 4 * 4 / 128
+
+
+def mla_work(cfg, blocks, b: int, s: int) -> dict:
+    """Operations of one forward over [b, s] tokens through `blocks`
+    ((block type, block) pairs, MLA mixers), per-row dispatch: the
+    projections (every block weight but the routed experts', 2 operations
+    a weight a token), the expert products over the padded [b, E, cap, d]
+    buffers (as `ffn._moe` computes them) and over the b·s·k assignments
+    alone, and the causal attention over materialised K/V (q·k width nope
+    + rope, v width v_head_dim: a prefill's or a training step's; a decode
+    step's, over the latent cache, is the caller's)."""
+    from repro_torch.models.ffn import capacity
+
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, s, 8)
+    routed = 3 * e * d * f
+    proj = sum(sum(p.numel() for p in bp.parameters())
+               - (routed if bt.ffn == "moe" else 0) for bt, bp in blocks)
+    n_moe = sum(bt.ffn == "moe" for bt, _ in blocks)
+    slot_ops = 2 * 3 * d * f
+    qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return {"cap": cap, "slot_rows_per_moe_layer": b * e * cap,
+            "assignments_per_moe_layer": b * s * k,
+            "dense_ops": 2 * proj * b * s,
+            "expert_ops": n_moe * slot_ops * b * e * cap,
+            "useful_expert_ops": n_moe * slot_ops * b * s * k,
+            "attn_ops": (len(blocks) * b * cfg.n_heads * 2 * (qk + vd)
+                         * s * s / 2)}
+
+
+def mla_cache_bytes(cfg, layers: int) -> dict:
+    """Cache bytes a token: MLA's latent (kv_lora + rope values a layer)
+    against gqa K/V at the same heads of 128."""
+    lat = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4
+    gqa = 2 * cfg.n_heads * 128 * 4
+    return {"mla_cache_bytes_per_token_layer": lat,
+            "mla_cache_bytes_per_token": lat * layers,
+            "gqa_kv_bytes_per_token_layer": gqa,
+            "gqa_kv_bytes_per_token": gqa * layers,
+            "gqa_over_mla": gqa / lat}
+
+
+def mla_serve_bounds(cfg, lm, param_bytes: int, b: int, s: int,
+                     ctx: int) -> dict:
+    """Least times of an absorbed decode step (one token a row, `ctx`
+    cached slots) and of a prefill of [b, s]: every weight read once (each
+    expert for its padded slots) and, in decode, the latent cache, at
+    HBM_BYTES_PER_S; the operations of the function (`mla_work`, the head
+    at the last position, decode's scores and values over the latent) at
+    FP32_FLOP_PER_S; beside them the useful work's (the b·s·k
+    assignments)."""
+    blocks = list(zip(lm.block_types, lm.layers))
+    lat = cfg.kv_lora_rank + cfg.qk_rope_dim
+    head = 2 * cfg.d_model * cfg.vocab_size * b
+    out = {}
+    for name, ss in (("decode", 1), ("prefill", s)):
+        w = mla_work(cfg, blocks, b, ss)
+        if name == "decode":
+            attn = (len(blocks) * b * cfg.n_heads * ctx
+                    * 2 * (lat + cfg.kv_lora_rank))
+            extra = len(blocks) * b * ctx * lat * 4
+        else:
+            attn, extra = w["attn_ops"], 0
+        ops = w["expert_ops"] + w["dense_ops"] + attn + head
+        useful = w["useful_expert_ops"] + w["dense_ops"] + attn + head
+        out[name] = {
+            "cap": w["cap"],
+            "slot_rows_per_moe_layer": w["slot_rows_per_moe_layer"],
+            "assignments_per_moe_layer": w["assignments_per_moe_layer"],
+            "weight_bound_ms": (param_bytes + extra) / HBM_BYTES_PER_S * 1e3,
+            "ops": ops, "work_bound_ms": ops / FP32_FLOP_PER_S * 1e3,
+            "expert_ops": w["expert_ops"], "useful_ops": useful,
+            "useful_work_bound_ms": useful / FP32_FLOP_PER_S * 1e3,
+            "padded_expert_work_x": w["expert_ops"] / w["useful_expert_ops"]}
+    return out
+
+
+def mla_serve(device, doc_ids) -> dict:
+    """lm_mla (a): MLA_ARCH at full width cut to MLA_SERVE_LAYERS layers
+    and built without the MTP block (15.10 B parameters, 60.4 GB), on the
+    card from a seeded generator; the rag phase's 16 requests' ids and 8
+    prompt tokens prefilled, MLA_DECODE greedy decode steps over the
+    latent cache (absorbed): `serve_decode_checks` — decode ≡ the
+    teacher-forced prefill within LM_TOL at capacity factor E/k (32: no
+    drop possible), drops a row at the published 1.25. Prefill ms (CUDA
+    events) and decode ms a token (host clock, median of 3 runs) beside
+    the weight-read and padded-work bounds; a decode step's device time by
+    kernel; the latent cache's bytes a token beside gqa K/V's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t = time.perf_counter()
+    reset_peak()
+    published = dataclasses.replace(get_arch(MLA_ARCH),
+                                    n_layers=MLA_SERVE_LAYERS, mtp=False)
+    tokens = rag_tokens(doc_ids, published.vocab_size, device)
+    b, s = tokens.shape
+    checks, lm, run = serve_decode_checks(published, tokens, device,
+                                          MLA_DECODE, MLA_DECODE, "lm_mla")
+    cfg = published
+    require(not hasattr(lm, "mtp_block")
+            and all(bt.mixer == "mla" for bt in lm.block_types),
+            "lm_mla: the serving model is not MLA without an MTP block")
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    cache_shapes = {n: list(c.shape) for n, c in
+                    lm.init_cache(1, 1)[0].items()}
+    prefill_ms, decode_ms, by_kernel = serve_timing(lm, tokens, run,
+                                                    MLA_DECODE)
+    bounds = mla_serve_bounds(cfg, lm, param_bytes, b, s, s + MLA_DECODE)
+    peak = torch.cuda.max_memory_allocated()
+    del lm, run
+    torch.cuda.empty_cache()
+    busy_ms = sum(by_kernel.values())
+    dec, pre = bounds["decode"], bounds["prefill"]
+    return {"layers": cfg.n_layers, "of_layers": get_arch(MLA_ARCH).n_layers,
+            "dense_prefix_layers": cfg.first_dense_layers, "mtp": cfg.mtp,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "q_lora": cfg.q_lora_rank, "kv_lora": cfg.kv_lora_rank,
+            "rope": cfg.qk_rope_dim, "nope": cfg.qk_nope_dim,
+            "v_head": cfg.v_head_dim, "d_ff": cfg.d_ff,
+            "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "shared_experts": cfg.n_shared_experts,
+            "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size,
+            "params": n_params, "param_bytes": param_bytes,
+            "cache_leaf_shapes_b1_s1": cache_shapes,
+            **mla_cache_bytes(cfg, cfg.n_layers),
+            "batch": b, "prompt_tokens": s, "decoded": MLA_DECODE,
+            "decode_vs_prefill_tol": LM_TOL,
+            "decode_vs_prefill": checks,
+            "prefill_ms": prefill_ms,
+            "prefill_weight_bound_ms": pre["weight_bound_ms"],
+            "prefill_work_bound_ms": pre["work_bound_ms"],
+            "decode_ms_per_token": decode_ms,
+            "decode_ms_per_token_per_request": decode_ms / b,
+            "decode_weight_bound_ms": dec["weight_bound_ms"],
+            "decode_work_bound_ms": dec["work_bound_ms"],
+            "decode_share_of_bound": max(dec["weight_bound_ms"],
+                                         dec["work_bound_ms"]) / decode_ms,
+            "bounds": bounds,
+            "decode_step_device_busy_ms": busy_ms,
+            "decode_step_idle_share": 1.0 - busy_ms / decode_ms,
+            "decode_step_kernel_names": len(by_kernel),
+            "decode_step_top_kernels_ms": dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+            "torch_max_allocated_mib": peak / 2**20,
+            "seconds": time.perf_counter() - t}
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want| (want on the CPU)."""
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def mla_block_card_vs_cpu(device) -> dict:
+    """lm_mla (b): one MLA + dense block of MLA_ARCH at full width
+    (583,483,392 parameters), weights drawn on the card from a seeded
+    generator and copied to the CPU; a seeded hidden state MLA_XDEV_SHAPE
+    [B, S], one more token and a cotangent r. On both devices: the
+    prefill (output, latent cache), an absorbed decode of the next token
+    at position S into a cache of capacity S + 1 (output, both cache
+    leaves), and in train mode the gradients of Σ out·r with respect to
+    every weight and the input; each within MLA_XDEV_TOL of the CPU's max
+    |.|."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import (BlockApplier, BlockType, Ctx,
+                                                _init_block)
+
+    t = time.perf_counter()
+    cfg = get_arch(MLA_ARCH)
+    bt = BlockType("mla")
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    card = _init_block(cfg, bt, g, device)
+    cpu = _init_block(cfg, bt, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    b, s = MLA_XDEV_SHAPE
+    x = torch.randn((b, s + 1, cfg.d_model), generator=g, device=device)
+    r = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    applier = BlockApplier(cfg)
+    res = {}
+    for name, blk in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        dev = next(blk.parameters()).device
+        xx = x.to(dev)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        with torch.no_grad():
+            out, part, _ = applier(bt, blk, xx[:, :s],
+                                   Ctx("prefill", positions=positions))
+            cache = {n: torch.zeros((b, s + 1) + c.shape[2:], device=dev)
+                     for n, c in part.items()}
+            for n, c in part.items():
+                cache[n][:, :s] = c
+            pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+            dec, cache, _ = applier(bt, blk, xx[:, s:], Ctx("decode", pos=pos),
+                                    cache)
+        xg = xx[:, :s].clone().requires_grad_()
+        out_t, _, _ = applier(bt, blk, xg, Ctx("train", positions=positions))
+        names = [n for n, _ in blk.named_parameters()] + ["x"]
+        grads = torch.autograd.grad((out_t * r.to(dev)).sum(),
+                                    list(blk.parameters()) + [xg])
+        res[name] = {"prefill": {"out": out, **part},
+                     "decode": {"out": dec, **cache},
+                     "grad": dict(zip(names, grads)),
+                     "s": time.perf_counter() - t1}
+        del out_t, grads
+    c = res["cpu"]
+    err = {what: {n: rel_err(res["card"][what][n], want)
+                  for n, want in c[what].items()}
+           for what in ("prefill", "decode", "grad")}
+    secs = {f"{n}_s": res[n]["s"] for n in res}
+    n_params = sum(p.numel() for p in card.parameters())
+    del card, cpu, res, x, r
+    torch.cuda.empty_cache()
+    out = {"shape": [b, s], "params": n_params,
+           "err_of_max": err, "tol": MLA_XDEV_TOL, **secs,
+           "seconds": time.perf_counter() - t}
+    require(all(max(err[w].values()) <= MLA_XDEV_TOL[w] for w in err),
+            f"lm_mla: card vs CPU beyond MLA_XDEV_TOL: {out}")
+    return out
+
+
+def mla_train_bound(cfg, model, n_params: int) -> dict:
+    """Least time of a training step with the MTP head over TRAIN_ACCUM
+    microbatches: operations 3 × a forward's (`mla_work` over the layers
+    and the MTP block at the microbatch's shape, mtp_proj, the head over
+    every position twice — ce and mtp_ce —; remat's recompute not
+    counted) at FP32_FLOP_PER_S, and AdamW's bytes (INT8_OPT_BYTES a
+    parameter) at HBM_BYTES_PER_S, the larger; and the same over the
+    useful work."""
+    b = TRAIN_BATCH // TRAIN_ACCUM
+    tok = b * TRAIN_SEQ
+    blocks = list(zip(model.block_types, model.layers)) + [
+        (model.mtp_type, model.mtp_block)]
+    w = mla_work(cfg, blocks, b, TRAIN_SEQ)
+    rest = (w["dense_ops"] + w["attn_ops"] + 2 * model.mtp_proj.numel() * tok
+            + 2 * 2 * cfg.d_model * cfg.vocab_size * tok)
+    ops = 3 * TRAIN_ACCUM * (w["expert_ops"] + rest)
+    useful = 3 * TRAIN_ACCUM * (w["useful_expert_ops"] + rest)
+    opt_bytes = INT8_OPT_BYTES * n_params
+    t_ops, t_bytes = ops / FP32_FLOP_PER_S, opt_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_ops": ops,
+            "bound_bytes": opt_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "useful_ops": useful,
+            "useful_bound_ms": max(useful / FP32_FLOP_PER_S, t_bytes) * 1e3,
+            "cap": w["cap"],
+            "slot_rows_per_moe_layer": w["slot_rows_per_moe_layer"],
+            "assignments_per_moe_layer": w["assignments_per_moe_layer"]}
+
+
+def mla_train(device) -> dict:
+    """lm_mla (c): MLA_ARCH at full width cut to MLA_TRAIN_LAYERS layers
+    (one dense, one MoE) with the MTP block, MLA_TRAIN_EXPERTS experts
+    (top-8, the shared expert kept); `train_run` with MLA_MOMENTS moments,
+    lr 3e-4, grad_accum TRAIN_ACCUM (cap 48 an expert a row), its bound
+    `mla_train_bound`; then resume ≡ uninterrupted bit for bit at
+    MLA_RESUME_LAYERS (one MoE layer and the MTP block, grad_accum
+    MLA_RESUME_ACCUM): the check the MoE dispatch's deterministic backward
+    exists for, a token's 8 dispatch gradients summed in slot order."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    t = time.perf_counter()
+    arch = get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(arch, n_layers=MLA_TRAIN_LAYERS,
+                              first_dense_layers=1,
+                              n_experts=MLA_TRAIN_EXPERTS)
+    require(cfg.mtp and cfg.top_k == 8 and cfg.n_shared_experts == 1,
+            "lm_mla: the training cut lost MTP, top-8 or the shared expert")
+    opt = AdamWConfig(moment_dtype=MLA_MOMENTS)
+    res, batches = train_run(
+        cfg, TrainConfig(opt=opt, grad_accum=TRAIN_ACCUM),
+        lambda model, n: mla_train_bound(cfg, model, n), device, "lm_mla")
+    res.update(dense_prefix_layers=cfg.first_dense_layers,
+               experts=cfg.n_experts, of_experts=arch.n_experts,
+               top_k=cfg.top_k, mtp=cfg.mtp)
+    rcfg = dataclasses.replace(arch, n_layers=MLA_RESUME_LAYERS,
+                               first_dense_layers=0,
+                               n_experts=MLA_TRAIN_EXPERTS)
+    res["resume"] = resume_on_card(
+        rcfg, TrainConfig(opt=opt, grad_accum=MLA_RESUME_ACCUM), batches,
+        device, "lm_mla")
+    res["seconds"] = time.perf_counter() - t
+    return res
+
+
+def run_lm_mla(device, doc_ids) -> None:
+    """lm_mla, last (TF32 off): `mla_serve`, `mla_block_card_vs_cpu` and
+    `mla_train`, each on a card holding none of the earlier phases'
+    models."""
+    import torch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    serve = mla_serve(device, doc_ids)
+    block = mla_block_card_vs_cpu(device)
+    train = mla_train(device)
+    emit({"phase": "lm_mla", "arch": MLA_ARCH,
+          "allocated_at_start_mib": held / 2**20, "serve": serve,
+          "block_card_vs_cpu": block, "train": train,
           "seconds": time.perf_counter() - t})
 
 
@@ -5034,9 +5487,10 @@ def run_phases(args, device) -> list:
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r, rag_ids = run_pipeline(
         args, device, {"float32": k5["ms"], "pq": k5q["pq"]["ms"]})
-    run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH))
+    run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH), (1, 8, MLA_ARCH))
     run_lm_train(device)
     run_lm_moe(device, rag_ids)
+    run_lm_mla(device, rag_ids)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")
@@ -5174,8 +5628,12 @@ def main(argv=None) -> int:
     mib = 2**20
     emit({"phase": "memory", "peak_used_mib": mem.peak_mib,
           "samples": mem.samples,
-          "torch_max_allocated_mib": torch.cuda.max_memory_allocated() / mib,
-          "torch_max_reserved_mib": torch.cuda.max_memory_reserved() / mib})
+          "torch_max_allocated_mib": max(
+              TORCH_PEAKS["allocated"]
+              + [torch.cuda.max_memory_allocated()]) / mib,
+          "torch_max_reserved_mib": max(
+              TORCH_PEAKS["reserved"]
+              + [torch.cuda.max_memory_reserved()]) / mib})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

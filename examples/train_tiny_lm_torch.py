@@ -7,6 +7,9 @@ exist; `--device cpu` runs on the CPU).
 
     PYTHONPATH=src python examples/train_tiny_lm_torch.py [--steps 200] \\
         [--arch olmo-1b] [--device cpu] [--resume]
+
+`--arch` takes any dense or MoE config, deepseek-v3-671b (MLA and the
+MTP head, whose cross-entropy is printed beside the backbone's) too.
 """
 import argparse
 import os
@@ -80,8 +83,10 @@ def main(argv=None):
             print(f"  [straggler] step {ev.step}: {ev.duration:.2f}s "
                   f"vs median {ev.median:.2f}s")
         if (i + 1) % 25 == 0:
+            mtp = (f"mtp_ce={float(metrics['mtp_ce']):.3f} "
+                   if "mtp_ce" in metrics else "")
             print(f"step {i+1:4d} loss={float(metrics['loss']):.3f} "
-                  f"ce={float(metrics['ce']):.3f} "
+                  f"ce={float(metrics['ce']):.3f} {mtp}"
                   f"({(time.time()-t0)/(i+1-start):.2f}s/step)")
         if (i + 1) % 100 == 0:
             mgr.save(i + 1, state)

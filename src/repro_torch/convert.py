@@ -181,29 +181,39 @@ def _lm_tree(model, leaf, stack):
     reference unrolls its prefix); a `seg{si}/pos{pi}` leaf, which carries
     a leading n_groups axis in the reference (it scans over groups), is
     stack([leaf of layer g·len(period) + pi for each group g]), counted
-    after the prefix. Empty norm dicts (non-parametric LN) stay as {}."""
+    after the prefix. The MTP head's `mtp_proj`, `mtp_block` and
+    `mtp_norm` are top-level and unstacked, as the reference draws them.
+    Empty norm dicts (non-parametric LN) stay as {}."""
     tree = {"embed": leaf("embed"),
             "final_norm": {n: leaf(f"final_norm.{n}")
                            for n in model.final_norm}}
     if not model.cfg.tie_embeddings:
         tree["head"] = leaf("head")
 
-    def block(li: int) -> dict:
-        return {part: _part_names(model.layers[li][part],
-                                  f"layers.{li}.{part}")
+    def block(mod, prefix: str) -> dict:
+        return {part: _part_names(mod[part], f"{prefix}.{part}")
                 for part in _LM_PARTS}
 
+    def one(mod, prefix: str) -> dict:
+        return _zip_names([block(mod, prefix)], lambda ns: leaf(ns[0]))
+
     for i in range(len(model.prefix)):
-        tree[f"prefix{i}"] = _zip_names([block(i)], lambda ns: leaf(ns[0]))
+        tree[f"prefix{i}"] = one(model.layers[i], f"layers.{i}")
     li = len(model.prefix)
     for si, seg in enumerate(model.segments):
         per = len(seg.period)
         tree[f"seg{si}"] = {
             f"pos{pi}": _zip_names(
-                [block(li + g * per + pi) for g in range(seg.n_groups)],
+                [block(model.layers[j], f"layers.{j}")
+                 for j in range(li + pi, li + seg.n_groups * per, per)],
                 lambda ns: stack([leaf(n) for n in ns]))
             for pi in range(per)}
         li += seg.n_groups * per
+    if model.cfg.mtp:
+        tree["mtp_proj"] = leaf("mtp_proj")
+        tree["mtp_block"] = one(model.mtp_block, "mtp_block")
+        tree["mtp_norm"] = {n: leaf(f"mtp_norm.{n}")
+                            for n in model.mtp_norm}
     return tree
 
 

@@ -1,5 +1,6 @@
 """The LM zoo (counterpart of `repro/models`): the dense and MoE decoder
-families — training loss, prefill and KV-cache decode."""
+families, gqa or MLA attention, with deepseek-v3's MTP head — training
+loss, prefill and cached decode."""
 from repro_torch.models.transformer import (BlockType, Ctx, DecoderLM,
                                             Segment)
 from repro_torch.models.zoo import build_model

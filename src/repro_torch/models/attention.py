@@ -1,22 +1,22 @@
 """Attention: GQA flash (chunked online softmax), sliding-window and
-local/global patterns, and the decode path over a KV cache.
+local/global patterns, DeepSeek's multi-head latent attention (MLA), and
+the decode paths over a KV or latent cache.
 
 Counterpart of `repro/models/attention.py`. The reference's
-`flash_attention` is jnp code compiled by XLA (no Pallas kernel), so it
-stays torch ops here, with the reference's KV chunking, padding of the
-last chunk, masks and summation structure, so that the rounding follows
-the reference's. MLA (`attention.py:177-266` of the reference) is not
-ported yet (ROADMAP.md Queue 1, item 5c).
+`flash_attention` and MLA are jnp code compiled by XLA (no Pallas
+kernel), so they stay torch ops here, with the reference's KV chunking,
+padding of the last chunk, masks, einsum order and summation structure,
+so that the rounding follows the reference's.
 
-KV caches are written in place: `attention_decode` updates the cache
-tensors it is given and returns the same dict.
+Caches are written in place: `attention_decode` and `mla_decode` update
+the cache tensors they are given and return the same dict.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import _fill, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -140,3 +140,97 @@ def attention_decode(cfg, p, x, cache, *, pos, window=0):
     valid = torch.clamp(pos + 1, max=s_max)
     out = decode_attention(q, kc, vc, valid)
     return out.reshape(b, 1, h * hd) @ p["wo"].to(cd), cache
+
+
+# -------------------------------------------------------------------- MLA ----
+def init_mla(cfg, generator: torch.Generator, device) -> nn.ParameterDict:
+    """The reference's MLA leaves: the query's low-rank pair wq_a [d,
+    q_lora] / wq_b [q_lora, H·(nope + rope)] around q_norm, the joint KV
+    down-projection wkv_a [d, kv_lora + rope] (the latent and the shared
+    roped key), kv_norm, the up-projection wkv_b [kv_lora, H·(nope + v)]
+    and wo [H·v, d]; the norms' scales zero (the `1 + scale` form)."""
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.param_dtype
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    return nn.ParameterDict({
+        "wq_a": dense_init((d, ql), d, dt, generator, device),
+        "q_norm": _fill((ql,), 0.0, dt, device),
+        "wq_b": dense_init((ql, h * qk), ql, dt, generator, device),
+        "wkv_a": dense_init((d, kl + cfg.qk_rope_dim), d, dt, generator,
+                            device),
+        "kv_norm": _fill((kl,), 0.0, dt, device),
+        "wkv_b": dense_init((kl, h * (cfg.qk_nope_dim + cfg.v_head_dim)), kl,
+                            dt, generator, device),
+        "wo": dense_init((h * cfg.v_head_dim, d), h * cfg.v_head_dim, dt,
+                         generator, device),
+    })
+
+
+def _mla_query(cfg, p, x):
+    """[..., H, nope + rope]: the query through its low-rank pair."""
+    cd = cfg.compute_dtype
+    q = rms_norm(x @ p["wq_a"].to(cd), p["q_norm"]) @ p["wq_b"].to(cd)
+    return q.reshape(*x.shape[:-1], cfg.n_heads,
+                     cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_forward(cfg, p, x, *, positions):
+    """Train / prefill MLA over x [B, S, d]: per-head K/V materialised from
+    the latent, then causal `flash_attention` at a q·k width of nope +
+    rope and a v width of v_head_dim. Returns (out [B, S, d], (c_kv
+    [B, S, kv_lora], k_rope [B, S, rope])), the latent cache."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lr, cd = cfg.kv_lora_rank, cfg.compute_dtype
+    q = _mla_query(cfg, p, x)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"].to(cd)                              # [B, S, lr+rd]
+    c_kv = rms_norm(kv_a[..., :lr], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., lr:][:, :, None, :], positions,
+                        cfg.rope_theta)                       # [B, S, 1, rd]
+    kv = (c_kv @ p["wkv_b"].to(cd)).reshape(b, s, h, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rd)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(qf, k, v, causal=True)
+    return (out.reshape(b, s, h * vd) @ p["wo"].to(cd),
+            (c_kv, k_rope[:, :, 0, :]))
+
+
+def mla_decode(cfg, p, x, cache, *, pos):
+    """Absorbed MLA decode of one token x [B, 1, d] at positions pos [B]:
+    W_uk is folded into the query and the scores are taken against the
+    latent cache {"c_kv" [B, S, kv_lora], "k_rope" [B, S, rope]} (kv_lora
+    + rope values a token instead of 2·H·dh), written in place at `pos`
+    and masked to slots ≤ pos; the value side leaves the latent through
+    W_uv after the softmax. Returns (out [B, 1, d], cache)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lr, cd = cfg.kv_lora_rank, cfg.compute_dtype
+    q = _mla_query(cfg, p, x).reshape(b, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    kv_a = x[:, 0, :] @ p["wkv_a"].to(cd)
+    c_new = rms_norm(kv_a[..., :lr], p["kv_norm"])
+    kr_new = apply_rope(kv_a[:, None, None, lr:], pos[:, None],
+                        cfg.rope_theta)[:, 0, 0]
+    ckv, krc = cache["c_kv"], cache["k_rope"]
+    rows, slot = torch.arange(b, device=x.device), pos.long()
+    ckv[rows, slot] = c_new.to(ckv.dtype)
+    krc[rows, slot] = kr_new.to(krc.dtype)
+    wkv_b = p["wkv_b"].to(cd).reshape(lr, h, nd + vd)
+    w_uk, w_uv = wkv_b[..., :nd], wkv_b[..., nd:]   # [lr, H, nd], [lr, H, vd]
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope, w_uk)
+    s_lat = torch.einsum("bhl,bsl->bhs", q_lat, ckv)
+    s_rope = torch.einsum("bhr,bsr->bhs", q_rope, krc)
+    sc = (s_lat + s_rope) * (nd + rd) ** -0.5
+    mask = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+            <= pos[:, None])                                  # [B, S]
+    sc = sc.to(torch.float32).masked_fill(~mask[:, None, :], NEG_INF)
+    pr = torch.softmax(sc, dim=-1).to(cd)
+    o_lat = torch.einsum("bhs,bsl->bhl", pr, ckv)
+    out = torch.einsum("bhl,lhv->bhv", o_lat, w_uv).reshape(b, 1, h * vd)
+    return out @ p["wo"].to(cd), cache

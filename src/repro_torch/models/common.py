@@ -22,14 +22,15 @@ from torch import nn
 def dense_init(shape, in_axis_size: int, dtype,
                generator: torch.Generator | None, device) -> nn.Parameter:
     """normal · 1/√fan_in drawn in float32 on the generator's device, then
-    cast (the reference's `dense_init`). Without a generator the tensor is
-    left uninitialised, for a caller that loads its values
-    (`convert.lm_params_to_torch`)."""
+    cast (the reference's `dense_init`); the scaling is in place, so a
+    leaf's draw holds one copy of it (a 15 GB expert leaf of deepseek-v3).
+    Without a generator the tensor is left uninitialised, for a caller
+    that loads its values (`convert.lm_params_to_torch`)."""
     if generator is None:
         return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     v = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
-    v = v * (1.0 / math.sqrt(max(in_axis_size, 1)))
+    v.mul_(1.0 / math.sqrt(max(in_axis_size, 1)))   # in place: one copy
     return nn.Parameter(v.to(device=device, dtype=dtype))
 
 

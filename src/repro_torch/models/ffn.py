@@ -21,12 +21,17 @@ assignment of e (zero where e has fewer than c + 1), so a dropped
 assignment is never written — the buffer is the one the reference's
 scatter with `mode="drop"` makes —; each assignment then reads its slot
 back, times its gate (0 where dropped), and a token's k results are
-summed in slot order. With k = 2 that sum, a + b into zero, is the
-reference's scatter-add bit for bit (addition commutes), and no step of
-the forward or backward adds more than two nonzero terms to one element,
-so the layer is deterministic on the card. The expert products are
-`torch.einsum` over the expert axis, as the reference's `jnp.einsum`
-outside any Pallas kernel.
+summed in slot order (`_combine`). For k ≤ 2 that sum, a + b into zero,
+is the reference's scatter-add bit for bit (addition commutes); for
+larger k (deepseek-v3's top-8) the reference's scatter-add sums in an
+order XLA picks, so the two agree within a rounding of the k terms, the
+tolerance `tests/test_torch_mla.py` states. The backward of the dispatch
+(`_Dispatch`) is the same gather-and-sum: a token's gradient is the sum
+of its kept slots' gradients in slot order, with no scatter and so no
+atomics on the card. Every step of the forward and the backward sums a
+fixed set of terms in a fixed order, so the layer is deterministic on
+the card at any k. The expert products are `torch.einsum` over the
+expert axis, as the reference's `jnp.einsum` outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -130,24 +135,59 @@ def route(cfg, p, x, cap: int) -> Routing:
 def _dispatch(x, r: Routing, k: int):
     """[R, E, C, d]: slot c of expert e holds the token of e's c-th
     assignment in sorted order, zero where e has no such assignment."""
-    rows, _, d = x.shape
-    e, cap = r.starts.shape[1], r.cap
-    slot = torch.arange(cap, device=x.device)
-    filled = (slot < r.counts[..., None]).reshape(rows, e * cap, 1)
-    pos = (r.starts[..., None] + slot).clamp(max=r.order.shape[1] - 1)
-    tok = torch.gather(r.order, 1, pos.reshape(rows, e * cap)) // k
-    xt = torch.gather(x, 1, tok[..., None].expand(-1, -1, d))
-    return torch.where(filled, xt, 0.0).reshape(rows, e, cap, d)
+    return _Dispatch.apply(x, r, k)
+
+
+def _slots(yb, expert, rank):
+    """[R, S·k, d]: each assignment's slot of yb [R, E, C, d], by its
+    expert and rank (a dropped one reads its expert's last slot; the
+    callers mask it)."""
+    rows, e, cap, d = yb.shape
+    slot = expert * cap + rank.clamp(max=cap - 1)
+    return torch.gather(yb.reshape(rows, e * cap, d), 1,
+                        slot[..., None].expand(-1, -1, d))
+
+
+class _Dispatch(torch.autograd.Function):
+    """`_dispatch` with a deterministic backward. Autograd's backward of
+    the forward's gather scatter-adds the buffer's gradient into x, which
+    on the card is atomics adding up to k nonzero terms to an element in
+    a varying order; here a token's gradient is the sum of its kept
+    slots' gradients gathered through the (expert · C + rank) map and
+    added in slot order, the same gather-and-sum as `_combine`."""
+
+    @staticmethod
+    def forward(ctx, x, r: Routing, k: int):
+        rows, _, d = x.shape
+        e, cap = r.starts.shape[1], r.cap
+        slot = torch.arange(cap, device=x.device)
+        filled = (slot < r.counts[..., None]).reshape(rows, e * cap, 1)
+        pos = (r.starts[..., None] + slot).clamp(max=r.order.shape[1] - 1)
+        tok = torch.gather(r.order, 1, pos.reshape(rows, e * cap)) // k
+        xt = torch.gather(x, 1, tok[..., None].expand(-1, -1, d))
+        ctx.save_for_backward(r.expert, r.rank, r.keep)
+        ctx.k = k
+        return torch.where(filled, xt, 0.0).reshape(rows, e, cap, d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        expert, rank, keep = ctx.saved_tensors
+        k = ctx.k
+        rows, _, _, d = grad.shape
+        g = torch.where(keep[..., None], _slots(grad, expert, rank), 0.0)
+        g = g.reshape(rows, -1, k, d)
+        dx = g[:, :, 0]
+        for j in range(1, k):
+            dx = dx + g[:, :, j]
+        return dx, None, None
 
 
 def _combine(yb, r: Routing, k: int):
     """[R, S, d]: each token's k expert outputs times their gates (0 where
     dropped), summed in slot order."""
-    rows, e, cap, d = yb.shape
-    slot = r.expert * cap + r.rank.clamp(max=cap - 1)
-    y = torch.gather(yb.reshape(rows, e * cap, d), 1,
-                     slot[..., None].expand(-1, -1, d))
-    y = y * torch.where(r.keep, r.gate, 0.0)[..., None].to(yb.dtype)
+    rows, _, _, d = yb.shape
+    y = _slots(yb, r.expert, r.rank) * torch.where(
+        r.keep, r.gate, 0.0)[..., None].to(yb.dtype)
     return y.reshape(rows, -1, k, d).sum(dim=2)
 
 

@@ -1,5 +1,6 @@
-"""DecoderLM — the decoder-only LM of the dense and MoE families:
-training loss, prefill and KV-cache decode.
+"""DecoderLM — the decoder-only LM of the dense and MoE families (gqa or
+MLA attention, with deepseek-v3's MTP head): training loss, prefill and
+cached decode.
 
 Counterpart of `repro/models/transformer.py`. The reference plans a model
 as an unrolled prefix of blocks, then segments, each a scanned stack of
@@ -9,7 +10,8 @@ groups applying a static period of block types:
   h2o-danube3 (SWA)     period = (gqa-local+mlp,)             x L
   gemma3 (5:1)          period = (local x5, global)           x L/6
   phi3.5-moe            period = (gqa-global+moe,)            x L
-  first_dense_layers=n  prefix = n (gqa+mlp), then the MoE period
+  deepseek-v3           prefix = 3 (mla+dense), then
+                        period = (mla+moe,)                   x 58
 
 Here the same plan unrolls into an `nn.ModuleList` of layers: the prefix
 first, then layer g·len(period) + i of a segment applying period
@@ -18,19 +20,24 @@ position i of group g, with no scan. In training (`loss`) with
 and recomputed on backward, as the reference checkpoints them; the MoE
 load-balance loss of every MoE block is summed through them in layer
 order, as the reference's scan carries it, and the loss is ce +
-router_aux_weight · aux. The cross-entropy runs over sequence chunks,
-each recomputed on backward, so no [B, S, V] logits tensor is held. The
-sharding constraints of the reference's backbone are no-ops on one
-device and are dropped; they come back with the mesh. MLA, MTP and the
-SSM, hybrid, VLM and enc-dec families are not ported yet;
-`models.zoo.build_model` refuses them.
+router_aux_weight · aux. With `cfg.mtp` (deepseek-v3's multi-token
+prediction, depth 1) the loss adds 0.3 · the cross-entropy of one more
+block, of the last segment's period type, predicting token t + 2 from
+the backbone's normed h_t and the embedding of token t + 1, and its aux
+(`DecoderLM.loss`); prefill and decode never read the MTP leaves. The
+cross-entropy runs over sequence chunks, each recomputed on backward, so
+no [B, S, V] logits tensor is held. The sharding constraints of the
+reference's backbone are no-ops on one device and are dropped; they come
+back with the mesh. The SSM, hybrid, VLM and enc-dec families are not
+ported yet; `models.zoo.build_model` refuses them.
 
-A cache is a list with one {"k", "v"} dict per layer, [B, S, KV, hd]
-(S = min(window, capacity) for a sliding-window layer, a rolling
-buffer). Decode writes it in place. Prefill and decode run the MoE
-without its aux loss, as the reference does; a decode step routes one
-token a row, so its capacity (8) is never reached and it drops nothing,
-while a prefill may drop (ROADMAP.md Queue 3).
+A cache is a list with one dict per layer: {"k", "v"} [B, S, KV, hd]
+for a gqa layer (S = min(window, capacity) for a sliding-window layer, a
+rolling buffer), the latent {"c_kv" [B, S, kv_lora], "k_rope" [B, S,
+rope]} for an MLA layer. Decode writes it in place. Prefill and decode
+run the MoE without its aux loss, as the reference does; a decode step
+routes one token a row, so its capacity (8) is never reached and it
+drops nothing, while a prefill may drop (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ from repro_torch.models.common import apply_norm, dense_init, init_norm
 
 
 class BlockType(NamedTuple):
-    mixer: str = "gqa"      # the only mixer ported
+    mixer: str = "gqa"      # gqa | mla
     window: int = 0         # 0 = global attention
     ffn: str = "dense"      # dense | moe
 
@@ -67,35 +74,37 @@ class Ctx(NamedTuple):
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
-    """(segments, unrolled prefix block types) of a gqa config of the dense
-    or MoE family: global, `local` (every layer a window) or
-    `local_global` (period − 1 local layers, then a global one); the FFN
-    an MoE where `cfg.n_experts` is set; with global attention, the first
-    `first_dense_layers` blocks a dense prefix."""
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    """(segments, unrolled prefix block types) of a config of the dense or
+    MoE family, its mixer MLA where `cfg.use_mla` is set, else gqa:
+    global, `local` (every layer a window) or `local_global` (period − 1
+    local layers, then a global one); the FFN an MoE where `cfg.n_experts`
+    is set; with global attention, the first `first_dense_layers` blocks a
+    dense prefix."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: layer_plan covers the gqa dense and MoE families "
-            "only")
+            f"{cfg.name}: layer_plan covers the dense and MoE families only")
+    mixer = "mla" if cfg.use_mla else "gqa"
     ffn = "moe" if cfg.n_experts else "dense"
     if cfg.attn_kind == "local":
-        return [Segment((BlockType(window=cfg.local_window, ffn=ffn),),
+        return [Segment((BlockType(mixer, cfg.local_window, ffn),),
                         cfg.n_layers)], []
     if cfg.attn_kind == "local_global":
         p = cfg.local_global_period
-        per = ((BlockType(window=cfg.local_window, ffn=ffn),) * (p - 1)
-               + (BlockType(ffn=ffn),))
+        per = ((BlockType(mixer, cfg.local_window, ffn),) * (p - 1)
+               + (BlockType(mixer, ffn=ffn),))
         return [Segment(per, cfg.n_layers // p)], []
     n = cfg.first_dense_layers
-    return ([Segment((BlockType(ffn=ffn),), cfg.n_layers - n)],
-            [BlockType()] * n)
+    return ([Segment((BlockType(mixer, ffn=ffn),), cfg.n_layers - n)],
+            [BlockType(mixer)] * n)
 
 
 def _init_block(cfg: ArchConfig, bt: BlockType, generator, device
                 ) -> nn.ModuleDict:
+    init_attn = attn.init_mla if bt.mixer == "mla" else attn.init_attention
     init_ffn = ffn_mod.init_moe if bt.ffn == "moe" else ffn_mod.init_mlp
     return nn.ModuleDict({
         "norm1": init_norm(cfg, cfg.d_model, device),
-        "attn": attn.init_attention(cfg, generator, device),
+        "attn": init_attn(cfg, generator, device),
         "norm2": init_norm(cfg, cfg.d_model, device),
         "ffn": init_ffn(cfg, generator, device),
     })
@@ -103,12 +112,18 @@ def _init_block(cfg: ArchConfig, bt: BlockType, generator, device
 
 def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
                       device) -> dict:
-    """Zero K/V for one gqa block: capacity s_max, or min(window, s_max)
-    for a sliding-window block."""
+    """A zero cache for one block: the latent {"c_kv", "k_rope"} of an MLA
+    block, capacity s_max; K/V of a gqa block, capacity s_max, or
+    min(window, s_max) for a sliding-window block."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+
+    if bt.mixer == "mla":
+        return {"c_kv": zeros(b, s_max, cfg.kv_lora_rank),
+                "k_rope": zeros(b, s_max, cfg.qk_rope_dim)}
     s = min(bt.window, s_max) if bt.window else s_max
-    shape = (b, s, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    return {"k": zeros(b, s, cfg.n_kv_heads, cfg.hd),
+            "v": zeros(b, s, cfg.n_kv_heads, cfg.hd)}
 
 
 def _pad_cache_seq(full, part):
@@ -121,9 +136,10 @@ def _pad_cache_seq(full, part):
 
 
 class BlockApplier:
-    """Applies one gqa block in train, prefill or decode mode: (x, cache,
-    aux). Train builds no cache and returns None for it; aux is the MoE
-    load-balance loss of an MoE block in train mode, else None."""
+    """Applies one block (gqa or MLA mixer, dense or MoE FFN) in train,
+    prefill or decode mode: (x, cache, aux). Train builds no cache and
+    returns None for it; aux is the MoE load-balance loss of an MoE block
+    in train mode, else None."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -131,7 +147,16 @@ class BlockApplier:
     def __call__(self, bt: BlockType, bp, x, ctx: Ctx, cache=None):
         cfg = self.cfg
         h = apply_norm(cfg, bp["norm1"], x)
-        if ctx.mode == "decode":
+        if bt.mixer == "mla":
+            if ctx.mode == "decode":
+                out, new_cache = attn.mla_decode(cfg, bp["attn"], h, cache,
+                                                 pos=ctx.pos)
+            else:
+                out, (ckv, krope) = attn.mla_forward(
+                    cfg, bp["attn"], h, positions=ctx.positions)
+                new_cache = (None if ctx.mode == "train"
+                             else {"c_kv": ckv, "k_rope": krope})
+        elif ctx.mode == "decode":
             out, new_cache = attn.attention_decode(
                 cfg, bp["attn"], h, cache, pos=ctx.pos, window=bt.window)
         else:
@@ -162,9 +187,10 @@ class DecoderLM(nn.Module):
     """The dense or MoE decoder LM on `device` (the card by default).
 
     With a `generator`, every weight is drawn from it as the reference's
-    `init_params` draws (normal · 1/√fan_in; norms at their constants);
-    without one the weights are left uninitialised for a caller that
-    loads them (`convert.lm_params_to_torch`)."""
+    `init_params` draws (normal · 1/√fan_in; norms at their constants),
+    the MTP head's (`cfg.mtp`: mtp_proj [2d, d], mtp_block, mtp_norm)
+    after the layers; without one the weights are left uninitialised for a
+    caller that loads them (`convert.lm_params_to_torch`)."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: torch.Generator | None = None):
@@ -182,7 +208,16 @@ class DecoderLM(nn.Module):
                      dense_init((d, cfg.vocab_size), d, dt, generator, dev))
         self.layers = nn.ModuleList(_init_block(cfg, bt, generator, dev)
                                     for bt in self.block_types)
+        if cfg.mtp:
+            self.mtp_proj = dense_init((2 * d, d), 2 * d, dt, generator, dev)
+            self.mtp_block = _init_block(cfg, self.mtp_type, generator, dev)
+            self.mtp_norm = init_norm(cfg, d, dev)
         self._applier = BlockApplier(cfg)
+
+    @property
+    def mtp_type(self) -> BlockType:
+        """The MTP block's type: the last segment's last period type."""
+        return self.segments[-1].period[-1]
 
     @property
     def device(self) -> torch.device:
@@ -242,24 +277,53 @@ class DecoderLM(nn.Module):
     def loss(self, batch):
         """Next-token cross-entropy over tokens [B, S] (`batch["tokens"]`):
         labels shifted by one, the last position masked. Returns (loss,
-        {"ce", "aux"}), 0-d float32 tensors; `aux`, the MoE load-balance
-        loss summed over the MoE blocks, is 0 in the dense family, and
-        loss = ce + router_aux_weight·aux."""
+        metrics), 0-d float32 tensors; metrics["aux"], the MoE
+        load-balance loss summed over the backbone's MoE blocks, is 0 in
+        the dense family, and loss = ce + router_aux_weight·aux. With
+        `cfg.mtp`, metrics["mtp_ce"] is the MTP head's cross-entropy
+        (`_mtp`) and loss += 0.3·mtp_ce + router_aux_weight·(its aux)."""
         cfg = self.cfg
-        if cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: the MTP head is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1, item 5c (MLA and MTP))")
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h, aux = self._train_backbone(self._embed(tokens),
-                                      Ctx(mode="train", positions=positions))
+        ctx = Ctx(mode="train", positions=positions)
+        h, aux = self._train_backbone(self._embed(tokens), ctx)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
         ce = _xent_chunked(self._logits, h, labels, mask)
-        return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+        loss = ce + cfg.router_aux_weight * aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp:
+            mtp_ce, aux2 = self._mtp(h, tokens, labels, ctx)
+            loss = loss + 0.3 * mtp_ce + cfg.router_aux_weight * aux2
+            metrics["mtp_ce"] = mtp_ce
+        return loss, metrics
+
+    def _mtp(self, h, tokens, labels, ctx: Ctx):
+        """(mtp_ce, aux) of the MTP head: [mtp_norm(h_t), emb(t + 1)] through
+        mtp_proj, then the MTP block in train mode (checkpointed under
+        `cfg.remat`), predicting token t + 2; the last two positions
+        masked."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        cat = torch.cat([apply_norm(cfg, self.mtp_norm, h),
+                         self._embed(labels)], dim=-1)
+        hm = cat @ self.mtp_proj.to(cfg.compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if cfg.remat:
+            hm, aux = checkpoint(self._mtp_block, hm, aux, ctx,
+                                 use_reentrant=False)
+        else:
+            hm, aux = self._mtp_block(hm, aux, ctx)
+        labels2 = torch.cat([tokens[:, 2:], tokens[:, :2]], dim=1)
+        mask2 = torch.ones((b, s), dtype=torch.float32, device=h.device)
+        mask2[:, -2:] = 0.0
+        return _xent_chunked(self._logits, hm, labels2, mask2), aux
+
+    def _mtp_block(self, x, aux, ctx: Ctx):
+        x, _, a = self._applier(self.mtp_type, self.mtp_block, x, ctx)
+        return x, aux if a is None else aux + a
 
     @torch.no_grad()
     def prefill(self, tokens, drops: list | None = None):
@@ -285,11 +349,12 @@ class DecoderLM(nn.Module):
         inside it, as `train.serve_step.generate` does by sizing the
         cache."""
         if isinstance(pos, int):
-            caps = [c["k"].shape[1] for bt, c in zip(self.block_types, cache)
+            caps = [next(iter(c.values())).shape[1]   # every leaf's seq axis
+                    for bt, c in zip(self.block_types, cache)
                     if not bt.window]
             if caps and pos >= min(caps):
                 raise ValueError(
-                    f"decode position {pos} is beyond the KV cache's "
+                    f"decode position {pos} is beyond the cache's "
                     f"capacity of {min(caps)} slots")
             pos = torch.full((tokens.shape[0],), pos, dtype=torch.int32,
                              device=tokens.device)

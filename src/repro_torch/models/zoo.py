@@ -7,10 +7,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import DecoderLM
 
-# family or feature → the ROADMAP.md item that ports it
+# family → the ROADMAP.md item that ports it
 UNPORTED = {
-    "use_mla": "Queue 1, item 5c (MLA and MTP)",
-    "mtp": "Queue 1, item 5c (MLA and MTP)",
     "ssm": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
     "hybrid": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
     "vlm": "Queue 1, item 5e (VLM cross-attention)",
@@ -20,16 +18,15 @@ UNPORTED = {
 
 def build_model(cfg: ArchConfig, device=None,
                 generator: torch.Generator | None = None) -> DecoderLM:
-    """The decoder LM of `cfg` (dense, or MoE with gqa attention) on
-    `device` (the card by default), its weights drawn from `generator`
-    (default: seed 0 on that device). Raises NotImplementedError for a
-    family or feature not ported yet, naming its ROADMAP.md item; nothing
-    falls back."""
-    what = ("use_mla" if cfg.use_mla else "mtp" if cfg.mtp else cfg.family)
-    if what not in ("dense", "moe"):
+    """The decoder LM of `cfg` (dense or MoE, gqa or MLA attention, with
+    an MTP head where `cfg.mtp` is set) on `device` (the card by default),
+    its weights drawn from `generator` (default: seed 0 on that device).
+    Raises NotImplementedError for a family not ported yet, naming its
+    ROADMAP.md item; nothing falls back."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported to repro_torch yet "
-            f"(ROADMAP.md {UNPORTED.get(what, 'Queue 1, item 5')})")
+            f"{cfg.name}: {cfg.family} is not ported to repro_torch yet "
+            f"(ROADMAP.md {UNPORTED.get(cfg.family, 'Queue 1, item 5')})")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

@@ -13,7 +13,12 @@ second moment is stored in the sqrt domain, which keeps its relative
 error bounded (8-bit Adam). The optimizer state is a dict of tensors:
 {"m": {name: moment}, "v": {name: moment}, "count": int32 0-d}, a moment
 being a tensor or, under int8, {"q", "scale"}. Parameters and moments
-are updated in place, in the parameters' order, with no host sync.
+are updated in place, in the parameters' order, with no host sync. A
+leaf of more than CHUNK elements is updated in slices of whole rows
+along its first axis: the update is elementwise (int8 blocks lie along
+the last axis), so the bits are the same, and the float32 temporaries of
+a step (≈ 9 of the slice's size) stay ≈ 1.2 GB where deepseek-v3's
+embedding and head, 0.93 B elements each, would need ≈ 33 GB.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 QBLOCK = 128
+CHUNK = 1 << 25   # elements of a leaf's slice in `adamw_update`
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,15 +125,39 @@ def adamw_update(params: dict, grads: dict, opt: dict,
     else:
         cscale = 1.0
     for k, p in params.items():
-        g32 = grads[k].to(torch.float32) * cscale
-        m32 = _read_moment(opt["m"][k], p.shape, cfg)
-        v32 = _read_moment(opt["v"][k], p.shape, cfg, second=True)
-        m32 = cfg.b1 * m32 + (1 - cfg.b1) * g32
-        v32 = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
-        mhat = m32 / b1c
-        vhat = v32 / b2c
-        p32 = p.to(torch.float32)
-        upd = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - cfg.lr * upd)
-        _write_moment(opt["m"][k], m32, cfg)
-        _write_moment(opt["v"][k], v32, cfg, second=True)
+        for rows in _row_slices(p):
+            _update(p[rows], grads[k][rows], _rows(opt["m"][k], rows),
+                    _rows(opt["v"][k], rows), cscale, b1c, b2c, cfg)
+
+
+def _row_slices(p: torch.Tensor) -> list:
+    """Slices of whole rows of p along its first axis, each of at most
+    CHUNK elements where a row fits (a leaf of at most CHUNK elements, or
+    of one axis, is one slice)."""
+    if p.dim() < 2 or p.numel() <= CHUNK:
+        return [slice(None)]
+    per = max(1, CHUNK // (p.numel() // p.shape[0]))
+    return [slice(i, i + per) for i in range(0, p.shape[0], per)]
+
+
+def _rows(m, rows: slice):
+    """Rows `rows` of a moment (a view; an int8 moment's q and scale)."""
+    if isinstance(m, dict):
+        return {n: t[rows] for n, t in m.items()}
+    return m[rows]
+
+
+def _update(p, g, m, v, cscale, b1c, b2c, cfg: AdamWConfig) -> None:
+    """One AdamW step of a parameter (or a slice of its rows), in place."""
+    g32 = g.to(torch.float32) * cscale
+    m32 = _read_moment(m, p.shape, cfg)
+    v32 = _read_moment(v, p.shape, cfg, second=True)
+    m32 = cfg.b1 * m32 + (1 - cfg.b1) * g32
+    v32 = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
+    mhat = m32 / b1c
+    vhat = v32 / b2c
+    p32 = p.to(torch.float32)
+    upd = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
+    p.copy_(p32 - cfg.lr * upd)
+    _write_moment(m, m32, cfg)
+    _write_moment(v, v32, cfg, second=True)

@@ -85,8 +85,9 @@ def _detach(metrics: dict) -> dict:
 
 def make_train_step(model, tc: TrainConfig):
     """step(state, batch) -> (state, metrics): one optimizer step over
-    batch {"tokens": [B, S]}, the state updated in place; metrics
-    {"ce", "aux", "loss"} are 0-d tensors on the model's device."""
+    batch {"tokens": [B, S]}, the state updated in place; metrics, 0-d
+    tensors on the model's device, are `model.loss`'s ({"ce", "aux"},
+    and "mtp_ce" with an MTP head) and "loss"."""
 
     def step(state: dict, batch: dict):
         params = state["params"]

@@ -452,19 +452,15 @@ def test_port_init_draws_the_reference_distributions():
     assert n_port == sum(a.size for a in jax.tree.leaves(vals))
 
 
-# the MoE family builds where its attention is gqa (phi3.5-moe-42b-a6.6b,
-# tests/test_torch_moe.py); deepseek-v3-671b stays refused, for MLA
+# the MoE family builds (phi3.5-moe-42b-a6.6b, tests/test_torch_moe.py;
+# deepseek-v3-671b with MLA and MTP, tests/test_torch_mla.py)
 UNPORTED = sorted(n for n, c in J_ARCHS.items()
-                  if c.family != "dense" and (c.family != "moe" or c.use_mla))
+                  if c.family not in ("dense", "moe"))
 
 
-@pytest.mark.parametrize("name", UNPORTED + ["use_mla", "mtp"])
+@pytest.mark.parametrize("name", UNPORTED)
 def test_build_model_refuses_unported_families(name):
-    """SSM, hybrid, VLM, enc-dec, MLA (deepseek-v3) and MTP raise, naming
-    their ROADMAP.md item; nothing falls back to another model."""
-    if name in ("use_mla", "mtp"):
-        cfg = dataclasses.replace(get_arch("olmo-1b").tiny(), **{name: True})
-    else:
-        cfg = get_arch(name).tiny()
+    """SSM, hybrid, VLM and enc-dec raise, naming their ROADMAP.md item;
+    nothing falls back to another model."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item 5"):
-        build_model(cfg, device="cpu")
+        build_model(get_arch(name).tiny(), device="cpu")

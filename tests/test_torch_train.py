@@ -66,6 +66,7 @@ from repro_torch.train import (AdamWConfig, CheckpointManager, TrainConfig,
                                adamw_update, dequantize, generate,
                                init_opt_state, load_state_, loss_and_grads,
                                make_init_state, make_train_step, quantize)
+from repro_torch.train import optimizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = 1e-5
@@ -227,6 +228,35 @@ def test_adamw_update_matches_reference(moment_dtype, clip):
                for k, v in opt[which].items()}
         _assert_moments_close(got, jax.tree.map(np.asarray, jopt[which]),
                               which)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "int8"])
+def test_adamw_row_slices_change_no_bit(moment_dtype, monkeypatch):
+    """A leaf of more than `optimizer.CHUNK` elements is updated in slices
+    of whole rows: 3 clipped steps with CHUNK cut to 700 elements (slices
+    of 3 rows of the [4, 200] leaf, the last one short; of 2 rows of the
+    [3, 2, 128] leaf, the last one short; the vector whole) leave every
+    parameter and moment bit for bit as the whole-leaf update does."""
+    rng = np.random.default_rng(4)
+    p0 = {k: rng.normal(size=s).astype(np.float32)
+          for k, s in OPT_SHAPES.items()}
+    grads = [{k: torch.from_numpy((rng.normal(size=s) * 0.3).astype(
+        np.float32)) for k, s in OPT_SHAPES.items()} for _ in range(3)]
+    cfg = AdamWConfig(lr=1e-2, moment_dtype=moment_dtype)
+    runs = []
+    for chunk in (optimizer.CHUNK, 700):
+        monkeypatch.setattr(optimizer, "CHUNK", chunk)
+        params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        opt = init_opt_state(params, cfg)
+        for g in grads:
+            adamw_update(params, g, opt, cfg)
+        runs.append({"p": params, "m": opt["m"], "v": opt["v"]})
+    assert len(optimizer._row_slices(runs[0]["p"]["a"])) > 1
+    whole, sliced = (_leaves(jax.tree.map(lambda t: t.float().numpy(), r))
+                     for r in runs)
+    assert whole.keys() == sliced.keys()
+    for k in whole:
+        np.testing.assert_array_equal(sliced[k], whole[k], err_msg=k)
 
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "int8"])
