@@ -160,11 +160,14 @@ Phases, each printed as one JSON line with its wall seconds:
      kind); `shard_serve` (64 requests, lane width 16, direct: scheduled ≡
      one-shot, per-shard NDC adds up to Σ request NDC);
  15. `launcher`: `python -m repro_torch.launch.serve --status
-     --prometheus --gen-len 8` in three child processes started
+     --prometheus --gen-len 8` in four child processes started
      together, at its default corpus: olmo-1b's tiny config, the MoE's
      (`--shards 4 --arch phi3.5-moe-42b-a6.6b`, behind the sharded
-     retrieval) and deepseek-v3's (`--arch deepseek-v3-671b`: MLA and its
-     latent cache behind K5, K2 and K6); each must exit 0, print its
+     retrieval), deepseek-v3's (`--arch deepseek-v3-671b`: MLA and its
+     latent cache behind K5, K2 and K6) and zamba2's (`--arch
+     zamba2-2.7b`: Mamba2 layers and the shared attention block behind
+     K5, K2 and K6; its 18-token prompt runs at the tiny chunk of 16, the
+     SSD's padding); each must exit 0, print its
      `generation:` line naming its arch, and give a scrape that
      `validate_prometheus` accepts (with shards, carrying
      `shard_ndc_total`);
@@ -182,7 +185,8 @@ Phases, each printed as one JSON line with its wall seconds:
      model (2 steps, save, restore into a fresh model's state — equal bit
      for bit —, 2 more, against 4 uninterrupted; LM_TRAIN_RESUME_TOL);
      and `python -m repro_torch.launch.train` as a child process, 4
-     steps with a checkpoint every 2, then `--resume --steps 6`;
+     steps with a checkpoint every 2, then `--resume --steps 6` (both on
+     a thread beside the card ≡ CPU and resume checks);
  15c. `lm_moe`, last (TF32 off), on a card holding no earlier
      model: phi3.5-moe-42b-a6.6b at full width (d 4096, 32 heads / 8 KV
      heads of 128, 16 experts top-2 of d_ff 6400, vocab 32064, untied,
@@ -230,6 +234,30 @@ Phases, each printed as one JSON line with its wall seconds:
      under sync debug "error", kernels, peak allocated; resume ≡
      uninterrupted bit for bit at 1 MoE layer and the MTP block (3.83 B,
      grad_accum 1: the MoE dispatch's slot-order backward at top-8);
+ 15e. `lm_ssm`, last (TF32 off), on a card holding no earlier model:
+     mamba2-2.7b (64 Mamba2 layers: d 2560, d_inner 5120, 80 heads of
+     64, state 128, conv 4, chunk 256, vocab 50280) and zamba2-2.7b (54
+     Mamba2 layers at state 64 in 9 groups of 6, each followed by the
+     shared attention + MLP block: 32 heads of 80, d_ff 10240, vocab
+     32000) at full width and full depth, float32, from a seeded
+     generator, the SSM leaves the reference draws as constants redrawn
+     at Mamba2's published init (`ssm_redraw`). (a) Serving each over
+     the rag phase's 16 requests' ids and 8 prompt tokens: 8 greedy
+     decode steps over the recurrent state ≡ a teacher-forced prefill
+     within LM_TOL on all 16 rows; prefill and decode ms beside their
+     bounds by bytes and by operations (`ssm_work`), a decode step's
+     kernels and launches, the cache's bytes a row against olmo-1b's
+     K/V. (b) One full-width Mamba2 block on the card and the CPU, same
+     weights, [2, 512] (two chunks of 256): the prefill's output and
+     state, 3 decode steps, every gradient — all finite, each within
+     SSM_XDEV_TOL; the largest exponent the reference's SSD would
+     exponentiate must pass ln FLT_MAX (its backward would be NaN).
+     (c) One full-width zamba2 group card ≡ CPU at [2, 64]: loss and
+     every gradient, the never-read leaves' gradients 0. (d) Training
+     (float32 moments, grad_accum 2, remat): mamba2 at full depth 6
+     steps, zamba2 at 2 groups 4 steps (its never-read moments stay 0),
+     losses finite and falling, step ms beside the bound, peak; resume ≡
+     uninterrupted bit for bit on zamba2 at 1 group;
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -248,6 +276,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -351,23 +380,30 @@ def _kernel_events(prof):
             and e.self_device_time_total > 0]
 
 
-def kernel_breakdown(fn, iters: int = 3) -> dict:
+def kernel_breakdown(fn, iters: int = 3, warm: bool = False,
+                     launches: list | None = None) -> dict:
     """Device ms per call of each kernel (and memset) that `fn` launches,
-    by name, from one profile of `iters` calls."""
+    by name, from one profile of `iters` calls (after a warm-up call
+    unless the caller has just made one: `warm`); `launches`, a list,
+    receives the kernels a call launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, n = {}, 0
     for e, us in _kernel_events(prof):
         name = e.key.replace("void ", "").replace("(anonymous namespace)::",
                                                   "").split("(")[0]
         out[name] = out.get(name, 0.0) + us / 1e3 / iters
+        n += e.count
+    if launches is not None:
+        launches.append(n / iters)
     return out
 
 
@@ -4435,8 +4471,8 @@ def run_lm_train(device) -> None:
     sync (`without_host_sync`); one step's device time by kernel and its
     idle share; the state's bytes and the card's peak. Then 2 steps with
     int8 moments and int8_ef (the first without a host sync); card ≡ CPU;
-    resume ≡ uninterrupted; the train launcher (its first run beside
-    those two checks, the --resume run after them)."""
+    resume ≡ uninterrupted; the train launcher (its first run and then
+    its --resume run, on a thread beside those two checks)."""
     import shutil
     import tempfile
 
@@ -4502,24 +4538,26 @@ def run_lm_train(device) -> None:
     del state8, step8, model
     torch.cuda.empty_cache()
 
-    # the launcher, 4 steps with a checkpoint every 2 (beside the next
-    # two checks), then --resume --steps 6
+    # the launcher, 4 steps with a checkpoint every 2, then --resume
+    # --steps 6, both beside the next two checks
     t1 = time.perf_counter()
     root = os.path.join(ROOT, "build")
     os.makedirs(root, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="lm_train_launcher_", dir=root)
-    first = train_launcher(ckpt, "--steps", "4")
+    def both_runs():
+        return [launcher_output(train_launcher(ckpt, "--steps", "4")),
+                launcher_output(train_launcher(ckpt, "--steps", "6",
+                                               "--resume"))]
+
     try:
-        xdev = train_card_vs_cpu(cfg, batch["tokens"], device)
-        torch.cuda.empty_cache()
-        resume = train_resume(cfg, batches, device)
-        torch.cuda.empty_cache()
-        runs = [launcher_output(first), launcher_output(
-            train_launcher(ckpt, "--steps", "6", "--resume"))]
+        with ThreadPoolExecutor(1) as pool:   # the runs beside the checks
+            runs = pool.submit(both_runs)
+            xdev = train_card_vs_cpu(cfg, batch["tokens"], device)
+            torch.cuda.empty_cache()
+            resume = train_resume(cfg, batches, device)
+            torch.cuda.empty_cache()
+            runs = runs.result()
     finally:
-        if first.poll() is None:
-            first.kill()
-            first.wait()
         shutil.rmtree(ckpt, ignore_errors=True)
     resumed = [ln for ln in runs[1] if ln.startswith("resumed from step")]
     require(resumed == ["resumed from step 4"]
@@ -4628,8 +4666,9 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
     MoE assignment in any layer — a decode step drops none, and where
     that prefill dropped none, neither did the first (its prefix, under
     the same capacity: phi3.5-moe's while S ≤ 51, deepseek-v3's while S ≤
-    179). Returns (the comparison, the run); `what` names the phase in a
-    failure."""
+    179); a model without MoE blocks drops nothing, so every row is
+    compared. Returns (the comparison, the run); `what` names the phase
+    in a failure."""
     import torch
 
     from repro_torch.train import generate
@@ -4640,6 +4679,10 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
     require(tuple(logits.shape) == (b, steps + 1, lm.cfg.vocab_size)
             and bool(torch.isfinite(logits).all()),
             f"{what}: logits {tuple(logits.shape)} not finite")
+    def by_row(dr):
+        return (torch.stack(dr).sum(0) if dr else
+                torch.zeros(b, dtype=torch.int64, device=tokens.device))
+
     first = []
     lm.prefill(tokens, drops=first)
     seq = torch.cat([tokens, run["fed"]], dim=1)
@@ -4649,7 +4692,7 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
     for step in range(steps):
         dr = []
         ref, _ = lm.prefill(seq[:, :s + step + 1], drops=dr)
-        per_row = torch.stack(dr).sum(0)
+        per_row = by_row(dr)
         clean[:, step] = per_row == 0
         drops.append(per_row)
         errs[:, step] = (logits[:, step + 1] - ref[:, -1]).abs().amax(-1)
@@ -4659,7 +4702,7 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
     agree, n_sure = greedy_agreement(logits[:, 1:][clean], want[clean],
                                      LM_TOL)
     return {"capacity_factor": lm.cfg.capacity_factor, "steps": steps,
-            "first_prefill_drops_by_row": torch.stack(first).sum(0).tolist(),
+            "first_prefill_drops_by_row": by_row(first).tolist(),
             "teacher_forced_drops_by_step": torch.stack(drops, 1).sum(
                 0).tolist(),
             "rows_compared_any_step": int(clean.any(1).sum()),
@@ -4733,11 +4776,11 @@ def serve_decode_checks(published, tokens, device, no_drop_steps: int,
     return checks, lm, run
 
 
-def serve_timing(lm, tokens, run, steps: int):
+def serve_timing(lm, tokens, run, steps: int, launches: list | None = None):
     """(prefill ms of tokens [B, S] by CUDA events, mean of 5; decode ms a
     token on the host clock, the median of `run`'s `steps` and 2 more such
     `generate` runs; a decode step's device ms by kernel, at position S of
-    a fresh cache)."""
+    a fresh cache, its launches into `launches` where given)."""
     from repro_torch.train import generate
 
     b, s = tokens.shape
@@ -4746,7 +4789,7 @@ def serve_timing(lm, tokens, run, steps: int):
         generate(lm, tokens, steps)["decode_ms"] for _ in range(2)])) / steps
     cache = lm.init_cache(b, s + 1)
     by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
-                                                        s))
+                                                        s), launches=launches)
     return prefill_ms, decode_ms, by_kernel
 
 
@@ -4938,9 +4981,11 @@ def moe_resume(batches, device) -> dict:
     return resume_on_card(cfg, tc, batches, device, "lm_moe")
 
 
-def resume_on_card(cfg, tc, batches, device, what: str) -> dict:
+def resume_on_card(cfg, tc, batches, device, what: str,
+                   prepare=None) -> dict:
     """Resume ≡ uninterrupted on the model of `cfg` built on the card from
-    LM_SEED, trained under `tc` on 4 `batches`: 2 steps, a copy of every
+    LM_SEED (then `prepare(model)`, where given), trained under `tc` on 4
+    `batches`: 2 steps, a copy of every
     state leaf on the card (the checkpoint; the file path is
     `lm_train`'s), 2 more steps (the uninterrupted run); then the copy
     restored into the live state — the uninterrupted state taking its
@@ -4954,6 +4999,8 @@ def resume_on_card(cfg, tc, batches, device, what: str) -> dict:
     t = time.perf_counter()
     model = build_model(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(LM_SEED))
+    if prepare is not None:
+        prepare(model)
     state = make_init_state(model, tc)
     step = make_train_step(model, tc)
     for b in batches[:2]:
@@ -5011,16 +5058,20 @@ def reset_peak() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def train_run(cfg, tc, bound_fn, device, what: str):
-    """TRAIN_STEPS steps under `tc` of the model of `cfg` (float32, TF32
-    off, remat) built on `device` from LM_SEED, on one seeded
-    [TRAIN_BATCH, TRAIN_SEQ] batch: every metric (loss, ce, aux and, with
-    an MTP head, mtp_ce) finite, the last loss below the first; step ms
-    (median of steps 2–6) and tokens/s beside the step's bound
-    (`bound_fn(model, n_params)`); a step under torch's sync debug mode
-    "error"; one step's device time by kernel and idle share; the state's
-    bytes and the run's peak allocation. Returns (the record, 4 seeded
-    batches for a resume check)."""
+def train_run(cfg, tc, bound_fn, device, what: str, steps: int = TRAIN_STEPS,
+              prepare=None, inspect=None, profile: bool = True):
+    """`steps` steps under `tc` of the model of `cfg` (float32, TF32 off,
+    remat) built on `device` from LM_SEED (then `prepare(model)`, where
+    given), on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch: every metric
+    (loss, ce, aux and, with an MTP head, mtp_ce) finite, the last loss
+    below the first; step ms (median of steps 2 on) and tokens/s beside
+    the step's bound (`bound_fn(model, n_params)`); a step under torch's
+    sync debug mode "error"; with `profile`, one step's device time by
+    kernel and idle share; the state's bytes and the run's peak
+    allocation; where given,
+    `inspect(model, state)`'s checks of the state after the steps, merged
+    into the record. Returns (the record, 4 seeded batches for a resume
+    check)."""
     import torch
 
     from repro_torch.models import build_model
@@ -5035,13 +5086,15 @@ def train_run(cfg, tc, bound_fn, device, what: str):
     batch = batches[0]
     model = build_model(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(LM_SEED))
+    if prepare is not None:
+        prepare(model)
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
     state = make_init_state(model, tc)
     step = make_train_step(model, tc)
     mets, step_ms = {}, []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         (state, met), ms = wall_ms(lambda: step(state, batch))
         for k, v in met.items():
             mets.setdefault(k, []).append(v)
@@ -5055,31 +5108,38 @@ def train_run(cfg, tc, bound_fn, device, what: str):
     ms = float(np.median(step_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     bound = bound_fn(model, n_params)
+    checked = {} if inspect is None else inspect(model, state)
+    t_prof = time.perf_counter()
     state, _ = without_host_sync(lambda: step(state, batch))
-    by_kernel = kernel_breakdown(lambda: step(state, batch), iters=1)
-    busy_ms = sum(by_kernel.values())
+    by_kernel = (kernel_breakdown(lambda: step(state, batch), iters=1,
+                                  warm=True) if profile else {})
+    prof_s = time.perf_counter() - t_prof
+    busy_ms = sum(by_kernel.values()) if profile else "not measured"
     moment_bytes = tree_bytes(state["opt"]["m"]) + tree_bytes(
         state["opt"]["v"])
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     del state, step, model
     torch.cuda.empty_cache()
     extra = {k: v for k, v in mets.items() if k not in ("loss", "aux")}
-    return {"layers": cfg.n_layers, "params": n_params,
+    return {"layers": cfg.n_layers, "params": n_params, "steps": steps,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "grad_accum": tc.grad_accum, "remat": cfg.remat,
             "lr": tc.opt.lr, "moments": tc.opt.moment_dtype,
             "losses": losses, "aux": mets["aux"], **extra,
             "step_ms": step_ms,
-            "step_ms_median_2_6": ms, "tokens_per_s": tokens / ms * 1e3,
+            "step_ms_median_2_on": ms, "tokens_per_s": tokens / ms * 1e3,
             **bound, "share_of_bound": bound["bound_ms"] / ms,
-            "step_host_syncs": 0,
+            "step_host_syncs": 0, "sync_debug_and_profile_s": prof_s,
             "step_device_busy_ms": busy_ms,
-            "step_idle_share": 1.0 - busy_ms / ms,
+            "step_idle_share": (1.0 - busy_ms / ms if profile
+                                else "not measured"),
             "step_kernel_names": len(by_kernel),
             "step_top_kernels_ms": dict(sorted(
                 by_kernel.items(), key=lambda kv: -kv[1])[:8]),
             "state_bytes_p_g_m_v": 2 * param_bytes + moment_bytes,
-            "torch_max_allocated_mib": peak / 2**20}, batches
+            "torch_max_allocated_mib": peak / 2**20,
+            "torch_max_reserved_mib": reserved / 2**20, **checked}, batches
 
 
 def moe_train(device) -> dict:
@@ -5462,6 +5522,478 @@ def run_lm_mla(device, doc_ids) -> None:
           "seconds": time.perf_counter() - t})
 
 
+SSM_ARCH = "mamba2-2.7b"
+HYB_ARCH = "zamba2-2.7b"
+# full width and full depth, float32: mamba2-2.7b 2,830,951,936 parameters
+# (11.32 GB), zamba2-2.7b 3,130,219,168 (12.52 GB; 707,811,840 of them the
+# never-read norm2 / FFN of its 9 shared_attn positions)
+SSM_DECODE = 8             # greedy tokens after the rag phase's 18 a row
+SSM_XDEV_SHAPE = (2, 512)  # one full-width Mamba2 block's input: 2 chunks
+SSM_XDEV_STEPS = 3         # decode steps from that block's prefill state
+HYB_XDEV_SHAPE = (2, 64)   # one full-width zamba2 group's tokens
+# card vs CPU, each × its CPU max |.| (float32 both, TF32 off): the block's
+# prefill output and state {h, conv}, its decode steps' outputs and state,
+# every gradient leaf of Σ out·r; the group's loss (relative) and every
+# gradient leaf
+SSM_XDEV_TOL = {"prefill": 1e-4, "decode": 1e-4, "grad": 1e-4,
+                "loss": 1e-5}
+# exp overflows float32 past ln(FLT_MAX): where the reference's SSD takes
+# exp of the whole [Q, Q] square, an exponent above it above the diagonal
+# is inf and its backward NaN
+FLT_MAX_LOG = 88.72283935546875
+# a profile of one full-depth mamba2 training step took 19 s of
+# torch.profiler's own time on an H100 machine (the card busy 0.25 of the
+# step); zamba2's 2-group step, the same kernels, is profiled instead
+SSM_TRAIN_PROFILE = False
+HYB_TRAIN_GROUPS = 2       # the shared block's gradient sums two uses
+HYB_TRAIN_STEPS = 4
+HYB_RESUME_GROUPS = 1      # one group holds both mixers
+
+
+def ssm_redraw(model, generator) -> None:
+    """Mamba2's published initialisation of the leaves the reference
+    draws as constants (arXiv:2405.21060; its reference code's defaults),
+    in place from `generator`, in every SSM mixer of `model`: the
+    depthwise convolutions uniform in ±1/√k (a convolution's default),
+    A = exp(a_log) uniform in [1, 16], dt_bias the inverse softplus of a
+    dt log-uniform in [1e-3, 0.1]; d_skip 1 and the gated norm's scale 0
+    stay. The reference's zero convolutions make every mixer output 0, so
+    a serving or training check on them would pass whatever the SSD
+    computes."""
+    import torch
+
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not name.endswith("mixer"):
+                continue
+            k = mod["conv_x"].shape[0]
+            for leaf in ("conv_x", "conv_B", "conv_C"):
+                w = mod[leaf]
+                w.copy_((torch.rand(w.shape, generator=generator,
+                                    device=w.device) * 2 - 1) * k ** -0.5)
+            h = mod["a_log"].shape[0]
+            a = 1 + 15 * torch.rand(h, generator=generator,
+                                    device=mod["a_log"].device)
+            mod["a_log"].copy_(torch.log(a))
+            dt = torch.exp(np.log(1e-3) + (np.log(0.1) - np.log(1e-3))
+                           * torch.rand(h, generator=generator,
+                                        device=a.device))
+            mod["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def ssm_model(cfg, device):
+    """The model of `cfg` on `device` from LM_SEED, `ssm_redraw`n from the
+    same generator."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    lm = build_model(cfg, device=device, generator=g)
+    ssm_redraw(lm, g)
+    return lm
+
+
+def applied_weights(lm) -> int:
+    """The weights a token passes through in the layers: each layer's
+    block, the shared block at each shared_attn position (in place of the
+    position's own leaves)."""
+    return sum(sum(p.numel() for p in (
+        lm.shared if bt.mixer == "shared_attn" else blk).parameters())
+        for bt, blk in zip(lm.block_types, lm.layers))
+
+
+def unread_leaves(lm) -> list:
+    """The names of the hybrid's never-read leaves: the norm2 and FFN of
+    every shared_attn position (the shared block's are read in their
+    place)."""
+    return [n for n, _ in lm.named_parameters()
+            if n.startswith("layers.") and int(n.split(".")[1]) in {
+                i for i, bt in enumerate(lm.block_types)
+                if bt.mixer == "shared_attn"}
+            and n.split(".")[2] in ("norm2", "ffn")]
+
+
+def ssm_work(cfg, lm, b: int, s: int, ctx: int) -> dict:
+    """Bytes and operations of a forward of `lm` over [b, s] tokens (s =
+    1: a decode step at `ctx` cached slots). Bytes: every weight the
+    function reads, once (the shared block once, however often it is
+    applied; the never-read leaves not), and in decode the SSM state read
+    and written and the K/V read. Operations: 2 a weight a token through
+    each applied block (the shared block at each application), the head
+    at the last position only; the SSD's intra-chunk products over one
+    chunk of s (cb, cb·L, L·x), its inter-chunk read and state update (a
+    decode step: the state's decay, outer product and read-out), and the
+    shared attention's scores and values."""
+    d, v = cfg.d_model, cfg.vocab_size
+    di = cfg.ssm_expand * d
+    h, p, n = di // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state
+    unread = set(unread_leaves(lm))
+    read = sum(t.numel() * t.element_size()
+               for k, t in lm.named_parameters() if k not in unread)
+    body = applied_weights(lm)
+    n_ssm = sum(bt.mixer == "ssm" for bt in lm.block_types)
+    n_att = len(lm.block_types) - n_ssm
+    state = (h * p * n * 4 + (cfg.ssm_conv - 1) * (di + 2 * n) * 4) * b
+    kv = 2 * cfg.n_kv_heads * cfg.hd * 4 * b * ctx
+    if s == 1:
+        ssd = 6 * b * h * p * n
+        att = 4 * cfg.n_heads * cfg.hd * b * ctx
+        moved = read + n_ssm * 2 * state + n_att * kv
+    else:
+        ssd = (2 * b * s * s * n + b * s * s * h + 2 * b * s * s * h * p
+               + 4 * b * s * h * p * n)
+        att = 4 * cfg.n_heads * cfg.hd * b * s * s / 2
+        moved = read
+    ops = 2 * body * b * s + 2 * d * v * b + n_ssm * ssd + n_att * att
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": moved, "ops": ops,
+            "byte_bound_ms": t_bytes * 1e3, "op_bound_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "read_param_bytes": read,
+            "state_bytes_per_row_layer": state // b}
+
+
+def ssm_cache_bytes(lm) -> dict:
+    """The cache's bytes a row: the SSM layers' {h, conv} (whatever the
+    length) and the attention layers' K/V a token; against olmo-1b's K/V
+    a token, and the length at which olmo-1b's row passes this one's."""
+    from repro_torch.configs import get_arch
+
+    one = lm.init_cache(1, 1)
+    state = sum(t.numel() * t.element_size() for c in one
+                for k, t in c.items() if k in ("h", "conv"))
+    kv = sum(t.numel() * t.element_size() for c in one
+             for k, t in c.items() if k in ("k", "v"))
+    olmo = get_arch(LM_ARCH)
+    olmo_kv = 2 * olmo.n_layers * olmo.n_kv_heads * olmo.hd * 4
+    return {"state_bytes_per_row": state, "kv_bytes_per_token": kv,
+            "olmo_kv_bytes_per_token": olmo_kv,
+            "olmo_passes_at_tokens": -(-state // olmo_kv)}
+
+
+def ssm_serve(arch: str, device, doc_ids) -> dict:
+    """lm_ssm (a): `arch` at full width and full depth (`ssm_model`); the
+    rag phase's 16 requests' ids and 8 prompt tokens prefilled (one chunk
+    of 18), SSM_DECODE greedy decode steps over the recurrent state (and
+    zamba2's shared-block K/V): every step ≡ a teacher-forced prefill over
+    the same prefix within LM_TOL on all 16 rows, greedy ids equal past
+    that margin (`decode_vs_prefill`; no MoE, nothing drops). Prefill ms
+    (CUDA events) and decode ms a token (host clock, median of 3 runs)
+    beside their bounds (`ssm_work`); a decode step's device time by
+    kernel and its launches; the cache's bytes a row."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import generate
+
+    t = time.perf_counter()
+    reset_peak()
+    cfg = get_arch(arch)
+    tokens = rag_tokens(doc_ids, cfg.vocab_size, device)
+    b, s = tokens.shape
+    lm = ssm_model(cfg, device)
+    generate(lm, tokens, 2)                                    # warm-up
+    torch.cuda.synchronize()
+    stages = {"build_and_warm_up_s": time.perf_counter() - t}
+    check, run = decode_vs_prefill(lm, tokens, SSM_DECODE, "lm_ssm")
+    stages["decode_vs_prefill_s"] = time.perf_counter() - t - sum(
+        stages.values())
+    err = check["decode_vs_prefill_max_abs_err"]
+    require(check["rows_compared_every_step"] == b
+            and err is not None and err <= LM_TOL
+            and check["greedy_agree_where_margin_gt_tol"] == 1.0,
+            f"lm_ssm: {arch} decode vs teacher-forced prefill: {check}")
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    launches = []
+    prefill_ms, decode_ms, by_kernel = serve_timing(lm, tokens, run,
+                                                    SSM_DECODE, launches)
+    stages["timing_and_profiles_s"] = time.perf_counter() - t - sum(
+        stages.values())
+    dec = ssm_work(cfg, lm, b, 1, s + SSM_DECODE)
+    pre = ssm_work(cfg, lm, b, s, s)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "mixers": {m: sum(bt.mixer == m for bt in lm.block_types)
+                      for m in ("ssm", "shared_attn")},
+           "d_model": cfg.d_model, "d_inner": cfg.ssm_expand * cfg.d_model,
+           "ssm_heads": cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+           "head_dim": cfg.ssm_head_dim, "state": cfg.ssm_state,
+           "conv": cfg.ssm_conv, "chunk": cfg.ssm_chunk,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "param_bytes": param_bytes,
+           "never_read_params": sum(
+               p.numel() for n, p in lm.named_parameters()
+               if n in set(unread_leaves(lm))),
+           **ssm_cache_bytes(lm),
+           "batch": b, "prompt_tokens": s, "decoded": SSM_DECODE,
+           "decode_vs_prefill_tol": LM_TOL, "decode_vs_prefill": check,
+           "prefill_ms": prefill_ms,
+           "prefill_byte_bound_ms": pre["byte_bound_ms"],
+           "prefill_op_bound_ms": pre["op_bound_ms"],
+           "prefill_bound_by": pre["bound_by"],
+           "decode_ms_per_token": decode_ms,
+           "decode_ms_per_token_per_request": decode_ms / b,
+           "decode_byte_bound_ms": dec["byte_bound_ms"],
+           "decode_op_bound_ms": dec["op_bound_ms"],
+           "decode_bound_by": dec["bound_by"],
+           "decode_share_of_bound": dec["bound_ms"] / decode_ms,
+           "decode_step_kernel_launches": launches[0],
+           "decode_step_device_busy_ms": sum(by_kernel.values()),
+           "decode_step_idle_share": 1.0 - sum(by_kernel.values()) / decode_ms,
+           "decode_step_top_kernels_ms": dict(sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+           "torch_max_allocated_mib": peak / 2**20,
+           "torch_max_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+           "stages": stages, "seconds": time.perf_counter() - t}
+    del lm, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_block_card_vs_cpu(device) -> dict:
+    """lm_ssm (b): one Mamba2 block of SSM_ARCH at full width (norm1 and
+    the mixer, 40.21 M parameters), drawn on the card from a seeded
+    generator (`ssm_redraw`n) and copied to the CPU; a seeded hidden state
+    SSM_XDEV_SHAPE [B, S] (two chunks of 256), SSM_XDEV_STEPS more tokens
+    and a cotangent r. On both devices: the prefill (output and state
+    {h, conv}), SSM_XDEV_STEPS decode steps from that state (each
+    output, the state after them), and in train mode the gradients of Σ
+    out·r with respect to every weight and the input — all finite, each
+    within SSM_XDEV_TOL of the CPU's max |.|. The largest exponent the
+    reference's SSD would exponentiate above the diagonal (the decay
+    summed over a chunk but its first step) is printed and must pass
+    ln(FLT_MAX): there the reference's backward is NaN (departure (a) of
+    `models/mamba2.py`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.transformer import (BlockApplier, BlockType, Ctx,
+                                                _init_block)
+
+    t = time.perf_counter()
+    cfg = get_arch(SSM_ARCH)
+    bt = BlockType("ssm", ffn="none")
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    card = _init_block(cfg, bt, g, device)
+    ssm_redraw(card, g)
+    cpu = _init_block(cfg, bt, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    b, s = SSM_XDEV_SHAPE
+    x = torch.randn((b, s + SSM_XDEV_STEPS, cfg.d_model), generator=g,
+                    device=device)
+    r = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    applier = BlockApplier(cfg)
+    res = {}
+    for name, blk in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        dev = next(blk.parameters()).device
+        xx = x.to(dev)
+        with torch.no_grad():
+            out, state, _ = applier(bt, blk, xx[:, :s], Ctx("prefill"))
+            cache = {k: v.clone() for k, v in state.items()}
+            outs = []
+            for i in range(SSM_XDEV_STEPS):
+                dec, cache, _ = applier(bt, blk, xx[:, s + i:s + i + 1],
+                                        Ctx("decode"), cache)
+                outs.append(dec)
+            mx = blk["mixer"]
+            dt = F.softplus(apply_norm(cfg, blk["norm1"], xx[:, :s])
+                            @ mx["wdt"] + mx["dt_bias"])
+            decay = (dt * torch.exp(mx["a_log"])).reshape(
+                b, s // cfg.ssm_chunk, cfg.ssm_chunk, -1)
+            upper = float(decay[:, :, 1:].sum(2).max())
+        xg = xx[:, :s].clone().requires_grad_()
+        out_t, _, _ = applier(bt, blk, xg, Ctx("train"))
+        names = [n for n, _ in blk.named_parameters()] + ["x"]
+        grads = torch.autograd.grad((out_t * r.to(dev)).sum(),
+                                    list(blk.parameters()) + [xg])
+        res[name] = {"prefill": {"out": out, **state},
+                     "decode": {"out": torch.cat(outs, 1), **cache},
+                     "grad": dict(zip(names, grads)),
+                     "finite": all(bool(torch.isfinite(gg).all())
+                                   for gg in grads),
+                     "upper_exponent_max": upper,
+                     "s": time.perf_counter() - t1}
+        del out_t, grads
+    c = res["cpu"]
+    err = {what: {n: rel_err(res["card"][what][n], want)
+                  for n, want in c[what].items()}
+           for what in ("prefill", "decode", "grad")}
+    upper = [res[n]["upper_exponent_max"] for n in res]
+    finite = [res[n]["finite"] for n in res]
+    secs = {f"{n}_s": res[n]["s"] for n in res}
+    n_params = sum(p.numel() for p in card.parameters())
+    del card, cpu, res, x, r
+    torch.cuda.empty_cache()
+    out = {"shape": [b, s], "chunk": cfg.ssm_chunk, "params": n_params,
+           "decode_steps": SSM_XDEV_STEPS,
+           "gradients_finite_card_cpu": finite,
+           "upper_exponent_max_card_cpu": upper,
+           "flt_max_log": FLT_MAX_LOG,
+           "err_of_max": err, "tol": SSM_XDEV_TOL, **secs,
+           "seconds": time.perf_counter() - t}
+    require(all(finite), f"lm_ssm: a gradient is not finite: {out}")
+    require(min(upper) > FLT_MAX_LOG,
+            f"lm_ssm: the input does not reach the reference's overflow: "
+            f"{out}")
+    require(all(max(err[w].values()) <= SSM_XDEV_TOL[w] for w in err),
+            f"lm_ssm: card vs CPU beyond SSM_XDEV_TOL: {out}")
+    return out
+
+
+def hyb_group_card_vs_cpu(device) -> dict:
+    """lm_ssm (c): zamba2 at full width cut to one group (6 Mamba2 layers
+    and the shared attention + MLP block, with the embedding and head),
+    drawn on the card (`ssm_model`) and copied to the CPU; `loss` and
+    every gradient over seeded HYB_XDEV_SHAPE tokens on both devices: the
+    loss within SSM_XDEV_TOL["loss"] relative, each gradient leaf within
+    SSM_XDEV_TOL["grad"] of the CPU's max |.|, the never-read leaves'
+    gradients exactly 0 on both."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import loss_and_grads
+
+    t = time.perf_counter()
+    arch = get_arch(HYB_ARCH)
+    cfg = dataclasses.replace(arch, n_layers=arch.hybrid_period)
+    card = ssm_model(cfg, device)
+    cpu = DecoderLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    unread = unread_leaves(card)
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, HYB_XDEV_SHAPE).astype(np.int32))
+    res = {}
+    for name, lm in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        loss, _, grads = loss_and_grads(lm, dict(lm.named_parameters()),
+                                        {"tokens": tokens.to(lm.device)})
+        res[name] = {"loss": float(loss), "s": time.perf_counter() - t1,
+                     "grads": {k: v.cpu() for k, v in grads.items()}}
+        del grads
+    c = res["cpu"]
+    grad_err = {k: rel_err(res["card"]["grads"][k], want)
+                for k, want in c["grads"].items() if k not in unread}
+    zero = all(not res[n]["grads"][k].any() for n in res for k in unread)
+    loss_err = abs(res["card"]["loss"] - c["loss"]) / abs(c["loss"])
+    out = {"shape": list(HYB_XDEV_SHAPE), "layers": cfg.n_layers,
+           "params": sum(p.numel() for p in card.parameters()),
+           "never_read_leaves": len(unread),
+           "never_read_grads_zero_card_cpu": zero,
+           "loss_card_cpu": [res[n]["loss"] for n in res],
+           "loss_rel_err": loss_err,
+           "grad_err_of_max_worst": dict(sorted(
+               grad_err.items(), key=lambda kv: -kv[1])[:6]),
+           "shared_grad_err_of_max": max(v for k, v in grad_err.items()
+                                         if k.startswith("shared.")),
+           "tol": SSM_XDEV_TOL, "card_s": res["card"]["s"],
+           "cpu_s": res["cpu"]["s"], "seconds": time.perf_counter() - t}
+    del card, cpu, res
+    torch.cuda.empty_cache()
+    require(zero and unread, f"lm_ssm: never-read gradients not 0: {out}")
+    require(loss_err <= SSM_XDEV_TOL["loss"]
+            and max(grad_err.values()) <= SSM_XDEV_TOL["grad"],
+            f"lm_ssm: zamba2 group card vs CPU beyond SSM_XDEV_TOL: {out}")
+    return out
+
+
+def ssm_train_bound(cfg, model, n_params: int) -> dict:
+    """Least time of a training step over TRAIN_ACCUM microbatches: 6 · N ·
+    tokens (N the weights a token passes through, the shared block at
+    each application, the head at every position; the SSD's and the
+    attention's own products not counted) at FP32_FLOP_PER_S, against
+    AdamW's 28 B a parameter (every leaf, the never-read ones too) at
+    HBM_BYTES_PER_S, the larger."""
+    n = applied_weights(model) + cfg.d_model * cfg.vocab_size
+    ops = 6 * n * TRAIN_BATCH * TRAIN_SEQ
+    opt_bytes = 28 * n_params
+    t_ops, t_bytes = ops / FP32_FLOP_PER_S, opt_bytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_ops": ops,
+            "bound_bytes": opt_bytes, "weights_a_token": n,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def unread_moments_zero(model, state) -> dict:
+    """The never-read leaves' first and second moments after the steps
+    (float32), exactly zero: every gradient they were given was 0."""
+    unread = unread_leaves(model)
+    zero = all(not state["opt"][w][k].any() for w in ("m", "v")
+               for k in unread)
+    require(zero, "lm_ssm: a never-read leaf was given a gradient")
+    return {"never_read_leaves": len(unread),
+            "never_read_moments_zero": zero}
+
+
+def ssm_train(device) -> dict:
+    """lm_ssm (d): `train_run` (float32 moments, lr 3e-4, grad_accum
+    TRAIN_ACCUM, remat) on SSM_ARCH at full depth (TRAIN_STEPS steps,
+    profiled where SSM_TRAIN_PROFILE) and
+    on HYB_ARCH cut to HYB_TRAIN_GROUPS groups (HYB_TRAIN_STEPS steps; its
+    never-read leaves' moments stay 0); then resume ≡ uninterrupted bit
+    for bit on HYB_ARCH at HYB_RESUME_GROUPS group. Every model
+    `ssm_redraw`n."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    t = time.perf_counter()
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+
+    def prepare(model):
+        ssm_redraw(model, torch.Generator(device=device).manual_seed(
+            LM_SEED + 1))
+
+    res = {}
+    cfg = get_arch(SSM_ARCH)
+    res[SSM_ARCH], _ = train_run(
+        cfg, tc, lambda model, n: ssm_train_bound(cfg, model, n), device,
+        "lm_ssm", prepare=prepare, profile=SSM_TRAIN_PROFILE)
+    arch = get_arch(HYB_ARCH)
+    hcfg = dataclasses.replace(
+        arch, n_layers=HYB_TRAIN_GROUPS * arch.hybrid_period)
+    res[HYB_ARCH], batches = train_run(
+        hcfg, tc, lambda model, n: ssm_train_bound(hcfg, model, n), device,
+        "lm_ssm", steps=HYB_TRAIN_STEPS, prepare=prepare,
+        inspect=unread_moments_zero)
+    rcfg = dataclasses.replace(
+        arch, n_layers=HYB_RESUME_GROUPS * arch.hybrid_period)
+    res["resume"] = resume_on_card(rcfg, tc, batches, device, "lm_ssm",
+                                   prepare=prepare)
+    res["seconds"] = time.perf_counter() - t
+    return res
+
+
+def run_lm_ssm(device, doc_ids) -> None:
+    """lm_ssm, last (TF32 off): `ssm_serve` on SSM_ARCH and HYB_ARCH,
+    `ssm_block_card_vs_cpu`, `hyb_group_card_vs_cpu` and `ssm_train`,
+    each on a card holding none of the earlier phases' models."""
+    import torch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    serve = {arch: ssm_serve(arch, device, doc_ids)
+             for arch in (SSM_ARCH, HYB_ARCH)}
+    block = ssm_block_card_vs_cpu(device)
+    group = hyb_group_card_vs_cpu(device)
+    train = ssm_train(device)
+    emit({"phase": "lm_ssm", "archs": [SSM_ARCH, HYB_ARCH],
+          "allocated_at_start_mib": held / 2**20, "serve": serve,
+          "block_card_vs_cpu": block, "group_card_vs_cpu": group,
+          "train": train, "seconds": time.perf_counter() - t})
+
+
 def run_phases(args, device) -> list:
     """Run every phase on the built kernels and return the `kernels`
     line's entries."""
@@ -5487,10 +6019,12 @@ def run_phases(args, device) -> list:
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r, rag_ids = run_pipeline(
         args, device, {"float32": k5["ms"], "pq": k5q["pq"]["ms"]})
-    run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH), (1, 8, MLA_ARCH))
+    run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH), (1, 8, MLA_ARCH),
+                  (1, 8, HYB_ARCH))
     run_lm_train(device)
     run_lm_moe(device, rag_ids)
     run_lm_mla(device, rag_ids)
+    run_lm_ssm(device, rag_ids)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")

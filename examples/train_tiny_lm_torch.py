@@ -9,7 +9,8 @@ exist; `--device cpu` runs on the CPU).
         [--arch olmo-1b] [--device cpu] [--resume]
 
 `--arch` takes any dense or MoE config, deepseek-v3-671b (MLA and the
-MTP head, whose cross-entropy is printed beside the backbone's) too.
+MTP head, whose cross-entropy is printed beside the backbone's), and the
+SSM and hybrid configs (mamba2-2.7b, zamba2-2.7b) too.
 """
 import argparse
 import os

@@ -157,9 +157,6 @@ def planner_to_torch(planner) -> Planner:
                    scan_floor=int(planner.scan_floor))
 
 
-_LM_PARTS = ("norm1", "attn", "norm2", "ffn")
-
-
 def _part_names(mod, prefix: str) -> dict:
     """{key: port parameter name} of a block part, nested where the part
     nests (an MoE's "shared" MLP); {} for a non-parametric norm."""
@@ -181,9 +178,12 @@ def _lm_tree(model, leaf, stack):
     reference unrolls its prefix); a `seg{si}/pos{pi}` leaf, which carries
     a leading n_groups axis in the reference (it scans over groups), is
     stack([leaf of layer g·len(period) + pi for each group g]), counted
-    after the prefix. The MTP head's `mtp_proj`, `mtp_block` and
-    `mtp_norm` are top-level and unstacked, as the reference draws them.
-    Empty norm dicts (non-parametric LN) stay as {}."""
+    after the prefix. A block holds the parts its type draws ({norm1,
+    mixer} of an SSM block, {norm1, norm2, ffn} of a shared_attn
+    position). The hybrid's `shared` block and the MTP head's `mtp_proj`,
+    `mtp_block` and `mtp_norm` are top-level and unstacked, as the
+    reference draws them. Empty norm dicts (non-parametric LN) stay as
+    {}."""
     tree = {"embed": leaf("embed"),
             "final_norm": {n: leaf(f"final_norm.{n}")
                            for n in model.final_norm}}
@@ -192,11 +192,13 @@ def _lm_tree(model, leaf, stack):
 
     def block(mod, prefix: str) -> dict:
         return {part: _part_names(mod[part], f"{prefix}.{part}")
-                for part in _LM_PARTS}
+                for part in mod}
 
     def one(mod, prefix: str) -> dict:
         return _zip_names([block(mod, prefix)], lambda ns: leaf(ns[0]))
 
+    if model.shared is not None:
+        tree["shared"] = one(model.shared, "shared")
     for i in range(len(model.prefix)):
         tree[f"prefix{i}"] = one(model.layers[i], f"layers.{i}")
     li = len(model.prefix)

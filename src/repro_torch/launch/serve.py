@@ -21,9 +21,10 @@ device); its per-shard telemetry shows in `--status` and `--prometheus`.
 `--gen-len N` adds the filtered-RAG tail on the same device: each served
 request's retrieved ids, as context tokens ahead of an 8-token prompt,
 condition the `tiny()` config of `--arch` (default olmo-1b; a dense or
-MoE decoder LM, deepseek-v3-671b's MLA with its latent cache included,
-weights drawn from seed 0), which prefills and greedy-decodes N tokens
-with a KV cache.
+MoE decoder LM, deepseek-v3-671b's MLA with its latent cache,
+mamba2-2.7b's SSM layers with their recurrent state, zamba2-2.7b's
+hybrid of both with its shared attention block; weights drawn from seed
+0), which prefills and greedy-decodes N tokens with its cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gen-len 8 --arch olmo-1b
 """
@@ -136,8 +137,8 @@ def main(argv=None):
                     help="greedy-decode N tokens of a decoder LM conditioned "
                          "on each request's retrieved ids (the RAG tail)")
     ap.add_argument("--arch", default="olmo-1b",
-                    help="the LM of the RAG tail (its tiny() config; dense "
-                         "or MoE family, gqa or MLA)")
+                    help="the LM of the RAG tail (its tiny() config; dense, "
+                         "MoE, SSM or hybrid family, gqa or MLA)")
     ap.add_argument("--precision", default="float32",
                     choices=["float32", "int8", "pq"],
                     help="engine vector-store precision: compressed-domain "

@@ -3,8 +3,10 @@ and restart → straggler monitor, on one device.
 
 Counterpart of `repro/launch/train.py` without the mesh (which comes
 with ROADMAP.md Queue 1, items 3 and 5h). It trains the `tiny()` config
-of `--arch` unless `--full-config` is given, on the CUDA device, and
-raises when there is none unless `--device cpu` is given. Families that
+of `--arch` (a dense, MoE, SSM or hybrid decoder LM: olmo-1b,
+phi3.5-moe-42b-a6.6b, deepseek-v3-671b, mamba2-2.7b, zamba2-2.7b, ...)
+unless `--full-config` is given, on the CUDA device, and raises when
+there is none unless `--device cpu` is given. Families that
 `models.build_model` refuses raise here too.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
@@ -22,7 +24,8 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="a dense, MoE, SSM or hybrid config of the zoo")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

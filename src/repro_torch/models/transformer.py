@@ -1,5 +1,6 @@
-"""DecoderLM — the decoder-only LM of the dense and MoE families (gqa or
-MLA attention, with deepseek-v3's MTP head): training loss, prefill and
+"""DecoderLM — the decoder-only LM of the dense, MoE, SSM and hybrid
+families (gqa or MLA attention, with deepseek-v3's MTP head; Mamba2's
+SSD mixer; zamba2's shared attention block): training loss, prefill and
 cached decode.
 
 Counterpart of `repro/models/transformer.py`. The reference plans a model
@@ -12,15 +13,24 @@ groups applying a static period of block types:
   phi3.5-moe            period = (gqa-global+moe,)            x L
   deepseek-v3           prefix = 3 (mla+dense), then
                         period = (mla+moe,)                   x 58
+  mamba2                period = (ssm,)                       x L
+  zamba2                period = (ssm x6, shared-attn+mlp)    x L/6
 
 Here the same plan unrolls into an `nn.ModuleList` of layers: the prefix
 first, then layer g·len(period) + i of a segment applying period
-position i of group g, with no scan. In training (`loss`) with
-`cfg.remat`, each prefix block and each group's layers are checkpointed
-and recomputed on backward, as the reference checkpoints them; the MoE
-load-balance loss of every MoE block is summed through them in layer
-order, as the reference's scan carries it, and the loss is ce +
-router_aux_weight · aux. With `cfg.mtp` (deepseek-v3's multi-token
+position i of group g, with no scan. An SSM block is {norm1, mixer} (the
+Mamba2 mixer, `models/mamba2.py`, and no FFN). The hybrid's attention and
+MLP live once, in the top-level `shared` ModuleDict {attn, norm2, ffn},
+which every `shared_attn` position applies (zamba2: 9 times); such a
+position's own {norm1, norm2, ffn} are drawn as the reference draws them
+(its block type has a dense FFN), but only norm1 is read: the trees, the
+converters, the checkpoints and AdamW stay one to one with the
+reference's, and those never-read leaves get zero gradients. In training
+(`loss`) with `cfg.remat`, each prefix block and each group's layers are
+checkpointed and recomputed on backward, as the reference checkpoints
+them; the MoE load-balance loss of every MoE block is summed through
+them in layer order, as the reference's scan carries it, and the loss is
+ce + router_aux_weight · aux. With `cfg.mtp` (deepseek-v3's multi-token
 prediction, depth 1) the loss adds 0.3 · the cross-entropy of one more
 block, of the last segment's period type, predicting token t + 2 from
 the backbone's normed h_t and the embedding of token t + 1, and its aux
@@ -28,16 +38,19 @@ the backbone's normed h_t and the embedding of token t + 1, and its aux
 cross-entropy runs over sequence chunks, each recomputed on backward, so
 no [B, S, V] logits tensor is held. The sharding constraints of the
 reference's backbone are no-ops on one device and are dropped; they come
-back with the mesh. The SSM, hybrid, VLM and enc-dec families are not
-ported yet; `models.zoo.build_model` refuses them.
+back with the mesh. The VLM and enc-dec families are not ported yet;
+`models.zoo.build_model` refuses them.
 
 A cache is a list with one dict per layer: {"k", "v"} [B, S, KV, hd]
-for a gqa layer (S = min(window, capacity) for a sliding-window layer, a
-rolling buffer), the latent {"c_kv" [B, S, kv_lora], "k_rope" [B, S,
-rope]} for an MLA layer. Decode writes it in place. Prefill and decode
-run the MoE without its aux loss, as the reference does; a decode step
-routes one token a row, so its capacity (8) is never reached and it
-drops nothing, while a prefill may drop (ROADMAP.md Queue 3).
+for a gqa or shared-attention layer (S = min(window, capacity) for a
+sliding-window layer, a rolling buffer), the latent {"c_kv" [B, S,
+kv_lora], "k_rope" [B, S, rope]} for an MLA layer, the recurrent {"h"
+[B, H, P, N] float32, "conv" [B, k − 1, d_inner + 2N]} for an SSM layer
+(no sequence axis: its size does not grow with the length). Decode
+writes it in place. Prefill and decode run the MoE without its aux loss,
+as the reference does; a decode step routes one token a row, so its
+capacity (8) is never reached and it drops nothing, while a prefill may
+drop (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -52,13 +65,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models.common import apply_norm, dense_init, init_norm
 
 
 class BlockType(NamedTuple):
-    mixer: str = "gqa"      # gqa | mla
+    mixer: str = "gqa"      # gqa | mla | ssm | shared_attn
     window: int = 0         # 0 = global attention
-    ffn: str = "dense"      # dense | moe
+    ffn: str = "dense"      # dense | moe | none
 
 
 class Segment(NamedTuple):
@@ -74,15 +88,24 @@ class Ctx(NamedTuple):
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
-    """(segments, unrolled prefix block types) of a config of the dense or
-    MoE family, its mixer MLA where `cfg.use_mla` is set, else gqa:
-    global, `local` (every layer a window) or `local_global` (period − 1
-    local layers, then a global one); the FFN an MoE where `cfg.n_experts`
-    is set; with global attention, the first `first_dense_layers` blocks a
-    dense prefix."""
+    """(segments, unrolled prefix block types) of a config. The `ssm`
+    family: (ssm, no FFN) × L; the hybrid: (ssm × hybrid_period, then
+    shared_attn + dense) × L / hybrid_period. The dense and MoE families:
+    the mixer MLA where `cfg.use_mla` is set, else gqa: global, `local`
+    (every layer a window) or `local_global` (period − 1 local layers,
+    then a global one); the FFN an MoE where `cfg.n_experts` is set; with
+    global attention, the first `first_dense_layers` blocks a dense
+    prefix."""
+    if cfg.family == "ssm":
+        return [Segment((BlockType("ssm", ffn="none"),), cfg.n_layers)], []
+    if cfg.family == "hybrid":
+        per = ((BlockType("ssm", ffn="none"),) * cfg.hybrid_period
+               + (BlockType("shared_attn"),))
+        return [Segment(per, cfg.n_layers // cfg.hybrid_period)], []
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: layer_plan covers the dense and MoE families only")
+            f"{cfg.name}: layer_plan covers the dense, MoE, SSM and hybrid "
+            "families only")
     mixer = "mla" if cfg.use_mla else "gqa"
     ffn = "moe" if cfg.n_experts else "dense"
     if cfg.attn_kind == "local":
@@ -100,24 +123,38 @@ def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
 
 def _init_block(cfg: ArchConfig, bt: BlockType, generator, device
                 ) -> nn.ModuleDict:
-    init_attn = attn.init_mla if bt.mixer == "mla" else attn.init_attention
-    init_ffn = ffn_mod.init_moe if bt.ffn == "moe" else ffn_mod.init_mlp
-    return nn.ModuleDict({
-        "norm1": init_norm(cfg, cfg.d_model, device),
-        "attn": init_attn(cfg, generator, device),
-        "norm2": init_norm(cfg, cfg.d_model, device),
-        "ffn": init_ffn(cfg, generator, device),
-    })
+    """One block's leaves, as the reference's `_init_block` draws them:
+    norm1; the mixer's ("attn", or "mixer" for an SSM block; none for a
+    shared_attn position, whose attention is the model's `shared` one);
+    norm2 and the FFN unless its type is "none" (a shared_attn position
+    keeps its own, never read: `DecoderLM` applies the shared ones)."""
+    p = {"norm1": init_norm(cfg, cfg.d_model, device)}
+    if bt.mixer == "ssm":
+        p["mixer"] = ssm_mod.init_mamba2(cfg, generator, device)
+    elif bt.mixer != "shared_attn":
+        init_attn = attn.init_mla if bt.mixer == "mla" else attn.init_attention
+        p["attn"] = init_attn(cfg, generator, device)
+    if bt.ffn != "none":
+        init_ffn = ffn_mod.init_moe if bt.ffn == "moe" else ffn_mod.init_mlp
+        p["norm2"] = init_norm(cfg, cfg.d_model, device)
+        p["ffn"] = init_ffn(cfg, generator, device)
+    return nn.ModuleDict(p)
 
 
 def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
                       device) -> dict:
-    """A zero cache for one block: the latent {"c_kv", "k_rope"} of an MLA
-    block, capacity s_max; K/V of a gqa block, capacity s_max, or
-    min(window, s_max) for a sliding-window block."""
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+    """A zero cache for one block: the recurrent {"h" float32, "conv"} of
+    an SSM block, whatever s_max; the latent {"c_kv", "k_rope"} of an MLA
+    block, capacity s_max; K/V of a gqa or shared-attention block,
+    capacity s_max, or min(window, s_max) for a sliding-window block."""
+    def zeros(*shape, dtype=cfg.compute_dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
+    if bt.mixer == "ssm":
+        di = cfg.ssm_expand * cfg.d_model
+        return {"h": zeros(b, di // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                           cfg.ssm_state, dtype=torch.float32),
+                "conv": zeros(b, cfg.ssm_conv - 1, di + 2 * cfg.ssm_state)}
     if bt.mixer == "mla":
         return {"c_kv": zeros(b, s_max, cfg.kv_lora_rank),
                 "k_rope": zeros(b, s_max, cfg.qk_rope_dim)}
@@ -128,7 +165,10 @@ def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
 
 def _pad_cache_seq(full, part):
     """Place a prefill-length cache `part` into the capacity-sized `full`
-    at t = 0, in place; returns `full`."""
+    at t = 0, in place; returns `full`. An SSM layer's state fills its
+    leaf whole; its conv tail, shorter than k − 1 after a shorter
+    prompt, lands at slot 0, as the reference places it (ROADMAP.md Queue
+    3)."""
     for f, p in zip(full, part):
         for name, t in p.items():
             f[name][:, :t.shape[1]] = t.to(f[name].dtype)
@@ -136,18 +176,32 @@ def _pad_cache_seq(full, part):
 
 
 class BlockApplier:
-    """Applies one block (gqa or MLA mixer, dense or MoE FFN) in train,
-    prefill or decode mode: (x, cache, aux). Train builds no cache and
-    returns None for it; aux is the MoE load-balance loss of an MoE block
-    in train mode, else None."""
+    """Applies one block (gqa, MLA, SSM or shared-attention mixer; dense,
+    MoE or no FFN) in train, prefill or decode mode: (x, cache, aux).
+    Train builds no cache and returns None for it; aux is the MoE
+    load-balance loss of an MoE block in train mode, else None. A
+    shared_attn block reads `shared` {attn, norm2, ffn} in place of its
+    own attention, norm2 and FFN, as the reference's does."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, shared=None):
         self.cfg = cfg
+        self.shared = shared
 
     def __call__(self, bt: BlockType, bp, x, ctx: Ctx, cache=None):
         cfg = self.cfg
         h = apply_norm(cfg, bp["norm1"], x)
-        if bt.mixer == "mla":
+        own = self.shared if bt.mixer == "shared_attn" else bp
+        if bt.mixer == "ssm":
+            if ctx.mode == "decode":
+                out, new_cache = ssm_mod.mamba2_decode(cfg, bp["mixer"], h,
+                                                       cache)
+            elif ctx.mode == "prefill":
+                out, new_cache = ssm_mod.mamba2_forward(
+                    cfg, bp["mixer"], h, return_state=True)
+            else:
+                out, new_cache = ssm_mod.mamba2_forward(cfg, bp["mixer"],
+                                                        h), None
+        elif bt.mixer == "mla":
             if ctx.mode == "decode":
                 out, new_cache = attn.mla_decode(cfg, bp["attn"], h, cache,
                                                  pos=ctx.pos)
@@ -158,10 +212,10 @@ class BlockApplier:
                              else {"c_kv": ckv, "k_rope": krope})
         elif ctx.mode == "decode":
             out, new_cache = attn.attention_decode(
-                cfg, bp["attn"], h, cache, pos=ctx.pos, window=bt.window)
+                cfg, own["attn"], h, cache, pos=ctx.pos, window=bt.window)
         else:
             out, (kk, vv) = attn.attention_forward(
-                cfg, bp["attn"], h, positions=ctx.positions,
+                cfg, own["attn"], h, positions=ctx.positions,
                 window=bt.window)
             if ctx.mode == "train":
                 new_cache = None
@@ -171,26 +225,31 @@ class BlockApplier:
             else:
                 new_cache = {"k": kk, "v": vv}
         x = x + out
-        h2 = apply_norm(cfg, bp["norm2"], x)
         aux = None
+        if bt.ffn == "none":
+            return x, new_cache, aux
+        h2 = apply_norm(cfg, own["norm2"], x)
         if bt.ffn == "dense":
-            out = ffn_mod.mlp_forward(cfg, bp["ffn"], h2)
+            out = ffn_mod.mlp_forward(cfg, own["ffn"], h2)
         elif ctx.mode == "train":
-            out, aux = ffn_mod.moe_forward(cfg, bp["ffn"], h2,
+            out, aux = ffn_mod.moe_forward(cfg, own["ffn"], h2,
                                            return_aux=True)
         else:
-            out = ffn_mod.moe_forward(cfg, bp["ffn"], h2, drops=ctx.drops)
+            out = ffn_mod.moe_forward(cfg, own["ffn"], h2, drops=ctx.drops)
         return x + out, new_cache, aux
 
 
 class DecoderLM(nn.Module):
-    """The dense or MoE decoder LM on `device` (the card by default).
+    """The dense, MoE, SSM or hybrid decoder LM on `device` (the card by
+    default).
 
     With a `generator`, every weight is drawn from it as the reference's
-    `init_params` draws (normal · 1/√fan_in; norms at their constants),
-    the MTP head's (`cfg.mtp`: mtp_proj [2d, d], mtp_block, mtp_norm)
-    after the layers; without one the weights are left uninitialised for a
-    caller that loads them (`convert.lm_params_to_torch`)."""
+    `init_params` draws (normal · 1/√fan_in; norms and the SSM's
+    convolutions, decays and skips at their constants), the hybrid's
+    `shared` block {attn, norm2, ffn} before the layers, the MTP head's
+    (`cfg.mtp`: mtp_proj [2d, d], mtp_block, mtp_norm) after them; without
+    one the weights are left uninitialised for a caller that loads them
+    (`convert.lm_params_to_torch`)."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: torch.Generator | None = None):
@@ -206,13 +265,19 @@ class DecoderLM(nn.Module):
         self.final_norm = init_norm(cfg, d, dev)
         self.head = (None if cfg.tie_embeddings else
                      dense_init((d, cfg.vocab_size), d, dt, generator, dev))
+        self.shared = None
+        if cfg.family == "hybrid":   # registered once: one leaf a weight
+            self.shared = nn.ModuleDict({
+                "attn": attn.init_attention(cfg, generator, dev),
+                "norm2": init_norm(cfg, d, dev),
+                "ffn": ffn_mod.init_mlp(cfg, generator, dev)})
         self.layers = nn.ModuleList(_init_block(cfg, bt, generator, dev)
                                     for bt in self.block_types)
         if cfg.mtp:
             self.mtp_proj = dense_init((2 * d, d), 2 * d, dt, generator, dev)
             self.mtp_block = _init_block(cfg, self.mtp_type, generator, dev)
             self.mtp_norm = init_norm(cfg, d, dev)
-        self._applier = BlockApplier(cfg)
+        self._applier = BlockApplier(cfg, self.shared)
 
     @property
     def mtp_type(self) -> BlockType:
@@ -343,15 +408,17 @@ class DecoderLM(nn.Module):
         """One token: tokens [B, 1] at position `pos`, a Python int (every
         row there) or an int tensor [B]. Writes the cache in place;
         returns (logits [B, 1, V], cache). An int position beyond a global
-        layer's capacity raises here, on the host, without waiting for the
-        card (the reference's `dynamic_update_slice` would clamp it onto
-        the last slot); a tensor's positions are the caller's to keep
-        inside it, as `train.serve_step.generate` does by sizing the
-        cache."""
+        attention layer's capacity (its K/V or latent cache's sequence
+        axis) raises here, on the host, without waiting for the card (the
+        reference's `dynamic_update_slice` would clamp it onto the last
+        slot); an SSM layer's state has no capacity, so a model of SSM
+        layers alone decodes at any position. A tensor's positions are
+        the caller's to keep inside the capacity, as
+        `train.serve_step.generate` does by sizing the cache."""
         if isinstance(pos, int):
-            caps = [next(iter(c.values())).shape[1]   # every leaf's seq axis
+            caps = [c[n].shape[1]
                     for bt, c in zip(self.block_types, cache)
-                    if not bt.window]
+                    if not bt.window for n in ("k", "c_kv") if n in c]
             if caps and pos >= min(caps):
                 raise ValueError(
                     f"decode position {pos} is beyond the cache's "

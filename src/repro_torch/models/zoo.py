@@ -9,8 +9,6 @@ from repro_torch.models.transformer import DecoderLM
 
 # family → the ROADMAP.md item that ports it
 UNPORTED = {
-    "ssm": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
-    "hybrid": "Queue 1, item 5d (Mamba2: SSM and hybrid)",
     "vlm": "Queue 1, item 5e (VLM cross-attention)",
     "encdec": "Queue 1, item 5f (enc-dec)",
 }
@@ -19,14 +17,16 @@ UNPORTED = {
 def build_model(cfg: ArchConfig, device=None,
                 generator: torch.Generator | None = None) -> DecoderLM:
     """The decoder LM of `cfg` (dense or MoE, gqa or MLA attention, with
-    an MTP head where `cfg.mtp` is set) on `device` (the card by default),
-    its weights drawn from `generator` (default: seed 0 on that device).
+    an MTP head where `cfg.mtp` is set; Mamba2 layers, with zamba2's
+    shared attention block in the hybrid) on `device` (the card by
+    default), its weights drawn from `generator` (default: seed 0 on that
+    device).
     Raises NotImplementedError for a family not ported yet, naming its
     ROADMAP.md item; nothing falls back."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} is not ported to repro_torch yet "
-            f"(ROADMAP.md {UNPORTED.get(cfg.family, 'Queue 1, item 5')})")
+            f"(ROADMAP.md {UNPORTED[cfg.family]})")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

@@ -57,11 +57,13 @@ def loss_and_grads(model, params: dict, batch: dict, grad_accum: int = 1):
     taken with respect to `params` (the model's parameters). With
     grad_accum > 1 the gradients are the float32 mean over the
     microbatches tokens.reshape(grad_accum, B / grad_accum, S), and the
-    loss and metrics the last microbatch's."""
+    loss and metrics the last microbatch's. A parameter the loss never
+    reads (zamba2's shared_attn positions' own norm2 and FFN) gets a zero
+    gradient, as `jax.grad` gives it."""
     names, leaves = list(params), list(params.values())
     if grad_accum <= 1:
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = _grad(loss, leaves)
         return loss.detach(), _detach(metrics), dict(zip(names, grads))
     tokens = batch["tokens"]
     b = tokens.shape[0]
@@ -73,10 +75,17 @@ def loss_and_grads(model, params: dict, batch: dict, grad_accum: int = 1):
            for p in leaves]
     for mb in mbs:
         loss, metrics = model.loss({"tokens": mb})
-        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+        for a, g in zip(acc, _grad(loss, leaves)):
             a.add_(g.to(torch.float32))
     grads = {k: a.div_(grad_accum) for k, a in zip(names, acc)}
     return loss.detach(), _detach(metrics), grads
+
+
+def _grad(loss, leaves) -> list:
+    """d loss / d leaf for every leaf, zeros where the loss reads none."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def _detach(metrics: dict) -> dict:

@@ -453,14 +453,16 @@ def test_port_init_draws_the_reference_distributions():
 
 
 # the MoE family builds (phi3.5-moe-42b-a6.6b, tests/test_torch_moe.py;
-# deepseek-v3-671b with MLA and MTP, tests/test_torch_mla.py)
+# deepseek-v3-671b with MLA and MTP, tests/test_torch_mla.py), and so do
+# the SSM and hybrid families (mamba2-2.7b, zamba2-2.7b,
+# tests/test_torch_ssm.py)
 UNPORTED = sorted(n for n, c in J_ARCHS.items()
-                  if c.family not in ("dense", "moe"))
+                  if c.family not in ("dense", "moe", "ssm", "hybrid"))
 
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_build_model_refuses_unported_families(name):
-    """SSM, hybrid, VLM and enc-dec raise, naming their ROADMAP.md item;
-    nothing falls back to another model."""
+    """VLM and enc-dec raise, naming their ROADMAP.md item; nothing falls
+    back to another model."""
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item 5"):
         build_model(get_arch(name).tiny(), device="cpu")
