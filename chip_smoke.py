@@ -258,6 +258,30 @@ Phases, each printed as one JSON line with its wall seconds:
      steps, zamba2 at 2 groups 4 steps (its never-read moments stay 0),
      losses finite and falling, step ms beside the bound, peak; resume ≡
      uninterrupted bit for bit on zamba2 at 1 group;
+ 15f. `lm_cross`, last (TF32 off), on a card holding no earlier model:
+     llama-3.2-vision-90b (d 8192, 64 / 8 heads of 128, d_ff 28672,
+     vocab 128256, untied; (4 gqa, then gqa + cross) × 20, 1601 memory
+     rows) and whisper-small (12 bidirectional encoder layers over 1500
+     frames, 12 decoder layers of gqa + cross; d 768, 12 heads of 64,
+     d_ff 3072, layernorm, GELU, vocab 51865) at their published widths,
+     float32, from a seeded generator; stub memories 0.02 · N(0, 1)
+     (`cross_memory`). (a) Serving the rag phase's 16 requests' ids and 8
+     prompt tokens over a memory: the VLM at 3 of 20 periods (15 of 100
+     layers, 15.39 B parameters, 61.56 GB), whisper at full depth
+     (encode, then prefill); 8 greedy decode steps over the self K/V and
+     the static cross K/V ≡ a teacher-forced prefill within LM_TOL on
+     all 16 rows; prefill (and encode) ms and decode ms a token beside
+     their bounds by bytes and operations (`cross_work`), a decode step's
+     kernels, launches and idle share, the cross cache's bytes a row a
+     layer, the peak. (b) The VLM's full-width cross block (1.01 B) card
+     ≡ CPU at [2, 64] over 1601 unit-normal memory rows: the prefill's
+     output and caches, a decode step, every gradient (the memory's too)
+     within CROSS_XDEV_TOL. (c) whisper at 1 + 1 layers card ≡ CPU: loss
+     and every gradient. (d) Training (batch 8 × 64, remat): whisper at
+     full depth (float32 moments, grad_accum 2: the frames split with
+     the tokens) with falling losses and resume ≡ uninterrupted bit for
+     bit; the VLM at 1 period (6.53 B parameters, int8 moments,
+     grad_accum 1) with falling losses, its peak printed;
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
@@ -4658,7 +4682,7 @@ def moe_serve_bounds(cfg, lm, param_bytes: int, b: int, s: int,
     return out
 
 
-def decode_vs_prefill(lm, tokens, steps: int, what: str
+def decode_vs_prefill(lm, tokens, steps: int, what: str, enc=None
                       ) -> tuple[dict, dict]:
     """`generate` over tokens [B, S] for `steps` greedy steps, every
     logit finite; then each step's logits against a fresh prefill over
@@ -4667,14 +4691,15 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
     that prefill dropped none, neither did the first (its prefix, under
     the same capacity: phi3.5-moe's while S ≤ 51, deepseek-v3's while S ≤
     179); a model without MoE blocks drops nothing, so every row is
-    compared. Returns (the comparison, the run); `what` names the phase
-    in a failure."""
+    compared. A model that cross-attends reads the memory `enc` in the
+    run and in every prefill. Returns (the comparison, the run); `what`
+    names the phase in a failure."""
     import torch
 
     from repro_torch.train import generate
 
     b, s = tokens.shape
-    run = generate(lm, tokens, steps)
+    run = generate(lm, tokens, steps, enc=enc)
     logits = run["logits"]
     require(tuple(logits.shape) == (b, steps + 1, lm.cfg.vocab_size)
             and bool(torch.isfinite(logits).all()),
@@ -4684,14 +4709,14 @@ def decode_vs_prefill(lm, tokens, steps: int, what: str
                 torch.zeros(b, dtype=torch.int64, device=tokens.device))
 
     first = []
-    lm.prefill(tokens, drops=first)
+    lm.prefill(tokens, drops=first, enc=enc)
     seq = torch.cat([tokens, run["fed"]], dim=1)
     errs = torch.zeros((b, steps), device=tokens.device)
     clean = torch.zeros((b, steps), dtype=torch.bool, device=tokens.device)
     drops, want = [], []
     for step in range(steps):
         dr = []
-        ref, _ = lm.prefill(seq[:, :s + step + 1], drops=dr)
+        ref, _ = lm.prefill(seq[:, :s + step + 1], drops=dr, enc=enc)
         per_row = by_row(dr)
         clean[:, step] = per_row == 0
         drops.append(per_row)
@@ -4776,17 +4801,21 @@ def serve_decode_checks(published, tokens, device, no_drop_steps: int,
     return checks, lm, run
 
 
-def serve_timing(lm, tokens, run, steps: int, launches: list | None = None):
-    """(prefill ms of tokens [B, S] by CUDA events, mean of 5; decode ms a
-    token on the host clock, the median of `run`'s `steps` and 2 more such
-    `generate` runs; a decode step's device ms by kernel, at position S of
-    a fresh cache, its launches into `launches` where given)."""
+def serve_timing(lm, tokens, run, steps: int, launches: list | None = None,
+                 enc=None):
+    """(prefill ms of tokens [B, S] (over the memory `enc` of a model that
+    cross-attends) by CUDA events, mean of 5; decode ms a token on the
+    host clock, the median of `run`'s `steps` and 2 more such `generate`
+    runs; a decode step's device ms by kernel, at position S of a fresh
+    cache, its launches into `launches` where given)."""
     from repro_torch.train import generate
 
     b, s = tokens.shape
-    prefill_ms = time_cuda(lambda: lm.prefill(tokens), iters=5, warmup=1)
+    prefill_ms = time_cuda(lambda: lm.prefill(tokens, enc=enc), iters=5,
+                           warmup=1)
     decode_ms = float(np.median([run["decode_ms"]] + [
-        generate(lm, tokens, steps)["decode_ms"] for _ in range(2)])) / steps
+        generate(lm, tokens, steps, enc=enc)["decode_ms"]
+        for _ in range(2)])) / steps
     cache = lm.init_cache(b, s + 1)
     by_kernel = kernel_breakdown(lambda: lm.decode_step(cache, tokens[:, :1],
                                                         s), launches=launches)
@@ -5062,7 +5091,9 @@ def train_run(cfg, tc, bound_fn, device, what: str, steps: int = TRAIN_STEPS,
               prepare=None, inspect=None, profile: bool = True):
     """`steps` steps under `tc` of the model of `cfg` (float32, TF32 off,
     remat) built on `device` from LM_SEED (then `prepare(model)`, where
-    given), on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch: every metric
+    given), on one seeded [TRAIN_BATCH, TRAIN_SEQ] batch (with, for a
+    model that cross-attends, one seeded stub memory `cross_memory` that
+    every batch shares): every metric
     (loss, ce, aux and, with an MTP head, mtp_ce) finite, the last loss
     below the first; step ms (median of steps 2 on) and tokens/s beside
     the step's bound (`bound_fn(model, n_params)`); a step under torch's
@@ -5086,6 +5117,10 @@ def train_run(cfg, tc, bound_fn, device, what: str, steps: int = TRAIN_STEPS,
     batch = batches[0]
     model = build_model(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(LM_SEED))
+    if model.has_cross:
+        enc = cross_memory(cfg, TRAIN_BATCH, device)
+        for b in batches:
+            b["enc"] = enc
     if prepare is not None:
         prepare(model)
     n_params = sum(p.numel() for p in model.parameters())
@@ -5994,6 +6029,401 @@ def run_lm_ssm(device, doc_ids) -> None:
           "train": train, "seconds": time.perf_counter() - t})
 
 
+# ---------------------------------------------------- cross-attention ----
+VLM_ARCH = "llama-3.2-vision-90b"
+ENC_ARCH = "whisper-small"
+# full width, float32: a VLM period (4 gqa blocks of 855,654,400 parameters,
+# then a gqa + cross block of 1,006,657,536) is 4,429,275,136, the untied
+# embedding and head 2,101,354,496; serving at 3 periods of 20 (15 of 100
+# layers): 15,389,179,904 parameters, 61.56 GB (2 periods: 43.84 GB).
+# whisper-small at full depth (12 + 12 layers): 277,940,736 (1.11 GB).
+VLM_SERVE_PERIODS = 3
+CROSS_DECODE = 8           # greedy tokens after the rag phase's 18 a row
+MEMORY_SCALE = 0.02        # the launchers' stub memory: 0.02 · N(0, 1)
+CROSS_XDEV_SHAPE = (2, 64)  # tokens of the card-vs-CPU checks
+# card vs CPU, each × its CPU max |.| (float32 both, TF32 off): the VLM
+# cross block's prefill output and caches, a decode step's output and
+# self K/V, every gradient leaf of Σ out·r (the memory's too); whisper's
+# 1 + 1 layers' loss (relative) and every gradient leaf
+CROSS_XDEV_TOL = {"prefill": 1e-4, "decode": 1e-4, "grad": 1e-4,
+                  "loss": 1e-5}
+# training: whisper at full depth (float32 moments, grad_accum
+# TRAIN_ACCUM); the VLM at 1 period (6,530,629,632 parameters: p 26.12 GB,
+# gradients 26.12 GB, int8 moments 13.06 GB) at grad_accum 1 (a float32
+# accumulator would add 26.12 GB)
+VLM_TRAIN_PERIODS = 1
+VLM_MOMENTS = "int8"
+VLM_TRAIN_ACCUM = 1
+
+
+def cross_memory(cfg, b: int, device, seed: int = LM_SEED + 2):
+    """A stub memory [b, Se, d] on `device` (the VLM's patch embeddings,
+    whisper's frames): MEMORY_SCALE · N(0, 1) from a seeded generator."""
+    import torch
+
+    from repro_torch.models.transformer import cross_len
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return MEMORY_SCALE * torch.randn((b, cross_len(cfg), cfg.d_model),
+                                      generator=g, device=device)
+
+
+def cross_work(cfg, lm, b: int, s: int, ctx: int) -> dict:
+    """Bytes and operations of a forward of `lm` over [b, s] tokens and its
+    memory of Se rows (s = 1: a decode step at `ctx` cached slots over the
+    static cross cache). Bytes: every weight the function reads, once — a
+    decode step reads neither the cross blocks' wk / wv (their K/V are
+    cached) nor the encoder, and of an untied embedding table only the
+    rows it gathers —; a decode step's self K/V (ctx slots) and cross K/V
+    (Se rows) read; a prefill's memory read and its caches written.
+    Operations: 2 a weight a token through the decoder (the head at the
+    last position only), the cross K/V projections over the Se memory
+    rows, the causal self-attention's scores and values (half the
+    square; a decode step's over ctx slots), the cross scores and values
+    over Se rows; an enc-dec's prefill adds its encoder (2 a weight a
+    frame, bidirectional attention over the whole square)."""
+    from repro_torch.models.transformer import cross_len
+
+    d, v, f = cfg.d_model, cfg.vocab_size, 4
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    se = cross_len(cfg)
+    n_layers = len(lm.block_types)
+    n_cross = sum(bt.cross for bt in lm.block_types)
+    body = sum(p.numel() for p in lm.layers.parameters()) + sum(
+        p.numel() for p in lm.final_norm.parameters())
+    cross_kv_w = n_cross * 2 * d * hkv
+    head = d * v
+    enc_w = sum(p.numel() for n, p in lm.named_parameters()
+                if n.startswith("enc_"))
+    gather = 0 if cfg.tie_embeddings else b * s * d
+    kv_row = 2 * hkv * f            # K/V bytes a token (or memory row) a layer
+    if s == 1:
+        moved = ((body - cross_kv_w + head + gather) * f
+                 + n_layers * b * ctx * kv_row + n_cross * b * se * kv_row)
+        ops = (2 * (body - cross_kv_w + head) * b
+               + 4 * hq * b * (n_layers * ctx + n_cross * se))
+    else:
+        moved = ((body + head + enc_w + gather) * f + b * se * d * f
+                 + (n_layers * b * s + n_cross * b * se) * kv_row)
+        ops = (2 * (body - cross_kv_w) * b * s + 2 * cross_kv_w * b * se
+               + 2 * head * b
+               + 4 * hq * b * (n_layers * s * s / 2 + n_cross * s * se))
+        if enc_w:
+            ops += (2 * enc_w * b * se
+                    + 4 * hq * b * se * se * len(lm.enc_layers))
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": moved, "ops": ops,
+            "byte_bound_ms": t_bytes * 1e3, "op_bound_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cross_serve(cfg, device, doc_ids) -> dict:
+    """lm_cross (a): the model of `cfg` (published widths) built on the
+    card from LM_SEED; the rag phase's 16 requests' ids and 8 prompt
+    tokens prefilled over a stub memory (`cross_memory`; whisper's frames
+    through its encoder first), then CROSS_DECODE greedy decode steps over
+    the self K/V and the static cross K/V: every step ≡ a teacher-forced
+    prefill over the same prefix and memory within LM_TOL on all 16 rows,
+    greedy ids equal past that margin (`decode_vs_prefill`). Prefill ms
+    (CUDA events; whisper's encode also alone) and decode ms a token (host
+    clock, median of 3 runs) beside their bounds (`cross_work`), a decode
+    step's kernels, launches and idle share, the cross cache's bytes a row
+    a layer, the peak allocation."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import cross_len
+    from repro_torch.train import generate
+
+    t = time.perf_counter()
+    reset_peak()
+    tokens = rag_tokens(doc_ids, cfg.vocab_size, device)
+    b, s = tokens.shape
+    enc = cross_memory(cfg, b, device)
+    lm = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    generate(lm, tokens, 2, enc=enc)                           # warm-up
+    torch.cuda.synchronize()
+    stages = {"build_and_warm_up_s": time.perf_counter() - t}
+    check, run = decode_vs_prefill(lm, tokens, CROSS_DECODE, "lm_cross",
+                                   enc=enc)
+    stages["decode_vs_prefill_s"] = time.perf_counter() - t - sum(
+        stages.values())
+    err = check["decode_vs_prefill_max_abs_err"]
+    require(check["rows_compared_every_step"] == b
+            and err is not None and err <= LM_TOL
+            and check["greedy_agree_where_margin_gt_tol"] == 1.0,
+            f"lm_cross: {cfg.name} decode vs teacher-forced prefill: {check}")
+    launches = []
+    prefill_ms, decode_ms, by_kernel = serve_timing(
+        lm, tokens, run, CROSS_DECODE, launches, enc=enc)
+    encode_ms = None
+    if hasattr(lm, "encode"):
+        with torch.no_grad():
+            encode_ms = time_cuda(lambda: lm.encode(enc), iters=5, warmup=1)
+    stages["timing_and_profiles_s"] = time.perf_counter() - t - sum(
+        stages.values())
+    dec = cross_work(cfg, lm, b, 1, s + CROSS_DECODE)
+    pre = cross_work(cfg, lm, b, s, s)
+    cache = lm.init_cache(1, 1)
+    row = {n: c[n].numel() * c[n].element_size()
+           for c in cache if "ck" in c for n in ("ck", "cv")}
+    n_cross = sum(bt.cross for bt in lm.block_types)
+    busy_ms = sum(by_kernel.values())
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "encoder_layers": len(getattr(lm, "enc_layers", [])),
+           "cross_layers": n_cross, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "memory_rows": cross_len(cfg), "memory_shape": list(enc.shape),
+           "params": sum(p.numel() for p in lm.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in lm.parameters()),
+           "cross_cache_bytes_per_row_layer": sum(row.values()),
+           "cross_cache_bytes": sum(row.values()) * b * n_cross,
+           "batch": b, "prompt_tokens": s, "decoded": CROSS_DECODE,
+           "decode_vs_prefill_tol": LM_TOL, "decode_vs_prefill": check,
+           "prefill_ms": prefill_ms, "encode_ms": encode_ms,
+           "prefill_bytes": pre["bytes"], "prefill_ops": pre["ops"],
+           "prefill_byte_bound_ms": pre["byte_bound_ms"],
+           "prefill_op_bound_ms": pre["op_bound_ms"],
+           "prefill_bound_by": pre["bound_by"],
+           "prefill_share_of_bound": pre["bound_ms"] / prefill_ms,
+           "decode_ms_per_token": decode_ms,
+           "decode_ms_per_token_per_request": decode_ms / b,
+           "decode_bytes": dec["bytes"], "decode_ops": dec["ops"],
+           "decode_byte_bound_ms": dec["byte_bound_ms"],
+           "decode_op_bound_ms": dec["op_bound_ms"],
+           "decode_bound_by": dec["bound_by"],
+           "decode_share_of_bound": dec["bound_ms"] / decode_ms,
+           "decode_step_kernel_launches": launches[0],
+           "decode_step_device_busy_ms": busy_ms,
+           "decode_step_idle_share": 1.0 - busy_ms / decode_ms,
+           "decode_step_top_kernels_ms": dict(sorted(
+               by_kernel.items(), key=lambda kv: -kv[1])[:8]),
+           "torch_max_allocated_mib": torch.cuda.max_memory_allocated()
+           / 2**20,
+           "torch_max_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+           "stages": stages}
+    del lm, run, enc, cache
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def vlm_block_card_vs_cpu(device) -> dict:
+    """lm_cross (b): the VLM's cross block (period position 4: gqa + cross,
+    1,006,657,536 parameters) at full width, drawn on the card from a
+    seeded generator and copied to the CPU; seeded CROSS_XDEV_SHAPE [B, S]
+    hidden states, one more token, a unit-normal memory of vision_seq rows
+    (the cross scores far from uniform) and a cotangent r. On both
+    devices: the prefill (output, self K/V, ck / cv), a decode step at
+    position S (output, self K/V), and in train mode the gradients of Σ
+    out·r with respect to every weight, the input and the memory; each
+    within CROSS_XDEV_TOL of the CPU's max |.|."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import (BlockApplier, Ctx,
+                                                _init_block, layer_plan)
+
+    t = time.perf_counter()
+    cfg = get_arch(VLM_ARCH)
+    bt = layer_plan(cfg)[0][0].period[-1]
+    require(bt.cross, f"lm_cross: period position 4 is {bt}")
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    card = _init_block(cfg, bt, g, device)
+    cpu = _init_block(cfg, bt, None, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    b, s = CROSS_XDEV_SHAPE
+    x = torch.randn((b, s + 1, cfg.d_model), generator=g, device=device)
+    enc = torch.randn((b, cfg.vision_seq, cfg.d_model), generator=g,
+                      device=device)
+    r = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    applier = BlockApplier(cfg)
+    res = {}
+    for name, blk in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        dev = next(blk.parameters()).device
+        xx, ee = x.to(dev), enc.to(dev)
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        with torch.no_grad():
+            out, part, _ = applier(bt, blk, xx[:, :s], Ctx(
+                "prefill", positions=positions, enc=ee))
+            cache = {n: torch.zeros((b, s + 1) + part[n].shape[2:],
+                                    device=dev) for n in ("k", "v")}
+            for n in ("k", "v"):
+                cache[n][:, :s] = part[n]
+            cache.update(ck=part["ck"], cv=part["cv"])
+            pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+            dec, cache, _ = applier(bt, blk, xx[:, s:], Ctx("decode", pos=pos),
+                                    cache)
+        xg = xx[:, :s].clone().requires_grad_()
+        eg = ee.clone().requires_grad_()
+        out_t, _, _ = applier(bt, blk, xg, Ctx("train", positions=positions,
+                                               enc=eg))
+        names = [n for n, _ in blk.named_parameters()] + ["x", "enc"]
+        grads = torch.autograd.grad((out_t * r.to(dev)).sum(),
+                                    list(blk.parameters()) + [xg, eg])
+        res[name] = {"prefill": {"out": out, **part},
+                     "decode": {"out": dec, "k": cache["k"],
+                                "v": cache["v"]},
+                     "grad": dict(zip(names, grads)),
+                     "s": time.perf_counter() - t1}
+        del out_t, grads
+    c = res["cpu"]
+    err = {what: {n: rel_err(res["card"][what][n], want)
+                  for n, want in c[what].items()}
+           for what in ("prefill", "decode", "grad")}
+    secs = {f"{n}_s": res[n]["s"] for n in res}
+    n_params = sum(p.numel() for p in card.parameters())
+    del card, cpu, res, x, r, enc
+    torch.cuda.empty_cache()
+    out = {"shape": [b, s], "memory_rows": cfg.vision_seq,
+           "params": n_params, "err_of_max": err, "tol": CROSS_XDEV_TOL,
+           **secs, "seconds": time.perf_counter() - t}
+    require(all(max(err[w].values()) <= CROSS_XDEV_TOL[w] for w in err),
+            f"lm_cross: VLM cross block card vs CPU beyond CROSS_XDEV_TOL: "
+            f"{out}")
+    return out
+
+
+def whisper_card_vs_cpu(device) -> dict:
+    """lm_cross (c): whisper-small at full width cut to 1 encoder and 1
+    decoder layer (96,190,464 parameters), drawn on the card and copied
+    to the CPU; `loss` and every gradient over seeded CROSS_XDEV_SHAPE
+    tokens and a stub frame batch [B, 1500, d] on both devices: the loss
+    within CROSS_XDEV_TOL["loss"] relative, each gradient leaf within
+    CROSS_XDEV_TOL["grad"] of the CPU's max |.|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import EncDecLM, build_model
+    from repro_torch.train import loss_and_grads
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(ENC_ARCH), n_layers=1,
+                              n_encoder_layers=1)
+    card = build_model(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(LM_SEED))
+    cpu = EncDecLM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    b = CROSS_XDEV_SHAPE[0]
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, CROSS_XDEV_SHAPE).astype(np.int32))
+    frames = cross_memory(cfg, b, device).cpu()
+    res = {}
+    for name, lm in (("card", card), ("cpu", cpu)):
+        t1 = time.perf_counter()
+        batch = {"tokens": tokens.to(lm.device), "enc": frames.to(lm.device)}
+        loss, _, grads = loss_and_grads(lm, dict(lm.named_parameters()),
+                                        batch)
+        res[name] = {"loss": float(loss), "s": time.perf_counter() - t1,
+                     "grads": {k: v.cpu() for k, v in grads.items()}}
+        del grads
+    c = res["cpu"]
+    grad_err = {k: rel_err(res["card"]["grads"][k], want)
+                for k, want in c["grads"].items()}
+    loss_err = abs(res["card"]["loss"] - c["loss"]) / abs(c["loss"])
+    out = {"shape": list(CROSS_XDEV_SHAPE), "frames": list(frames.shape),
+           "params": sum(p.numel() for p in card.parameters()),
+           "loss_card_cpu": [res[n]["loss"] for n in res],
+           "loss_rel_err": loss_err,
+           "grad_err_of_max_worst": dict(sorted(
+               grad_err.items(), key=lambda kv: -kv[1])[:6]),
+           "tol": CROSS_XDEV_TOL, "card_s": res["card"]["s"],
+           "cpu_s": res["cpu"]["s"], "seconds": time.perf_counter() - t}
+    del card, cpu, res
+    torch.cuda.empty_cache()
+    require(loss_err <= CROSS_XDEV_TOL["loss"]
+            and max(grad_err.values()) <= CROSS_XDEV_TOL["grad"],
+            f"lm_cross: whisper layers card vs CPU beyond CROSS_XDEV_TOL: "
+            f"{out}")
+    return out
+
+
+def cross_train_bound(cfg, model, n_params: int, opt_bytes: float) -> dict:
+    """Least time of a training step over [TRAIN_BATCH, TRAIN_SEQ] tokens
+    and their memory: 3 × a forward's operations (`cross_work`, the head
+    at every position; remat's recompute not counted) at FP32_FLOP_PER_S,
+    against AdamW's `opt_bytes` a parameter at HBM_BYTES_PER_S, the
+    larger."""
+    w = cross_work(cfg, model, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ)
+    ops = 3 * (w["ops"] + 2 * cfg.d_model * cfg.vocab_size * TRAIN_BATCH
+               * (TRAIN_SEQ - 1))
+    moved = opt_bytes * n_params
+    t_ops, t_bytes = ops / FP32_FLOP_PER_S, moved / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_ops": ops,
+            "bound_bytes": moved,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def cross_train(device) -> dict:
+    """lm_cross (d): `train_run` (lr 3e-4, remat, a stub memory a batch) on
+    ENC_ARCH at full depth (float32 moments, grad_accum TRAIN_ACCUM: the
+    microbatches split the frames with the tokens), then resume ≡
+    uninterrupted bit for bit on it; and on VLM_ARCH at VLM_TRAIN_PERIODS
+    period (VLM_MOMENTS moments, grad_accum VLM_TRAIN_ACCUM), its peak
+    allocation printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import AdamWConfig, TrainConfig
+
+    t = time.perf_counter()
+    res = {}
+    cfg = get_arch(ENC_ARCH)
+    tc = TrainConfig(opt=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    res[ENC_ARCH], batches = train_run(
+        cfg, tc, lambda model, n: cross_train_bound(cfg, model, n, 28),
+        device, "lm_cross")
+    res["resume"] = resume_on_card(cfg, tc, batches, device, "lm_cross")
+    del batches
+    arch = get_arch(VLM_ARCH)
+    vcfg = dataclasses.replace(
+        arch, n_layers=VLM_TRAIN_PERIODS * arch.cross_attn_period)
+    vtc = TrainConfig(opt=AdamWConfig(moment_dtype=VLM_MOMENTS),
+                      grad_accum=VLM_TRAIN_ACCUM)
+    res[VLM_ARCH], _ = train_run(
+        vcfg, vtc, lambda model, n: cross_train_bound(vcfg, model, n,
+                                                      INT8_OPT_BYTES),
+        device, "lm_cross")
+    res["seconds"] = time.perf_counter() - t
+    return res
+
+
+def run_lm_cross(device, doc_ids) -> None:
+    """lm_cross, last (TF32 off): `cross_serve` on VLM_ARCH (cut to
+    VLM_SERVE_PERIODS periods) and ENC_ARCH, `vlm_block_card_vs_cpu`,
+    `whisper_card_vs_cpu` and `cross_train`, each on a card holding none
+    of the earlier phases' models."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    arch = get_arch(VLM_ARCH)
+    vcfg = dataclasses.replace(
+        arch, n_layers=VLM_SERVE_PERIODS * arch.cross_attn_period)
+    serve = {VLM_ARCH: cross_serve(vcfg, device, doc_ids),
+             ENC_ARCH: cross_serve(get_arch(ENC_ARCH), device, doc_ids)}
+    serve[VLM_ARCH]["of_layers"] = arch.n_layers
+    block = vlm_block_card_vs_cpu(device)
+    layers = whisper_card_vs_cpu(device)
+    train = cross_train(device)
+    emit({"phase": "lm_cross", "archs": [VLM_ARCH, ENC_ARCH],
+          "allocated_at_start_mib": held / 2**20, "serve": serve,
+          "vlm_block_card_vs_cpu": block, "whisper_card_vs_cpu": layers,
+          "train": train, "seconds": time.perf_counter() - t})
+
+
 def run_phases(args, device) -> list:
     """Run every phase on the built kernels and return the `kernels`
     line's entries."""
@@ -6025,6 +6455,7 @@ def run_phases(args, device) -> list:
     run_lm_moe(device, rag_ids)
     run_lm_mla(device, rag_ids)
     run_lm_ssm(device, rag_ids)
+    run_lm_cross(device, rag_ids)
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")

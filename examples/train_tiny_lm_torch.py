@@ -10,7 +10,10 @@ exist; `--device cpu` runs on the CPU).
 
 `--arch` takes any dense or MoE config, deepseek-v3-671b (MLA and the
 MTP head, whose cross-entropy is printed beside the backbone's), and the
-SSM and hybrid configs (mamba2-2.7b, zamba2-2.7b) too.
+SSM and hybrid configs (mamba2-2.7b, zamba2-2.7b) too. The VLM and
+the enc-dec (llama-3.2-vision-90b, whisper-small) raise ValueError: these
+batches carry tokens alone, and those models cross-attend to a memory
+(`python -m repro_torch.launch.train --arch whisper-small` draws one).
 """
 import argparse
 import os
@@ -23,6 +26,7 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.distributed.fault_tolerance import StepMonitor
 from repro_torch.models import build_model
+from repro_torch.models.zoo import refuse_memory
 from repro_torch.train import (AdamWConfig, CheckpointManager, TrainConfig,
                                load_state_, make_init_state, make_train_step)
 
@@ -57,6 +61,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch).tiny()
+    refuse_memory(cfg, "this example")
     model = build_model(cfg, device=args.device)
     tc = TrainConfig(opt=AdamWConfig(lr=1e-3, weight_decay=0.01),
                      grad_accum=2)

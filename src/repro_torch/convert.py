@@ -180,10 +180,12 @@ def _lm_tree(model, leaf, stack):
     stack([leaf of layer g·len(period) + pi for each group g]), counted
     after the prefix. A block holds the parts its type draws ({norm1,
     mixer} of an SSM block, {norm1, norm2, ffn} of a shared_attn
-    position). The hybrid's `shared` block and the MTP head's `mtp_proj`,
-    `mtp_block` and `mtp_norm` are top-level and unstacked, as the
-    reference draws them. Empty norm dicts (non-parametric LN) stay as
-    {}."""
+    position, a cross block's norm_cross and cross besides its attn). The
+    hybrid's `shared` block and the MTP head's `mtp_proj`, `mtp_block` and
+    `mtp_norm` are top-level and unstacked, as the reference draws them;
+    the enc-dec's `enc_blocks` is stack([leaf of encoder layer i for each
+    i]) and its `enc_norm` top-level. Empty norm dicts (non-parametric LN)
+    stay as {}."""
     tree = {"embed": leaf("embed"),
             "final_norm": {n: leaf(f"final_norm.{n}")
                            for n in model.final_norm}}
@@ -211,6 +213,12 @@ def _lm_tree(model, leaf, stack):
                 lambda ns: stack([leaf(n) for n in ns]))
             for pi in range(per)}
         li += seg.n_groups * per
+    if hasattr(model, "enc_layers"):
+        tree["enc_blocks"] = _zip_names(
+            [block(m, f"enc_layers.{i}")
+             for i, m in enumerate(model.enc_layers)],
+            lambda ns: stack([leaf(n) for n in ns]))
+        tree["enc_norm"] = {n: leaf(f"enc_norm.{n}") for n in model.enc_norm}
     if model.cfg.mtp:
         tree["mtp_proj"] = leaf("mtp_proj")
         tree["mtp_block"] = one(model.mtp_block, "mtp_block")
@@ -269,18 +277,18 @@ def _copy_into(dst: torch.Tensor, a, name: str) -> None:
 
 
 def lm_params_to_torch(cfg, values, device=None):
-    """The reference's decoder-LM parameters → a port `DecoderLM` that
-    computes the same thing.
+    """The reference's LM parameters → a port `DecoderLM` (an `EncDecLM`
+    for the enc-dec family) that computes the same thing.
 
     `values` is `split_tree(model.init_params(key))[0]` of the reference
     as a nested dict of numpy arrays; `cfg` the port's `ArchConfig` of the
     same architecture. Each `seg{si}/pos{pi}` leaf carries a leading
     n_groups axis (the reference scans over groups); group g's slice
-    becomes layer g·len(period) + pi. `embed` stays tied to the head where
-    `cfg.tie_embeddings` is set."""
-    from repro_torch.models.transformer import DecoderLM
+    becomes layer g·len(period) + pi; `enc_blocks`' slice i, encoder layer
+    i. `embed` stays tied to the head where `cfg.tie_embeddings` is set."""
+    from repro_torch.models.zoo import model_class
 
-    model = DecoderLM(cfg, device=device)
+    model = model_class(cfg)(cfg, device=device)
     params = dict(model.named_parameters())
     _walk(_lm_names(model), values,
           lambda n, a: _copy_into(params[n], a, n))
@@ -328,7 +336,8 @@ def lm_leaves_to_numpy(model, leaves: dict) -> dict:
     """{port parameter name: tensor, or {"q", "scale"} of an int8 moment}
     (parameters, gradients, moments) → the reference's parameter tree of
     numpy arrays, the per-layer leaves stacked into `seg{si}/pos{pi}`
-    leaves over groups, bfloat16 as float32."""
+    leaves over groups (the encoder's into `enc_blocks`), bfloat16 as
+    float32."""
     def leaf(n):
         v = leaves[n]
         if isinstance(v, dict):

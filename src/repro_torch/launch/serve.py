@@ -24,7 +24,9 @@ condition the `tiny()` config of `--arch` (default olmo-1b; a dense or
 MoE decoder LM, deepseek-v3-671b's MLA with its latent cache,
 mamba2-2.7b's SSM layers with their recurrent state, zamba2-2.7b's
 hybrid of both with its shared attention block; weights drawn from seed
-0), which prefills and greedy-decodes N tokens with its cache.
+0), which prefills and greedy-decodes N tokens with its cache. The VLM
+and the enc-dec need a memory (image patches, audio frames) that the
+tail has no source for, and raise ValueError.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --gen-len 8 --arch olmo-1b
 """
@@ -270,13 +272,18 @@ def _generate(args, reqs, model=None):
     `args.gen_len` − 1 KV-cache decode steps (`train.generate`). `model`
     defaults to `build_model(get_arch(args.arch).tiny())` on
     `args.device` with seed 0. Prints the `generation:` line; returns the
-    generated ids [b, gen_len] (None when no request was served)."""
+    generated ids [b, gen_len] (None when no request was served). A model
+    that cross-attends (vlm, encdec) raises ValueError: the tail feeds
+    tokens alone, as the reference's does, which fails there too."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
+    from repro_torch.models.zoo import refuse_memory
     from repro_torch.train import generate
 
+    refuse_memory(get_arch(args.arch) if model is None else model.cfg,
+                  "the RAG tail")
     done = [r for r in reqs if r.res_idx is not None]
     if not done:
         print("generation: skipped (no served requests)")

@@ -3,11 +3,13 @@ and restart → straggler monitor, on one device.
 
 Counterpart of `repro/launch/train.py` without the mesh (which comes
 with ROADMAP.md Queue 1, items 3 and 5h). It trains the `tiny()` config
-of `--arch` (a dense, MoE, SSM or hybrid decoder LM: olmo-1b,
-phi3.5-moe-42b-a6.6b, deepseek-v3-671b, mamba2-2.7b, zamba2-2.7b, ...)
-unless `--full-config` is given, on the CUDA device, and raises when
-there is none unless `--device cpu` is given. Families that
-`models.build_model` refuses raise here too.
+of `--arch` (any LM of the zoo: olmo-1b, phi3.5-moe-42b-a6.6b,
+deepseek-v3-671b, mamba2-2.7b, zamba2-2.7b, llama-3.2-vision-90b,
+whisper-small, ...) unless `--full-config` is given, on the CUDA device,
+and raises when there is none unless `--device cpu` is given. Each step
+draws its tokens and, for a model that cross-attends (vlm, encdec), its
+stub memory 0.02 · N(0, 1) [batch, vision_seq or encoder_seq, d] right
+after them from the same generator, as the reference's launcher does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --steps 50 --batch 8 --seq 64 [--full-config] [--resume]
@@ -25,7 +27,7 @@ import numpy as np
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="olmo-1b",
-                    help="a dense, MoE, SSM or hybrid config of the zoo")
+                    help="a config of the zoo")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -47,6 +49,7 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.distributed.fault_tolerance import StepMonitor
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import cross_len
     from repro_torch.train import (AdamWConfig, CheckpointManager,
                                    TrainConfig, load_state_, make_init_state,
                                    make_train_step)
@@ -78,6 +81,10 @@ def main(argv=None):
     for i in range(start, args.steps):
         tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
         batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+        if model.has_cross:
+            enc = 0.02 * rng.standard_normal(
+                (args.batch, cross_len(cfg), cfg.d_model))
+            batch["enc"] = torch.from_numpy(enc).to(dev, cfg.compute_dtype)
         mon.start()
         state, metrics = step_fn(state, batch)
         ev = mon.stop()

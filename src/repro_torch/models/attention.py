@@ -1,6 +1,7 @@
 """Attention: GQA flash (chunked online softmax), sliding-window and
-local/global patterns, DeepSeek's multi-head latent attention (MLA), and
-the decode paths over a KV or latent cache.
+local/global patterns, bidirectional (encoder) and cross-attention over a
+memory, DeepSeek's multi-head latent attention (MLA), and the decode
+paths over a KV, static cross K/V or latent cache.
 
 Counterpart of `repro/models/attention.py`. The reference's
 `flash_attention` and MLA are jnp code compiled by XLA (no Pallas
@@ -102,31 +103,52 @@ def init_attention(cfg, generator: torch.Generator, device
     })
 
 
-def attention_forward(cfg, p, x, *, positions, window=0):
-    """Full-sequence causal self-attention (prefill). x [B, S, d], positions
-    [B, S]. Returns (out [B, S, d], (k, v)) with k, v roped/projected
-    [B, S, KV, hd]."""
+def attention_forward(cfg, p, x, *, positions, causal=True, window=0,
+                      kv_override=None):
+    """Full-sequence attention (train / prefill). x [B, S, d], positions
+    [B, S]. Self-attention by default: q and K/V projected from x and
+    roped at `positions`, causal unless `causal=False` (an encoder's
+    bidirectional layer). With a memory `kv_override` [B, Se, d] it is
+    cross-attention: K/V are projected from the memory, neither they nor
+    q are roped, and every query sees every memory row (no mask, no
+    window). Returns (out [B, S, d], (k, v) [B, S or Se, KV, hd])."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.compute_dtype
     q = (x @ p["wq"].to(cd)).reshape(b, s, h, hd)
-    kk = (x @ p["wk"].to(cd)).reshape(b, s, kv, hd)
-    vv = (x @ p["wv"].to(cd)).reshape(b, s, kv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    kk = apply_rope(kk, positions, cfg.rope_theta)
-    out = flash_attention(q, kk, vv, causal=True, window=window)
+    if kv_override is None:
+        kk = (x @ p["wk"].to(cd)).reshape(b, s, kv, hd)
+        vv = (x @ p["wv"].to(cd)).reshape(b, s, kv, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kk = apply_rope(kk, positions, cfg.rope_theta)
+    else:
+        enc = kv_override
+        se = enc.shape[1]
+        kk = (enc @ p["wk"].to(cd)).reshape(b, se, kv, hd)
+        vv = (enc @ p["wv"].to(cd)).reshape(b, se, kv, hd)
+        causal, window = False, 0
+    out = flash_attention(q, kk, vv, causal=causal, window=window)
     return out.reshape(b, s, h * hd) @ p["wo"].to(cd), (kk, vv)
 
 
-def attention_decode(cfg, p, x, cache, *, pos, window=0):
+def attention_decode(cfg, p, x, cache, *, pos, window=0, cross_kv=None):
     """One token. x [B, 1, d]; cache {"k", "v"} [B, S, KV, hd], written in
     place at slot `pos` (global) or `pos % S` (sliding window: a rolling
     buffer); pos [B] must lie inside a global cache (`DecoderLM.
-    decode_step` checks an int position). Returns (out [B, 1, d], cache)."""
+    decode_step` checks an int position). With `cross_kv` (ck, cv) [B,
+    Se, KV, hd], the static cache of a cross-attention layer, q is
+    projected but not roped, every one of the Se slots is valid, and
+    `cache` is returned untouched. Returns (out [B, 1, d], cache)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.compute_dtype
     q = (x @ p["wq"].to(cd)).reshape(b, 1, h, hd)
+    if cross_kv is not None:
+        kk, vv = cross_kv
+        valid = torch.full((b,), kk.shape[1], dtype=torch.int32,
+                           device=x.device)
+        out = decode_attention(q, kk, vv, valid)
+        return out.reshape(b, 1, h * hd) @ p["wo"].to(cd), cache
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     knew = (x @ p["wk"].to(cd)).reshape(b, 1, kv, hd)
     vnew = (x @ p["wv"].to(cd)).reshape(b, 1, kv, hd)

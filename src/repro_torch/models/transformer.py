@@ -1,7 +1,7 @@
-"""DecoderLM — the decoder-only LM of the dense, MoE, SSM and hybrid
-families (gqa or MLA attention, with deepseek-v3's MTP head; Mamba2's
-SSD mixer; zamba2's shared attention block): training loss, prefill and
-cached decode.
+"""DecoderLM — the decoder LM of every family (gqa or MLA attention, with
+deepseek-v3's MTP head; Mamba2's SSD mixer; zamba2's shared attention
+block; cross-attention over a memory, the VLM's and the enc-dec's
+decoder): training loss, prefill and cached decode.
 
 Counterpart of `repro/models/transformer.py`. The reference plans a model
 as an unrolled prefix of blocks, then segments, each a scanned stack of
@@ -15,6 +15,8 @@ groups applying a static period of block types:
                         period = (mla+moe,)                   x 58
   mamba2                period = (ssm,)                       x L
   zamba2                period = (ssm x6, shared-attn+mlp)    x L/6
+  llama-3.2-vision      period = (gqa x4, gqa+cross)          x L/5
+  whisper (decoder)     period = (gqa+cross,)                 x L
 
 Here the same plan unrolls into an `nn.ModuleList` of layers: the prefix
 first, then layer g·len(period) + i of a segment applying period
@@ -38,19 +40,29 @@ the backbone's normed h_t and the embedding of token t + 1, and its aux
 cross-entropy runs over sequence chunks, each recomputed on backward, so
 no [B, S, V] logits tensor is held. The sharding constraints of the
 reference's backbone are no-ops on one device and are dropped; they come
-back with the mesh. The VLM and enc-dec families are not ported yet;
-`models.zoo.build_model` refuses them.
+back with the mesh.
+
+A cross block ({norm1, attn, norm_cross, cross, norm2, ffn}) adds, after
+its self-attention's residual, a non-causal attention of norm_cross(x)
+over a memory `enc` [B, Se, d] (the VLM's stubbed patch embeddings, the
+enc-dec's encoder output, `models/encdec.py`), neither side roped.
+`loss` reads the memory from `batch["enc"]` and `prefill` takes it as
+`enc`; both raise ValueError for a model with cross blocks when it is
+missing (a stated departure: the reference runs such a block as causal
+self-attention over the text, ROADMAP.md Queue 3).
 
 A cache is a list with one dict per layer: {"k", "v"} [B, S, KV, hd]
 for a gqa or shared-attention layer (S = min(window, capacity) for a
 sliding-window layer, a rolling buffer), the latent {"c_kv" [B, S,
 kv_lora], "k_rope" [B, S, rope]} for an MLA layer, the recurrent {"h"
 [B, H, P, N] float32, "conv" [B, k − 1, d_inner + 2N]} for an SSM layer
-(no sequence axis: its size does not grow with the length). Decode
-writes it in place. Prefill and decode run the MoE without its aux loss,
-as the reference does; a decode step routes one token a row, so its
-capacity (8) is never reached and it drops nothing, while a prefill may
-drop (ROADMAP.md Queue 3).
+(no sequence axis: its size does not grow with the length), and for a
+cross block also the static {"ck", "cv"} [B, Se, KV, hd]: the memory's
+K/V, which prefill writes and decode reads (Se is not a capacity: every
+slot is valid). Decode writes the rest in place. Prefill and decode run
+the MoE without its aux loss, as the reference does; a decode step
+routes one token a row, so its capacity (8) is never reached and it
+drops nothing, while a prefill may drop (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -73,6 +85,8 @@ class BlockType(NamedTuple):
     mixer: str = "gqa"      # gqa | mla | ssm | shared_attn
     window: int = 0         # 0 = global attention
     ffn: str = "dense"      # dense | moe | none
+    cross: bool = False     # + cross-attention sub-block (vlm / encdec decoder)
+    bidir: bool = False     # non-causal self-attention (encoder stacks)
 
 
 class Segment(NamedTuple):
@@ -85,6 +99,7 @@ class Ctx(NamedTuple):
     positions: torch.Tensor | None = None  # [B, S] for train / prefill
     pos: torch.Tensor | None = None        # [B] decode position
     drops: list | None = None              # receives MoE drops a row
+    enc: torch.Tensor | None = None        # [B, Se, d] cross-attn memory
 
 
 def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
@@ -95,7 +110,15 @@ def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
     (every layer a window) or `local_global` (period − 1 local layers,
     then a global one); the FFN an MoE where `cfg.n_experts` is set; with
     global attention, the first `first_dense_layers` blocks a dense
-    prefix."""
+    prefix. The VLM: (gqa × (cross_attn_period − 1), then gqa + cross) ×
+    L / cross_attn_period; the enc-dec's decoder: (gqa + cross) × L (its
+    encoder is `EncDecLM`'s)."""
+    if cfg.family == "vlm":
+        per = ((BlockType("gqa"),) * (cfg.cross_attn_period - 1)
+               + (BlockType("gqa", cross=True),))
+        return [Segment(per, cfg.n_layers // cfg.cross_attn_period)], []
+    if cfg.family == "encdec":
+        return [Segment((BlockType("gqa", cross=True),), cfg.n_layers)], []
     if cfg.family == "ssm":
         return [Segment((BlockType("ssm", ffn="none"),), cfg.n_layers)], []
     if cfg.family == "hybrid":
@@ -104,8 +127,7 @@ def layer_plan(cfg: ArchConfig) -> tuple[list[Segment], list[BlockType]]:
         return [Segment(per, cfg.n_layers // cfg.hybrid_period)], []
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: layer_plan covers the dense, MoE, SSM and hybrid "
-            "families only")
+            f"{cfg.name}: no layer plan for family {cfg.family!r}")
     mixer = "mla" if cfg.use_mla else "gqa"
     ffn = "moe" if cfg.n_experts else "dense"
     if cfg.attn_kind == "local":
@@ -126,14 +148,18 @@ def _init_block(cfg: ArchConfig, bt: BlockType, generator, device
     """One block's leaves, as the reference's `_init_block` draws them:
     norm1; the mixer's ("attn", or "mixer" for an SSM block; none for a
     shared_attn position, whose attention is the model's `shared` one);
-    norm2 and the FFN unless its type is "none" (a shared_attn position
-    keeps its own, never read: `DecoderLM` applies the shared ones)."""
+    norm_cross and the cross-attention "cross" of a cross block; norm2
+    and the FFN unless its type is "none" (a shared_attn position keeps
+    its own, never read: `DecoderLM` applies the shared ones)."""
     p = {"norm1": init_norm(cfg, cfg.d_model, device)}
     if bt.mixer == "ssm":
         p["mixer"] = ssm_mod.init_mamba2(cfg, generator, device)
     elif bt.mixer != "shared_attn":
         init_attn = attn.init_mla if bt.mixer == "mla" else attn.init_attention
         p["attn"] = init_attn(cfg, generator, device)
+    if bt.cross:
+        p["norm_cross"] = init_norm(cfg, cfg.d_model, device)
+        p["cross"] = attn.init_attention(cfg, generator, device)
     if bt.ffn != "none":
         init_ffn = ffn_mod.init_moe if bt.ffn == "moe" else ffn_mod.init_mlp
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
@@ -146,9 +172,17 @@ def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
     """A zero cache for one block: the recurrent {"h" float32, "conv"} of
     an SSM block, whatever s_max; the latent {"c_kv", "k_rope"} of an MLA
     block, capacity s_max; K/V of a gqa or shared-attention block,
-    capacity s_max, or min(window, s_max) for a sliding-window block."""
+    capacity s_max, or min(window, s_max) for a sliding-window block; and
+    a cross block's static {"ck", "cv"} of `cross_len(cfg)` rows."""
     def zeros(*shape, dtype=cfg.compute_dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
+
+    if bt.cross:
+        se = cross_len(cfg)
+        return {**_init_block_cache(cfg, bt._replace(cross=False), b, s_max,
+                                    device),
+                "ck": zeros(b, se, cfg.n_kv_heads, cfg.hd),
+                "cv": zeros(b, se, cfg.n_kv_heads, cfg.hd)}
 
     if bt.mixer == "ssm":
         di = cfg.ssm_expand * cfg.d_model
@@ -161,6 +195,12 @@ def _init_block_cache(cfg: ArchConfig, bt: BlockType, b: int, s_max: int,
     s = min(bt.window, s_max) if bt.window else s_max
     return {"k": zeros(b, s, cfg.n_kv_heads, cfg.hd),
             "v": zeros(b, s, cfg.n_kv_heads, cfg.hd)}
+
+
+def cross_len(cfg: ArchConfig) -> int:
+    """The rows of a cross block's memory: the VLM's patch embeddings, the
+    enc-dec's encoder frames."""
+    return cfg.vision_seq if cfg.family == "vlm" else cfg.encoder_seq
 
 
 def _pad_cache_seq(full, part):
@@ -176,12 +216,15 @@ def _pad_cache_seq(full, part):
 
 
 class BlockApplier:
-    """Applies one block (gqa, MLA, SSM or shared-attention mixer; dense,
+    """Applies one block (gqa, MLA, SSM or shared-attention mixer, causal
+    or bidirectional; a cross-attention sub-block over `ctx.enc`; dense,
     MoE or no FFN) in train, prefill or decode mode: (x, cache, aux).
     Train builds no cache and returns None for it; aux is the MoE
     load-balance loss of an MoE block in train mode, else None. A
     shared_attn block reads `shared` {attn, norm2, ffn} in place of its
-    own attention, norm2 and FFN, as the reference's does."""
+    own attention, norm2 and FFN, as the reference's does. A cross block's
+    prefill caches the memory's K/V ("ck", "cv"); its decode reads them
+    and writes nothing."""
 
     def __init__(self, cfg: ArchConfig, shared=None):
         self.cfg = cfg
@@ -216,7 +259,7 @@ class BlockApplier:
         else:
             out, (kk, vv) = attn.attention_forward(
                 cfg, own["attn"], h, positions=ctx.positions,
-                window=bt.window)
+                causal=not bt.bidir, window=bt.window)
             if ctx.mode == "train":
                 new_cache = None
             elif bt.window:  # rolling window cache: the last W roped keys
@@ -225,6 +268,19 @@ class BlockApplier:
             else:
                 new_cache = {"k": kk, "v": vv}
         x = x + out
+        if bt.cross:
+            hc = apply_norm(cfg, bp["norm_cross"], x)
+            if ctx.mode == "decode":
+                out, _ = attn.attention_decode(
+                    cfg, bp["cross"], hc, None, pos=ctx.pos,
+                    cross_kv=(cache["ck"], cache["cv"]))
+            else:
+                out, (ck, cv) = attn.attention_forward(
+                    cfg, bp["cross"], hc, positions=ctx.positions,
+                    kv_override=ctx.enc)
+                if ctx.mode == "prefill":
+                    new_cache.update(ck=ck, cv=cv)
+            x = x + out
         aux = None
         if bt.ffn == "none":
             return x, new_cache, aux
@@ -240,8 +296,9 @@ class BlockApplier:
 
 
 class DecoderLM(nn.Module):
-    """The dense, MoE, SSM or hybrid decoder LM on `device` (the card by
-    default).
+    """The decoder LM of `cfg` on `device` (the card by default): dense,
+    MoE, SSM or hybrid, or the VLM's with its cross blocks (the enc-dec's
+    adds its encoder: `EncDecLM`).
 
     With a `generator`, every weight is drawn from it as the reference's
     `init_params` draws (normal · 1/√fan_in; norms and the SSM's
@@ -330,6 +387,24 @@ class DecoderLM(nn.Module):
                 aux = aux + a
         return x, aux
 
+    @property
+    def has_cross(self) -> bool:
+        """Whether a layer cross-attends to a memory (the VLM, the enc-dec's
+        decoder)."""
+        return any(bt.cross for bt in self.block_types)
+
+    def _memory(self, enc, what: str):
+        """`enc` for a model with cross blocks, which cannot run without
+        it (ValueError); None for one without."""
+        if not self.has_cross:
+            return None
+        if enc is None:
+            raise ValueError(
+                f"{self.cfg.name}: {what} needs the cross-attention memory "
+                f"[B, {cross_len(self.cfg)}, {self.cfg.d_model}] "
+                "(batch['enc'] / enc=), got none")
+        return enc.to(self.cfg.compute_dtype)
+
     def _embed(self, tokens):
         return torch.nn.functional.embedding(
             tokens.long(), self.embed).to(self.cfg.compute_dtype)
@@ -346,12 +421,15 @@ class DecoderLM(nn.Module):
         load-balance loss summed over the backbone's MoE blocks, is 0 in
         the dense family, and loss = ce + router_aux_weight·aux. With
         `cfg.mtp`, metrics["mtp_ce"] is the MTP head's cross-entropy
-        (`_mtp`) and loss += 0.3·mtp_ce + router_aux_weight·(its aux)."""
+        (`_mtp`) and loss += 0.3·mtp_ce + router_aux_weight·(its aux).
+        A model with cross blocks attends over `batch["enc"]` [B, Se, d]
+        and raises ValueError without it."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        ctx = Ctx(mode="train", positions=positions)
+        ctx = Ctx(mode="train", positions=positions,
+                  enc=self._memory(batch.get("enc"), "loss"))
         h, aux = self._train_backbone(self._embed(tokens), ctx)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
@@ -391,15 +469,18 @@ class DecoderLM(nn.Module):
         return x, aux if a is None else aux + a
 
     @torch.no_grad()
-    def prefill(self, tokens, drops: list | None = None):
+    def prefill(self, tokens, drops: list | None = None, enc=None):
         """Full-sequence forward over tokens [B, S]; returns (last-position
         logits [B, 1, V], a prefill-length cache: `train.serve_step.
         generate` places it in a capacity cache before decoding). `drops`,
         a list, receives each MoE block's dropped assignments a dispatch
-        row (`ffn.moe_forward`), in layer order."""
+        row (`ffn.moe_forward`), in layer order. A model with cross blocks
+        attends over the memory `enc` [B, Se, d] and caches its K/V; it
+        raises ValueError without one."""
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        ctx = Ctx(mode="prefill", positions=positions, drops=drops)
+        ctx = Ctx(mode="prefill", positions=positions, drops=drops,
+                  enc=self._memory(enc, "prefill"))
         h, cache = self._backbone(self._embed(tokens), ctx)
         return self._logits(h[:, -1:]), cache
 

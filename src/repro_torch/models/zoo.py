@@ -5,29 +5,37 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
-# family → the ROADMAP.md item that ports it
-UNPORTED = {
-    "vlm": "Queue 1, item 5e (VLM cross-attention)",
-    "encdec": "Queue 1, item 5f (enc-dec)",
-}
+
+def model_class(cfg: ArchConfig) -> type[DecoderLM]:
+    """`EncDecLM` for the enc-dec family, `DecoderLM` for every other."""
+    return EncDecLM if cfg.family == "encdec" else DecoderLM
+
+
+# family → the memory its cross-attention reads (stubbed in both packages)
+MEMORY = {"vlm": "image patch embeddings", "encdec": "audio frames"}
+
+
+def refuse_memory(cfg: ArchConfig, what: str) -> None:
+    """Raise ValueError where `what`, a path that feeds tokens alone,
+    would run a model of `cfg` that cross-attends to a memory."""
+    if cfg.family in MEMORY:
+        raise ValueError(
+            f"{cfg.name} cross-attends to a memory of {MEMORY[cfg.family]} "
+            f"(batch['enc'] / enc=); {what} feeds tokens alone")
 
 
 def build_model(cfg: ArchConfig, device=None,
                 generator: torch.Generator | None = None) -> DecoderLM:
-    """The decoder LM of `cfg` (dense or MoE, gqa or MLA attention, with
-    an MTP head where `cfg.mtp` is set; Mamba2 layers, with zamba2's
-    shared attention block in the hybrid) on `device` (the card by
-    default), its weights drawn from `generator` (default: seed 0 on that
-    device).
-    Raises NotImplementedError for a family not ported yet, naming its
-    ROADMAP.md item; nothing falls back."""
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} is not ported to repro_torch yet "
-            f"(ROADMAP.md {UNPORTED[cfg.family]})")
+    """The LM of `cfg` (`model_class`: dense or MoE, gqa or MLA attention,
+    with an MTP head where `cfg.mtp` is set; Mamba2 layers, with zamba2's
+    shared attention block in the hybrid; the VLM's cross blocks; the
+    enc-dec's encoder and cross-attending decoder) on `device` (the card
+    by default), its weights drawn from `generator` (default: seed 0 on
+    that device)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return DecoderLM(cfg, device=dev, generator=generator)
+    return model_class(cfg)(cfg, device=dev, generator=generator)

@@ -19,8 +19,10 @@ def greedy(logits):
 
 
 def make_prefill(model):
-    def prefill(tokens):
-        return model.prefill(tokens)
+    """prefill(tokens, enc=None): the model's prefill, over the memory
+    `enc` where the model cross-attends."""
+    def prefill(tokens, enc=None):
+        return model.prefill(tokens, enc=enc)
 
     return prefill
 
@@ -41,11 +43,12 @@ def _sync(device) -> float:
 
 
 @torch.no_grad()
-def generate(model, tokens, n: int, forced=None) -> dict:
-    """Prefill tokens [B, S], then `n` KV-cache decode steps, each fed the
-    previous step's greedy id (or `forced[:, t]`, teacher-forced). The
-    cache holds S + n positions, so every step's position, a host int,
-    lies inside it. Returns "logits" [B, n + 1, V] (the prefill's last
+def generate(model, tokens, n: int, forced=None, enc=None) -> dict:
+    """Prefill tokens [B, S] (over the memory `enc` [B, Se, d] of a model
+    that cross-attends: the VLM's patch embeddings, the enc-dec's frames),
+    then `n` KV-cache decode steps, each fed the previous step's greedy
+    id (or `forced[:, t]`, teacher-forced). The cache holds S + n
+    positions, so every step's position, a host int, lies inside it. Returns "logits" [B, n + 1, V] (the prefill's last
     position, then every step's), "ids" [B, n + 1] int32 (their greedy
     ids), "fed" [B, n] (the ids the steps were fed), and "prefill_ms" (the
     prefill and the cache's sizing) and "decode_ms" (the n steps) on the
@@ -53,7 +56,7 @@ def generate(model, tokens, n: int, forced=None) -> dict:
     b, s = tokens.shape
     prefill, step = make_prefill(model), make_decode_step(model)
     t0 = _sync(tokens.device)
-    logits, part = prefill(tokens)
+    logits, part = prefill(tokens, enc=enc)
     cache = _pad_cache_seq(model.init_cache(b, s + n), part)
     t1 = _sync(tokens.device)
     outs, ids, fed = [logits[:, -1]], [greedy(logits)], []

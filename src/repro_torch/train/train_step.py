@@ -55,26 +55,28 @@ def make_init_state(model, tc: TrainConfig) -> dict:
 def loss_and_grads(model, params: dict, batch: dict, grad_accum: int = 1):
     """(loss, metrics, {name: gradient}) of `model.loss` over `batch`,
     taken with respect to `params` (the model's parameters). With
-    grad_accum > 1 the gradients are the float32 mean over the
-    microbatches tokens.reshape(grad_accum, B / grad_accum, S), and the
-    loss and metrics the last microbatch's. A parameter the loss never
-    reads (zamba2's shared_attn positions' own norm2 and FFN) gets a zero
-    gradient, as `jax.grad` gives it."""
+    grad_accum > 1 every leaf of the batch (the tokens [B, S], a memory
+    "enc" [B, Se, d]) splits along its batch axis, leaf.reshape(grad_accum,
+    B / grad_accum, ...), the gradients are the float32 mean over the
+    microbatches, and the loss and metrics the last microbatch's. A
+    parameter the loss never reads (zamba2's shared_attn positions' own
+    norm2 and FFN) gets a zero gradient, as `jax.grad` gives it."""
     names, leaves = list(params), list(params.values())
     if grad_accum <= 1:
         loss, metrics = model.loss(batch)
         grads = _grad(loss, leaves)
         return loss.detach(), _detach(metrics), dict(zip(names, grads))
-    tokens = batch["tokens"]
-    b = tokens.shape[0]
-    if b % grad_accum:
-        raise ValueError(f"batch {b} does not split into {grad_accum} "
+    b = batch["tokens"].shape[0]
+    if b % grad_accum or any(v.shape[0] != b for v in batch.values()):
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        raise ValueError(f"batch {shapes} does not split into {grad_accum} "
                          "microbatches")
-    mbs = tokens.reshape(grad_accum, b // grad_accum, *tokens.shape[1:])
+    split = {k: v.reshape(grad_accum, b // grad_accum, *v.shape[1:])
+             for k, v in batch.items()}
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in leaves]
-    for mb in mbs:
-        loss, metrics = model.loss({"tokens": mb})
+    for i in range(grad_accum):
+        loss, metrics = model.loss({k: v[i] for k, v in split.items()})
         for a, g in zip(acc, _grad(loss, leaves)):
             a.add_(g.to(torch.float32))
     grads = {k: a.div_(grad_accum) for k, a in zip(names, acc)}
@@ -94,7 +96,8 @@ def _detach(metrics: dict) -> dict:
 
 def make_train_step(model, tc: TrainConfig):
     """step(state, batch) -> (state, metrics): one optimizer step over
-    batch {"tokens": [B, S]}, the state updated in place; metrics, 0-d
+    batch {"tokens": [B, S]} (and a cross model's memory "enc" [B, Se,
+    d]), the state updated in place; metrics, 0-d
     tensors on the model's device, are `model.loss`'s ({"ce", "aux"},
     and "mtp_ce" with an MTP head) and "loss"."""
 

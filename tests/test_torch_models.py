@@ -455,14 +455,34 @@ def test_port_init_draws_the_reference_distributions():
 # the MoE family builds (phi3.5-moe-42b-a6.6b, tests/test_torch_moe.py;
 # deepseek-v3-671b with MLA and MTP, tests/test_torch_mla.py), and so do
 # the SSM and hybrid families (mamba2-2.7b, zamba2-2.7b,
-# tests/test_torch_ssm.py)
-UNPORTED = sorted(n for n, c in J_ARCHS.items()
-                  if c.family not in ("dense", "moe", "ssm", "hybrid"))
+# tests/test_torch_ssm.py); the VLM and the enc-dec are checked here and
+# in tests/test_torch_cross.py
+CROSS = sorted(n for n, c in J_ARCHS.items() if c.family in ("vlm", "encdec"))
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_build_model_refuses_unported_families(name):
-    """VLM and enc-dec raise, naming their ROADMAP.md item; nothing falls
-    back to another model."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1, item 5"):
-        build_model(get_arch(name).tiny(), device="cpu")
+@pytest.mark.parametrize("name", CROSS)
+def test_build_model_builds_cross_families_reference_tree(name):
+    """llama-3.2-vision-90b and whisper-small: `build_model`'s tiny model
+    holds the reference's `init_params` leaves one to one, shape for
+    shape (the cross blocks' norm_cross and cross; whisper's stacked
+    enc_blocks and enc_norm), and the same parameter count."""
+    from repro_torch.convert import lm_leaves_to_numpy
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for n, t in tree.items()
+                    for k, v in leaves(t, f"{prefix}/{n}").items()}
+        return {prefix: np.shape(tree)}
+
+    jm = j_build_model(j_get_arch(name).tiny())
+    want = leaves(jax.tree.map(np.asarray, split_tree(
+        jm.init_params(jax.random.key(0)))[0]))
+    model = build_model(get_arch(name).tiny(), device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    got = leaves(lm_leaves_to_numpy(model, dict(model.named_parameters())))
+    assert got == want
+    assert any("/cross/" in k for k in want)
+    assert any(k.startswith("/enc_blocks/") for k in want) == (
+        name == "whisper-small")
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(s)) for s in want.values())
