@@ -56,8 +56,10 @@ Phases, each printed as one JSON line with its wall seconds:
      on a tie case (4096 distinct rows over the N=1M store, all-inf
      queues, lanes whose every neighbor is visited, fresh lanes): every
      field equal;
-  8. dataset, graph build, ground truth (the exact oracle on K6's row-id
-     variant) and estimator training, with the share of training lanes
+  8. dataset (made with its workloads in a spawned child process since
+     step 2, `make_world`: the generator is one host thread), graph
+     build, ground truth (the exact oracle on K6's row-id variant) and
+     estimator training, with the share of training lanes
      whose exhaustive traversal reaches recall 10/10 beside the share
      whose W_q label converged, and the share of the first PLAIN_LABELS =
      128 labels that the plain path gives alike;
@@ -65,8 +67,9 @@ Phases, each printed as one JSON line with its wall seconds:
      (`k2_trained_check`);
   9. `e2e_search` with backend "fused" (the main path) for α ∈ {1, 2} on a
      contain-label and a range workload of 64 lanes each: recall@10, mean
-     NDC, e2e ms (median of 3 calls), per-stage ms (a separate stage-by-
-     stage run); the same runs with backend "dense" (plain PyTorch):
+     NDC, e2e ms (median of 3 calls), per-stage ms (one separate stage-by-
+     stage run); the same runs with backend "dense" (plain PyTorch; its
+     e2e ms is its one checked call's):
      recall within 0.01 and ≥ 95% of lanes with identical top-10 ids and
      NDC;
  10. the same four cells with backend "persistent" (K5): every
@@ -159,6 +162,20 @@ Phases, each printed as one JSON line with its wall seconds:
      float32 tensor on the card; the gather's ms and the profiler's copy
      kind); `shard_serve` (64 requests, lane width 16, direct: scheduled ≡
      one-shot, per-shard NDC adds up to Σ request NDC);
+ 14c. `mesh` (`run_mesh`): the search meshes on cuda:0 repeated (the
+     single-controller mesh may list a device more than once), no new
+     build: `ShardedSearchEngine` on the 2-D (data, index) meshes (1, 4),
+     (2, 2), (4, 1) — float32 fused one shot, float32 persistent probed
+     at ⌊W/2⌋ and resumed to W, int8 fused one shot, contain α=1 — every
+     per-shard and merged leaf ≡ the loop path's; `e2e_search` on the
+     (2, 2) engine ≡ on the loop engine (budgets, every leaf; mesh and
+     loop e2e ms beside the card's name and power limit); `SearchEngine`
+     on a 4-position batch mesh over MESH_LANES = 30 lanes (2 pad lanes)
+     at a quarter of their budgets, fused and persistent ≡ the unmeshed
+     runs; K1, K3, K6 and K2 launched
+     on those runs and `dispatch_counters` unmoved; `butterfly_merge` at
+     D ∈ {2, 3, 4} on [64, 512] and [64, 10] pools with ties ≡
+     `merge_stacked` bit for bit;
  15. `launcher`: `python -m repro_torch.launch.serve --status
      --prometheus --gen-len 8` in four child processes started
      together, at its default corpus: olmo-1b's tiny config, the MoE's
@@ -285,7 +302,7 @@ Phases, each printed as one JSON line with its wall seconds:
  16. the `kernels` line (launches, ms, bound, plain ms per kernel, K1–K7,
      K6's row-id variant and K6q rows; K2 and K7 also their status and the
      launch floor; `serve_launches` where a serving path runs the kernel;
-     K6's `launches_by_path` and K6q rows' `entry_launches_by_path`: the
+     `mesh_launches` where the `mesh` phase's runs launch it; K6's `launches_by_path` and K6q rows' `entry_launches_by_path`: the
      entry distance and the rerank on each path).
 The last line is `{"ok": true, "device": {...}}`. Any failed check raises
 and the script exits non-zero. It needs a CUDA device and the repository's
@@ -295,9 +312,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -327,6 +347,15 @@ def emit(obj) -> None:
         obj = {**obj, "seconds": now - _LAST_EMIT[0]}
     _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2001,30 +2030,62 @@ def read_counts() -> dict:
             out[name] = n
     return {k: out[k] for k in COUNTED}
 
-def run_pipeline(args, device, k5_ms):
+def make_world(n: int, train_queries: int, vectors_path: str):
+    """The Tripclick-scale dataset (`make_dataset` on the "tripclick-s"
+    preset at N = n) with the training and evaluation workloads, and the
+    seconds they took. `main` runs it in a child process beside the kernel
+    checks: the generator is one host thread (≈35–140 s by host) and the
+    checks are card work. The [N, d] vectors go back through the file
+    `vectors_path` (`load_world` reads it): pickled through the pool's
+    pipe they took ≈60 s."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import (DATASET_PRESETS, make_dataset,
+                                            make_label_workload,
+                                            make_range_workload)
+
+    preset = dict(DATASET_PRESETS["tripclick-s"])
+    preset.update(n=n, dim=DIM)
+    t = time.perf_counter()
+    ds = make_dataset(name="tripclick", n_value_attrs=2, **preset)
+    wl_train = make_label_workload(ds, batch=train_queries, kind="contain",
+                                   seed=10)
+    evals = {"contain": make_label_workload(ds, batch=EVAL_LANES,
+                                            kind="contain", seed=20),
+             "range": make_range_workload(ds, batch=EVAL_LANES, seed=21)}
+    ds.vectors.tofile(vectors_path)
+    ds = dataclasses.replace(ds, vectors=np.empty((0, DIM), np.float32))
+    return ds, wl_train, evals, time.perf_counter() - t
+
+
+def load_world(world, vectors_path: str):
+    """`make_world`'s result with the vectors read back (the file is
+    removed)."""
+    import dataclasses
+
+    ds, wl_train, evals, gen_s = world.get()
+    vectors = np.fromfile(vectors_path, np.float32).reshape(-1, DIM)
+    os.remove(vectors_path)
+    return (dataclasses.replace(ds, vectors=vectors), wl_train, evals,
+            gen_s)
+
+
+def run_pipeline(args, device, k5_ms, world, vectors_path):
     import torch
 
     from repro_torch.core import (CostEstimator, SearchConfig, SearchEngine,
                                   e2e_search, generate_training_data,
                                   predict_budgets, probe_and_features)
-    from repro_torch.data.synthetic import (DATASET_PRESETS, make_dataset,
-                                            make_label_workload,
-                                            make_range_workload)
     from repro_torch.index.bruteforce import filtered_knn_exact, recall_at_k
     from repro_torch.index.builder import build_graph_index
     from repro_torch.core import dispatch_counters
 
-    preset = dict(DATASET_PRESETS["tripclick-s"])
-    preset.update(n=args.n, dim=DIM)
+    # made in a child process since the start (`make_world`)
     t = time.perf_counter()
-    ds = make_dataset(name="tripclick", n_value_attrs=2, **preset)
-    wl_train = make_label_workload(ds, batch=args.train_queries,
-                                   kind="contain", seed=10)
-    evals = {"contain": make_label_workload(ds, batch=EVAL_LANES,
-                                            kind="contain", seed=20),
-             "range": make_range_workload(ds, batch=EVAL_LANES, seed=21)}
+    ds, wl_train, evals, gen_s = load_world(world, vectors_path)
     emit({"phase": "dataset", "N": ds.n, "d": ds.dim, "W": ds.n_words,
-          "V": ds.n_value_attrs, "seconds": time.perf_counter() - t})
+          "V": ds.n_value_attrs, "child_seconds": gen_s,
+          "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
     graph = build_graph_index(ds.vectors, degree=32, seed=0, device=device)
@@ -2125,7 +2186,8 @@ def run_pipeline(args, device, k5_ms):
         fr, fms, _ = fused[key]
         dr, dms, _ = dense[key]
         fms = e2e_median_ms("fused", key, fms)
-        dms = e2e_median_ms("dense", key, dms)
+        # the plain yardstick's ms is its one checked call's: a median
+        # would cost 2 more dense batches a cell
         gi = gts[name][0]
         f_idx, d_idx = fr.state.res_idx.cpu().numpy(), dr.state.res_idx.cpu().numpy()
         f_cnt, d_cnt = fr.state.cnt.cpu().numpy(), dr.state.cnt.cpu().numpy()
@@ -2138,25 +2200,21 @@ def run_pipeline(args, device, k5_ms):
         budget_same = float((fr.predicted_budget == dr.predicted_budget).mean())
         # per-stage time: a separate run that calls the three stages one
         # by one, synchronised between them, so the stages need not add up
-        # to e2e_ms (median of REPEATS runs each)
+        # to e2e_ms (one run: each resume is a fused batch)
         wl = evals[name]
         c = SearchConfig(k=10, queue_size=512, backend="fused")
-        stages = []
-        for _ in range(REPEATS):
-            (st, z), p_ms = wall_ms(lambda: probe_and_features(
-                eng, c, wl.queries, wl.spec, probe, 2))
-            (bud, _), e_ms = wall_ms(lambda: predict_budgets(est, z, alpha))
-            _, r_ms = wall_ms(lambda: eng.search(c, wl.queries, wl.spec, bud,
-                                                 state=st))
-            stages.append((p_ms, e_ms, r_ms))
-        p_ms, e_ms, r_ms = (float(v) for v in np.median(stages, axis=0))
+        (st, z), p_ms = wall_ms(lambda: probe_and_features(
+            eng, c, wl.queries, wl.spec, probe, 2))
+        (bud, _), e_ms = wall_ms(lambda: predict_budgets(est, z, alpha))
+        _, r_ms = wall_ms(lambda: eng.search(c, wl.queries, wl.spec, bud,
+                                             state=st))
         row = {"phase": "e2e", "workload": name, "alpha": alpha,
                "fused": {"recall@10": f_rec, "mean_ndc": float(f_cnt.mean()),
                          "e2e_ms": fms, "probe_ms": p_ms, "estimate_ms": e_ms,
                          "resume_ms": r_ms,
                          "mean_budget": float(fr.predicted_budget.mean())},
                "dense": {"recall@10": d_rec, "mean_ndc": float(d_cnt.mean()),
-                         "e2e_ms": dms},
+                         "e2e_ms": dms, "timed_calls": 1},
                "identical_top10_and_ndc_frac": same,
                "identical_budget_frac": budget_same}
         emit(row)
@@ -2396,8 +2454,9 @@ def run_sharded(ds, eng, graph, est, evals, gts, plan_evals, plan_gts, one,
     hops and n_inspected, an active lane's cnt ≥ its budget, tracing on ≡
     off; int8 host tier ≡ device tier after the rerank, with no [N, d]
     float32 tensor on the card for the host tier; serving on S = 4
-    (scheduled ≡ one-shot, per-shard NDC adds up). Returns the sharded
-    path's kernel counts."""
+    (scheduled ≡ one-shot, per-shard NDC adds up); then `run_mesh` on
+    these engines. Returns the sharded path's kernel counts, the mesh
+    phase's under "mesh"."""
     import dataclasses
 
     import torch
@@ -2597,7 +2656,7 @@ def run_sharded(ds, eng, graph, est, evals, gts, plan_evals, plan_gts, one,
         rr = q8.rerank(c8, wl.queries, st8)
         out[tier] = (q8, st8, rr)
     build_s = time.perf_counter() - t
-    (dq, _, drr), (hq, hst, hrr) = out["device"], out["host"]
+    (dq, dst8, drr), (hq, hst, hrr) = out["device"], out["host"]
     require(torch.equal(drr.res_idx, hrr.res_idx) and torch.equal(
         drr.res_dist.view(torch.int32), hrr.res_dist.view(torch.int32)),
         "int8 host tier: the rerank differs from the device tier")
@@ -2623,7 +2682,7 @@ def run_sharded(ds, eng, graph, est, evals, gts, plan_evals, plan_gts, one,
           "gather_bytes": int(pool.numel()) * DIM * 4,
           "profiler_htod": copies, "copy_from_pinned": True,
           "build_seconds": build_s})
-    del out, dq, hq, store
+    del out, hq, store
     torch.cuda.empty_cache()
 
     # ---- serving on S = 4: scheduled ≡ one-shot, shard NDC adds up ----
@@ -2649,7 +2708,185 @@ def run_sharded(ds, eng, graph, est, evals, gts, plan_evals, plan_gts, one,
           "ndc_by_shard": s["shards"]["ndc_by_shard"],
           "shard_work_balance": s["shards"]["work_balance"],
           **serve_report(sched, reqs, wall), "launches": counts})
+    path_counts["mesh"] = run_mesh(eng, s4, dq, est, wl, w, probe,
+                                   {"float32": direct, "int8": dst8},
+                                   device)
+    del dq, dst8
+    torch.cuda.empty_cache()
     return path_counts
+
+
+MESH_SHAPES = ((1, 4), (2, 2), (4, 1))  # (data, index), cuda:0 repeated
+MESH_LANES = 30    # the batch mesh's lanes: 2 pad lanes at 4 positions
+BUTTERFLY_SIZES = (2, 3, 4)
+
+
+def leaves_differ(a, b) -> list:
+    """The per-shard and merged leaves in which two ShardedSearchStates
+    differ."""
+    return [f"{part}.{f}" for part in ("merged", "shard")
+            for f in fields_differ(getattr(a, part), getattr(b, part))]
+
+
+def check_butterfly(device) -> dict:
+    """`butterfly_merge` on the card over D ∈ BUTTERFLY_SIZES positions of
+    cuda:0 repeated (the XOR butterfly at 2 and 4, the gather at 3), on
+    [64, 512] and [64, 10] pools with forced ties (distances from 8
+    values, inf pads): every position's pool ≡ `merge_stacked` of all D
+    pools, distances, payloads and positions bit for bit."""
+    import torch
+
+    from repro_torch.distributed import butterfly_merge, merge_stacked
+
+    g = torch.Generator(device=device).manual_seed(7)
+    cases = 0
+    for n in BUTTERFLY_SIZES:
+        for m in (512, 10):
+            d = torch.randint(0, 8, (EVAL_LANES, n, m), generator=g,
+                              device=device).float()
+            d[torch.rand(d.shape, generator=g, device=device) < 0.1] = \
+                float("inf")
+            d = torch.sort(d, dim=2).values
+            p = torch.randint(0, 1 << 29, d.shape, generator=g,
+                              device=device, dtype=torch.int32)
+            want = merge_stacked(d, p, m)
+            local = [merge_stacked(d[:, i:i + 1], p[:, i:i + 1], m,
+                                   shard0=i) for i in range(n)]
+            for (gd, gp, go) in butterfly_merge(local, m, [device] * n):
+                require(torch.equal(gd.view(torch.int32),
+                                    want[0].view(torch.int32))
+                        and torch.equal(gp, want[1])
+                        and torch.equal(go, want[2]),
+                        f"butterfly D={n} m={m}: differs from merge_stacked")
+            cases += 1
+    return {"sizes": list(BUTTERFLY_SIZES), "widths": [512, 10],
+            "lanes": EVAL_LANES, "cases": cases,
+            "equal_merge_stacked_bitwise": True}
+
+
+def run_mesh(eng, s4, q8, est, wl, w, probe, loop, device):
+    """The search meshes on one card (`mesh`), every mesh position on
+    cuda:0 — the single-controller mesh may repeat a device, so one card
+    runs every line of the mesh paths with the main path's kernels, the
+    positions one after another. No new build: the sharded phases' S = 4
+    engines (float32, and the int8 device tier), the plain engine and its
+    estimator `est`, the contain batch at α = 1 (the plain e2e's budgets
+    `w`).
+
+    (1) `ShardedSearchEngine` on the 2-D (data, index) meshes
+    MESH_SHAPES: float32 fused one shot, float32 persistent (run_search
+    on each position, as in the reference) probed at ⌊w/2⌋ and resumed to
+    w, int8 fused one shot — every per-shard and merged leaf ≡ the loop
+    path's one shot (`loop`: the sharded phases' persistent runs at w,
+    which equal fused bit for bit). (2) `e2e_search` on the (2, 2) engine
+    ≡ on the loop engine: budgets, every leaf. (3) `SearchEngine` on a
+    4-position batch mesh, MESH_LANES lanes (2 pad lanes) at ⌊w/4⌋, fused
+    and persistent ≡ the unmeshed runs in every leaf. Kernel counts are set
+    to 0 just before (1)–(3) and read just after: K1, K3, K6 and K2 must
+    launch; `dispatch_counters` must not move (no launch loop under a
+    mesh). (4) `check_butterfly`. Returns the mesh runs' kernel
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import (SearchConfig, dispatch_counters,
+                                  e2e_search, make_search_mesh)
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.sharding import canonical_device
+
+    card = canonical_device(device)
+    cfg = {b: SearchConfig(k=10, queue_size=512, backend=b)
+           for b in ("fused", "persistent")}
+
+    def grid(*shape):
+        return Mesh(np.full(shape, card, dtype=object), ("data", "index"))
+
+    def e2e(engine):
+        return e2e_search(engine, est, cfg["persistent"], wl.queries,
+                          wl.spec, probe_budget=probe, alpha=1.0,
+                          n_probes=2)
+
+    half = w // 2
+    wlb = first_queries(wl, MESH_LANES)
+    # a quarter of each lane's budget (a depth cut): the batch mesh's 4
+    # positions run the per-step K1 loop one after another
+    wb = w[:MESH_LANES] // 4
+    # the yardsticks, outside the counted run
+    t = time.perf_counter()
+    plain = {b: eng.search(c, wlb.queries, wlb.spec, wb)
+             for b, c in cfg.items()}
+    loop_e2e, loop_ms = wall_ms(lambda: e2e(s4))
+    yard_s = time.perf_counter() - t
+
+    reset_counts()
+    d0 = dispatch_counters()
+    secs, runs = {}, {}
+    for shape in MESH_SHAPES:
+        t = time.perf_counter()
+        m32 = dataclasses.replace(s4, mesh=grid(*shape))
+        runs[shape, "float32 fused"] = m32.search(
+            cfg["fused"], wl.queries, wl.spec, w)
+        st = m32.search(cfg["persistent"], wl.queries, wl.spec, half)
+        runs[shape, "float32 persistent, probe ⌊w/2⌋ → w"] = m32.search(
+            cfg["persistent"], wl.queries, wl.spec, w, state=st)
+        runs[shape, "int8 fused"] = dataclasses.replace(
+            q8, mesh=grid(*shape)).search(cfg["fused"], wl.queries, wl.spec,
+                                          w)
+        torch.cuda.synchronize()
+        secs[f"{shape}"] = time.perf_counter() - t
+    m22 = dataclasses.replace(s4, mesh=grid(2, 2))
+    mesh_e2e, mesh_ms = wall_ms(lambda: e2e(m22))
+    t = time.perf_counter()
+    bmesh = dataclasses.replace(eng, mesh=make_search_mesh([card] * 4))
+    batch = {b: bmesh.search(c, wlb.queries, wlb.spec, wb)
+             for b, c in cfg.items()}
+    torch.cuda.synchronize()
+    secs["batch mesh"] = time.perf_counter() - t
+    counts = read_counts()
+    d1 = dispatch_counters()
+
+    for (shape, case), st in runs.items():
+        differ = leaves_differ(st, loop[case.split()[0]])
+        require(not differ, f"mesh {shape} {case}: leaves differ from the "
+                f"loop path: {differ}")
+    require(np.array_equal(mesh_e2e.predicted_budget,
+                           loop_e2e.predicted_budget),
+            "mesh (2, 2) e2e: budgets differ from the loop engine's")
+    differ = leaves_differ(mesh_e2e.state, loop_e2e.state)
+    require(not differ, f"mesh (2, 2) e2e: leaves differ: {differ}")
+    for b, st in batch.items():
+        differ = fields_differ(st, plain[b])
+        require(not differ, f"batch mesh {b}: leaves differ from the "
+                f"unmeshed run: {differ}")
+    need = ("fused_step", "fused_step_int8", "sqdist_masked",
+            "gbdt_predict")
+    require(all(counts[n] > 0 for n in need),
+            f"mesh: a kernel of the path was never launched: {counts}")
+    moved = {k: d1[k] - d0[k] for k in d0 if d1[k] != d0[k]}
+    require(not moved, f"mesh: dispatch_counters moved: {moved}")
+    t = time.perf_counter()
+    butterfly = check_butterfly(card)
+    secs["butterfly"] = time.perf_counter() - t
+    emit({"phase": "mesh", "nvidia_smi": smi_line(),
+          "mesh_devices": str(card), "shapes": [list(s) for s in MESH_SHAPES],
+          "shards": SHARDS, "lanes": EVAL_LANES, "workload": "contain",
+          "alpha": 1.0, "cases": sorted({c for _, c in runs}),
+          "every_leaf_equal_loop_path": True,
+          "e2e_2x2": {"budgets_and_every_leaf_equal_loop": True,
+                      "mesh_e2e_ms": mesh_ms, "loop_e2e_ms": loop_ms,
+                      "mean_ndc": float(mesh_e2e.state.cnt.float().mean())},
+          "batch_mesh": {"positions": 4, "lanes": MESH_LANES,
+                         "budget": "⌊w/4⌋",
+                         "pad_lanes": (-MESH_LANES) % 4,
+                         "backends": sorted(batch),
+                         "every_leaf_equal_unmeshed": True},
+          "butterfly": butterfly, "launches": counts,
+          "dispatch_counters_delta": 0, "seconds_by_part": secs,
+          "yardstick_seconds": yard_s,
+          "note": "one card runs the positions one after another: no "
+                  "speed claim"})
+    return counts
 
 
 # ---------------------------------------------------------- baselines ----
@@ -3143,7 +3380,7 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
                 fused[key], pers[key], dense[key])
             fms = median_e2e_ms("fused", key, fms)
             pms = median_e2e_ms("persistent", key, pms)
-            dms = median_e2e_ms("dense", key, dms)
+            # the plain yardstick's ms: its one checked call's
             gi = gts[name][0]
             f_idx = fr.state.res_idx.cpu().numpy()
             d_idx = dr.state.res_idx.cpu().numpy()
@@ -3173,7 +3410,8 @@ def run_quant(ds, graph, wl_train, evals, gts, probe, device, plan_evals,
                             "mean_ndc": float(f_cnt.mean()), "e2e_ms": fms,
                             "mean_budget": float(fr.predicted_budget.mean())},
                   "dense": {"recall@10": d_rec,
-                            "mean_ndc": float(d_cnt.mean()), "e2e_ms": dms},
+                            "mean_ndc": float(d_cnt.mean()), "e2e_ms": dms,
+                            "timed_calls": 1},
                   "persistent": {"recall@10": p_rec, "e2e_ms": pms,
                                  "launches": disp["launches"],
                                  "compactions": disp["compactions"],
@@ -6424,9 +6662,10 @@ def run_lm_cross(device, doc_ids) -> None:
           "train": train, "seconds": time.perf_counter() - t})
 
 
-def run_phases(args, device) -> list:
+def run_phases(args, device, world, vectors_path) -> list:
     """Run every phase on the built kernels and return the `kernels`
-    line's entries."""
+    line's entries. `world` is the dataset's pending result (`make_world`
+    in a child process, its vectors to come through `vectors_path`)."""
     count_forest_uploads()
 
     k1 = check_step_kernel(device)
@@ -6448,7 +6687,8 @@ def run_phases(args, device) -> list:
     k5 = check_k5(device)
     k5q = {p: check_k5_codec(device, p) for p in ("int8", "pq")}
     launches, k6r, rag_ids = run_pipeline(
-        args, device, {"float32": k5["ms"], "pq": k5q["pq"]["ms"]})
+        args, device, {"float32": k5["ms"], "pq": k5q["pq"]["ms"]}, world,
+        vectors_path)
     run_launchers((1, 8, "olmo-1b"), (SHARDS, 8, MOE_ARCH), (1, 8, MLA_ARCH),
                   (1, 8, HYB_ARCH))
     run_lm_train(device)
@@ -6459,6 +6699,7 @@ def run_phases(args, device) -> list:
     serve = {path: launches.pop(f"serve:{path}")
              for path in ("float32", "pq", "auto")}
     sharded = launches.pop("sharded")
+    mesh = sharded.pop("mesh")
     k6_paths = {**launches.pop("k6_paths"),
                 f"sharded S={SHARDS} persistent float32 (1 batch)":
                 sharded["sqdist_masked"]}
@@ -6506,6 +6747,8 @@ def run_phases(args, device) -> list:
                   if name_of and c.get(name_of)}
         if served:
             out["serve_launches"] = served
+        if mesh.get(launches_of):  # the `mesh` phase's runs (K1, K3, K6, K2)
+            out["mesh_launches"] = mesh[launches_of]
         return out
 
     step_why = "no single PyTorch call runs a traversal step"
@@ -6575,21 +6818,30 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 references
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(smi, flush=True)
     emit({"phase": "card", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t = time.perf_counter()
-    _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t})
-    with CardMemoryPeak() as mem:
-        kernels = run_phases(args, device)
+    # the dataset generator (one host thread) runs in a child process
+    # beside the kernel build and checks; the pool's exit stops it and the
+    # temporary directory of its vectors goes with the `finally`
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="world_", dir=os.path.join(ROOT, "build"))
+    vectors_path = os.path.join(tmp, "vectors.f32")
+    try:
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            world = pool.apply_async(make_world, (args.n, args.train_queries,
+                                                  vectors_path))
+            t = time.perf_counter()
+            _build.build_all()
+            emit({"phase": "build", "seconds": time.perf_counter() - t})
+            with CardMemoryPeak() as mem:
+                kernels = run_phases(args, device, world, vectors_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     mib = 2**20
     emit({"phase": "memory", "peak_used_mib": mem.peak_mib,
           "samples": mem.samples,

@@ -216,6 +216,7 @@ def main(argv=None):
         sgraph = build_sharded_graph_index(np.asarray(ds.vectors), 2,
                                            degree=24, seed=0, device=dev)
         eng_s = ShardedSearchEngine.build(ds, sgraph, backend=args.backend,
+                                          mesh=None,
                                           precision=args.precision,
                                           device=dev)
         rs = e2e_search(eng_s, est, cfg, wl_x.queries, wl_x.spec,

@@ -1,13 +1,16 @@
 """The E2E pipeline on torch: state → step → backend → search → engine,
 the probe → estimate → resume stages on top, and the planner (scan,
 traverse, widen) beside them; `sharded` runs them over an index cut
-into S slices (one graph each, merged top-k); `baselines` holds the
+into S slices (one graph each, merged top-k), on one device or on a
+("data", "index") mesh; `make_search_mesh` gives the plain engine its
+batch mesh; `baselines` holds the
 paper's §5 comparisons and `ref_search` the sequential Algorithm 1
 oracle."""
 from repro_torch.core.backends import available_backends, get_backend
 from repro_torch.core.e2e import (E2EResult, e2e_search, predict_budgets,
                                   probe_and_features)
-from repro_torch.core.engine import BIG_BUDGET, SearchEngine
+from repro_torch.core.engine import (BIG_BUDGET, SearchEngine,
+                                     make_search_mesh)
 from repro_torch.core.estimator import CostEstimator, spearman
 from repro_torch.core.features import (FEATURE_NAMES, N_FEATURES,
                                        ablate_filter_features,
@@ -34,6 +37,7 @@ from repro_torch.core import baselines
 __all__ = [
     "available_backends", "get_backend", "E2EResult", "e2e_search",
     "predict_budgets", "probe_and_features", "BIG_BUDGET", "SearchEngine",
+    "make_search_mesh",
     "CostEstimator", "spearman", "FEATURE_NAMES", "N_FEATURES",
     "ablate_filter_features",
     "extract_features", "feature_names", "GBDTModel", "train_gbdt",

@@ -1,14 +1,24 @@
 """SearchEngine — the device-resident index + traversal facade.
 
-Counterpart of `repro/core/engine.py::SearchEngine` for one device (the
-batch mesh waits for the mesh path, which needs several GPUs). It bundles
-the tensors every search needs (vectors, packed attributes, graph, entry
+Counterpart of `repro/core/engine.py::SearchEngine`. It bundles the
+tensors every search needs (vectors, packed attributes, graph, entry
 point and, at precision "int8" or "pq", the quant index), compiles
 filters to programs and runs `run_search`, or `run_search_persistent`
 for a persistent backend. A quantized engine keeps the float vectors for
 the terminal exact rerank (`rerank`): on the device, or with
 `tier="host"` in pinned host memory (`quant.tiering.HostVectorStore`),
 leaving only an [N, 0] placeholder on the device.
+
+With a batch mesh (`make_search_mesh`, a 1-D ("data",)
+`distributed.sharding.Mesh`) the index is replicated — placed once a
+distinct device — and the batch is cut into one contiguous slice a
+position, padded to a multiple of the positions with inert lanes (0
+budget, match-nothing program rows). Each position runs `run_search` on
+its slice, persistent backends included, as the reference's `shard_map`
+body does; the lockstep loop has no cross-lane dependence, so every lane
+equals the unmeshed run's bit for bit. The mesh is single-controller and
+may repeat a device (a stated departure, `distributed/sharding.py`):
+`[cuda:0] × 4` runs four positions one after another on one card.
 """
 from __future__ import annotations
 
@@ -19,9 +29,13 @@ import torch
 
 from repro_torch.core.backends import get_backend
 from repro_torch.core.search import run_search, run_search_persistent
-from repro_torch.core.state import SearchConfig, SearchState
+from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
+                                    pad_lanes, slice_lanes, tree_to)
 from repro_torch.data.synthetic import AttributedDataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (BATCH_AXIS, Mesh,
+                                              canonical_device,
+                                              visible_devices)
 from repro_torch.filters.compile import FilterProgram, as_program, program_to
 from repro_torch.index.graph import GraphIndex
 from repro_torch.quant.codecs import build_quant_index, codec_key
@@ -29,6 +43,36 @@ from repro_torch.quant.rerank import exact_rerank, exact_rerank_store
 from repro_torch.quant.tiering import as_vector_store
 
 BIG_BUDGET = 1 << 30
+
+
+def make_search_mesh(devices=None) -> Mesh | None:
+    """1-D ("data",) batch mesh over `devices` (the visible cards, each
+    once, by default; an explicit list may repeat a device); None on a
+    single device."""
+    devices = visible_devices() if devices is None else list(devices)
+    if len(devices) <= 1:
+        return None
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr, (BATCH_AXIS,))
+
+
+def resolve_mesh(mesh, device, auto) -> tuple:
+    """A build's `mesh` and `device` → (the mesh or None, the engine's
+    device). "auto" calls `auto()` (None on one card) when the device is
+    a card, else gives None; on a mesh the engine lives on its first
+    entry, which a `device` given beside it must name."""
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', a Mesh or None, "
+                             f"not {mesh!r}")
+        mesh = auto() if resolve_device(device).type == "cuda" else None
+    if mesh is None:
+        return None, resolve_device(device)
+    if device is not None and canonical_device(device) != mesh.first:
+        raise ValueError(f"device {device} is not the mesh's first entry "
+                         f"{mesh.first}: an engine on a mesh lives there")
+    return mesh, mesh.first
 
 
 def _labels_to_torch(labels, device) -> torch.Tensor:
@@ -56,6 +100,10 @@ class SearchEngine:
                                  # rerank; when set (host tier),
                                  # base_vectors is an [N, 0] placeholder
                                  # whose row count alone is read
+    mesh: Mesh | None = None     # 1-D batch mesh (first axis = batch);
+                                 # None → one device
+    _replicas: dict | None = dataclasses.field(
+        default=None, repr=False, compare=False)  # device → index tensors
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +113,8 @@ class SearchEngine:
     def build(cls, ds: AttributedDataset, graph: GraphIndex,
               backend: str | None = None, device=None,
               precision: str = "float32", quant_cfg: dict | None = None,
-              tier: str = "device") -> "SearchEngine":
+              tier: str = "device", mesh: Mesh | str | None = "auto",
+              ) -> "SearchEngine":
         """Place the dataset and graph on `device` (the card by default).
 
         precision  "float32", or "int8" / "pq": train the codec on a sample
@@ -78,8 +127,15 @@ class SearchEngine:
                    (a compressed precision only) keeps them in pinned host
                    memory for the rerank and only an [N, 0] placeholder
                    on the device.
+        mesh       "auto": a 1-D batch mesh over the visible cards when the
+                   engine's device is a card and more than one is visible
+                   (`make_search_mesh`), else None; an explicit `Mesh`
+                   (its first axis the batch axis; it may repeat a
+                   device); None: one device. On a mesh the engine lives
+                   on the mesh's first entry and the index is placed once
+                   on each distinct device.
         """
-        dev = resolve_device(device)
+        mesh, dev = resolve_mesh(mesh, device, make_search_mesh)
         graph.validate()
         values = np.asarray(ds.value_matrix, np.float32)
         store = None
@@ -103,6 +159,7 @@ class SearchEngine:
             backend=backend,
             precision=precision,
             vector_store=store,
+            mesh=mesh,
         )
         if precision != "float32":
             qcfg = dict(quant_cfg or {})
@@ -113,6 +170,9 @@ class SearchEngine:
             eng.quant = build_quant_index(
                 precision, eng.base_vectors if store is None else ds.vectors,
                 train_sample=sample, device=dev, **qcfg)
+        if mesh is not None:
+            for d in mesh.distinct:
+                eng._index_on(d)
         return eng
 
     @property
@@ -174,7 +234,8 @@ class SearchEngine:
     ) -> SearchState:
         """Run (or resume) the lockstep search. `tracer` / `trace_id` reach
         the persistent launch loop (one span per launch); the single-step
-        loop takes none, as in the reference."""
+        loop, and a mesh's `run_search` per position, take none, as in
+        the reference."""
         cfg = dataclasses.replace(cfg, degree=int(self.neighbors.shape[1]))
         if cfg.backend is None:
             cfg = dataclasses.replace(cfg, backend=self.backend or "dense")
@@ -200,6 +261,9 @@ class SearchEngine:
             else budgets.contiguous()
         gt = None if gt_dist is None else torch.as_tensor(gt_dist).to(
             dev, torch.float32)
+        if self.mesh is not None:
+            return self._search_sharded(cfg, q, prog, budgets, state, gt,
+                                        quant)
         args = (cfg, q, prog, self.base_vectors,
                 (self.label_attrs, self.value_attrs), self.neighbors,
                 budgets, self.entry_point)
@@ -208,3 +272,44 @@ class SearchEngine:
                                          quant=quant, tracer=tracer,
                                          trace_id=trace_id)
         return run_search(*args, state=state, gt_dist=gt, quant=quant)
+
+    # ------------------------------------------------------ batch mesh ----
+    def _index_on(self, device) -> tuple:
+        """(vectors, (labels, values), neighbors, quant) on `device`: the
+        engine's own tensors on its device, else one copy a distinct
+        device, made on first use and kept."""
+        if self._replicas is None:
+            self._replicas = {}
+        dev = canonical_device(device)
+        if dev not in self._replicas:
+            self._replicas[dev] = tree_to(
+                (self.base_vectors, (self.label_attrs, self.value_attrs),
+                 self.neighbors, self.quant), dev)
+        return self._replicas[dev]
+
+    def _search_sharded(self, cfg, q, prog, budgets, state, gt, quant):
+        """The batch mesh: pad the batch to a multiple of the batch axis
+        with inert lanes, run `run_search` on each position's contiguous
+        slice on its device (persistent backends included: the launch
+        loop's compaction is not crossed by the mesh, as in the
+        reference, so `dispatch_counters` do not move), and concatenate
+        the slices on the first device without the pad."""
+        devices = list(self.mesh.grid(self.mesh.axis_names[0]))
+        n = len(devices)
+        b = q.shape[0]
+        pad = (-b) % n
+        # pad lanes: 0 NDC budget (they stop at once), all-zero
+        # (match-nothing) program rows, zero queries
+        q, prog, budgets, state, gt = pad_lanes(
+            (q, prog, budgets, state, gt), pad)
+        per = (b + pad) // n
+        outs = []
+        for i, dev in enumerate(devices):
+            sq, sprog, sbud, sst, sgt = tree_to(slice_lanes(
+                (q, prog, budgets, state, gt), i * per, (i + 1) * per), dev)
+            base, attrs, nb, qt = self._index_on(dev)
+            outs.append(run_search(
+                cfg, sq, sprog, base, attrs, nb, sbud, self.entry_point,
+                state=sst, gt_dist=sgt, quant=None if quant is None else qt))
+        out = concat_lanes([tree_to(o, devices[0]) for o in outs])
+        return slice_lanes(out, 0, b) if pad else out

@@ -1,8 +1,6 @@
 """Index-axis sharding: per-shard traversal + log-depth global top-k merge.
 
-Counterpart of `repro/core/sharded.py`, its loop path (the mesh path —
-a ("data", "index") device mesh joined by a butterfly merge — needs
-several GPUs and comes later; `mesh` accepts only None until then).
+Counterpart of `repro/core/sharded.py`.
 
 `SearchEngine` holds the whole index. This module cuts the corpus into S
 contiguous equal slices, each with its own graph (shard-local node ids,
@@ -10,16 +8,30 @@ its own entry point), quant codes and attributes. A query traverses every
 shard under ⌈W/S⌉ of its budget, with per-shard state (candidate queue,
 result set, visited bitset over the shard's N/S nodes), and the S sorted
 pools are combined by the cross-shard merge (`distributed.merge`) into
-the global result set. The shards run one
-after another on one device, each through the plain per-shard
-`SearchEngine.search` (persistent driver, compaction and tracing
-included), then `merge_shard_states` merges the stacked states.
+the global result set. Two execution paths:
+
+  loop   (mesh=None) — the shards one after another on one device, each
+         through the plain per-shard `SearchEngine.search` (persistent
+         driver, compaction and tracing included), then
+         `merge_shard_states` on the stacked states.
+  mesh   a 2-D ("data" × "index") `distributed.sharding.Mesh`: each
+         index position owns S / D_index whole shards and each data
+         position a contiguous slice of the batch. Every (data, index)
+         position runs its local shards' `run_search` on its slice,
+         merges their pools on the global position space, and the index
+         axis joins them by the XOR butterfly
+         (`distributed.merge.butterfly_merge`). The mesh is
+         single-controller and may repeat a device (a stated departure,
+         `distributed/sharding.py`), so `[cuda:0] × 4` runs every
+         position one after another on one card with the same kernels.
 
 Pool entries carry unique (dist, pos) keys (pos = shard · width + slot), a
 total order under which top-m is associative and commutative, so any
-merge gives the one sorted top-m of the pool union. The merge moves
-distances and never recomputes them; the counters are summed in shard
-order by elementwise adds, so no value depends on the batch width.
+merge — the loop's one stable sort, the butterfly — gives the one sorted
+top-m of the pool union. The merge moves distances and never recomputes
+them; the counters are summed in shard order by elementwise adds, so no
+value depends on the batch width, and the mesh path equals the loop path
+in every per-shard and merged leaf, bit for bit, at every precision.
 
 Accounting contract (what keeps the estimator, the planner, probe →
 resume and EXPLAIN working unchanged):
@@ -47,12 +59,17 @@ from typing import ClassVar, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import SearchEngine, _labels_to_torch
-from repro_torch.core.state import (SearchConfig, SearchState, stack_shards,
-                                    take_shard)
+from repro_torch.core.engine import (SearchEngine, _labels_to_torch,
+                                     resolve_mesh)
+from repro_torch.core.search import run_search
+from repro_torch.core.state import (SearchConfig, SearchState, concat_lanes,
+                                    pad_lanes, slice_lanes, stack_shards,
+                                    take_shard, tree_to)
 from repro_torch.data.synthetic import AttributedDataset
-from repro_torch.device import resolve_device
-from repro_torch.distributed.merge import merge_plan, merge_stacked
+from repro_torch.distributed.merge import (butterfly_merge, merge_plan,
+                                           merge_stacked)
+from repro_torch.distributed.sharding import (BATCH_AXIS, INDEX_AXIS, Mesh,
+                                              search_mesh_2d)
 from repro_torch.filters.compile import (MATRIX_CHUNK, FilterProgram,
                                          as_program, program_to)
 from repro_torch.index.graph import ShardedGraphIndex
@@ -171,24 +188,26 @@ def _merged_from(stacked: SearchState, rd, rp, cd, cp) -> SearchState:
     )
 
 
-def _merge_pools(stacked: SearchState, offsets):
-    """The cross-shard merge of the stacked per-shard pools → global
-    pools.
+def _merge_pools(stacked: SearchState, offsets, shard0: int = 0):
+    """The cross-shard merge of stacked per-shard pools → the merged
+    result pool and candidate pool, each (dist, payload, pos).
 
-    Result pools merge on bare global ids; candidate pools pack (global
-    id, expanded, valid) into one int32 payload (`kernels.topk`), so the
-    queue flags ride the merge with their entry."""
+    `offsets` are the stacked shards' first global rows and `shard0` the
+    first one's global shard index, so a mesh position's local shards
+    merge on the global position space. Result pools merge on bare global
+    ids; candidate pools pack (global id, expanded, valid) into one int32
+    payload (`kernels.topk`), so the queue flags ride the merge with their
+    entry."""
     k = stacked.res_dist.shape[2]
     m = stacked.cand_dist.shape[2]
     off = torch.as_tensor(np.asarray(offsets), dtype=torch.int32,
                           device=stacked.res_idx.device)[None, :, None]
     res_g = torch.where(stacked.res_idx >= 0, stacked.res_idx + off, -1)
-    rd, rp, _ = merge_stacked(stacked.res_dist, res_g.to(torch.int32), k)
+    res = merge_stacked(stacked.res_dist, res_g.to(torch.int32), k, shard0)
     cand_g = torch.where(stacked.cand_idx >= 0, stacked.cand_idx + off, -1)
     cpay = pack_payload(cand_g.to(torch.int32), stacked.cand_exp,
                         stacked.cand_valid)
-    cd, cp, _ = merge_stacked(stacked.cand_dist, cpay, m)
-    return rd, rp, cd, cp
+    return res, merge_stacked(stacked.cand_dist, cpay, m, shard0)
 
 
 def merge_shard_states(stacked: SearchState, offsets) -> SearchState:
@@ -196,7 +215,7 @@ def merge_shard_states(stacked: SearchState, offsets) -> SearchState:
 
     `offsets` [S] — each shard's first global row (shard-local id i of
     shard s ↦ global id offsets[s] + i)."""
-    rd, rp, cd, cp = _merge_pools(stacked, offsets)
+    (rd, rp, _), (cd, cp, _) = _merge_pools(stacked, offsets)
     return _merged_from(stacked, rd, rp, cd, cp)
 
 
@@ -214,9 +233,11 @@ class ShardedSearchEngine:
     offsets: np.ndarray                # [S] first global row per shard
     entry_points: np.ndarray           # [S] shard-local entry node ids
     backend: str | None = None
-    mesh: object | None = None         # None: the loop path (only one)
+    mesh: Mesh | None = None           # 2-D ("data", "index") | None → loop
     precision: str = "float32"
     vector_store: object | None = None  # global rerank tier (compressed)
+    _stacked: dict | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     #: duck-typing marker — plans and the planner route on this
     is_sharded: ClassVar[bool] = True
@@ -224,15 +245,20 @@ class ShardedSearchEngine:
     # ------------------------------------------------------------ build ----
     @classmethod
     def build(cls, ds: AttributedDataset, graph: ShardedGraphIndex,
-              backend: str | None = None, mesh=None,
+              backend: str | None = None, mesh: Mesh | str | None = "auto",
               precision: str = "float32", quant_cfg: dict | None = None,
               tier: str = "device", device=None) -> "ShardedSearchEngine":
         """An index-axis-sharded engine over `ds` on `device` (the card by
         default).
 
         graph   a ShardedGraphIndex (`index.build_sharded_graph_index`).
-        mesh    None (the loop path over shards on one device); a mesh
-                raises until the mesh path lands.
+        mesh    "auto": a 2-D ("data", "index") mesh over the visible
+                cards when the engine's device is a card and more than
+                one is visible (`distributed.search_mesh_2d`), else None;
+                an explicit `Mesh` must carry a "data" axis and an
+                "index" axis whose size divides S (it may repeat a
+                device), and the engine then lives on its first entry;
+                None: the loop path over the shards on one device.
         tier    "device" | "host" — where the float32 rerank tier lives
                 in compressed mode (`quant.tiering`). Compressed shard
                 engines hold [Ns, 0] vector placeholders: one global
@@ -246,11 +272,20 @@ class ShardedSearchEngine:
         are the same on every shard and the merged pool lives in one
         metric.
         """
+        mesh, dev = resolve_mesh(mesh, device,
+                                 lambda: search_mesh_2d(graph.n_shards))
         if mesh is not None:
-            raise ValueError(
-                "the mesh path of the sharded engine needs several GPUs and "
-                "is not ported yet; pass mesh=None (the loop over shards)")
-        dev = resolve_device(device)
+            missing = [a for a in (BATCH_AXIS, INDEX_AXIS)
+                       if a not in mesh.shape]
+            if missing:
+                raise ValueError(
+                    f"a sharded engine's mesh needs the axes "
+                    f"({BATCH_AXIS!r}, {INDEX_AXIS!r}); {mesh.axis_names} "
+                    f"lacks {missing}")
+            if graph.n_shards % mesh.shape[INDEX_AXIS]:
+                raise ValueError(
+                    f"index axis of size {mesh.shape[INDEX_AXIS]} does not "
+                    f"divide {graph.n_shards} shards")
         graph.validate()
         n, s = graph.n, graph.n_shards
         if len(ds.vectors) != n:
@@ -303,10 +338,13 @@ class ShardedSearchEngine:
                 precision=precision,
                 quant=quants[i],
             ))
-        return cls(shards=shards, offsets=offsets,
-                   entry_points=np.asarray(graph.entry_points),
-                   backend=backend, mesh=None, precision=precision,
-                   vector_store=store)
+        eng = cls(shards=shards, offsets=offsets,
+                  entry_points=np.asarray(graph.entry_points),
+                  backend=backend, mesh=mesh, precision=precision,
+                  vector_store=store)
+        if mesh is not None:
+            eng._stacked_arrays()
+        return eng
 
     # ------------------------------------------------------- properties ----
     @property
@@ -417,8 +455,10 @@ class ShardedSearchEngine:
         and `budgets` is the *global* NDC budget: each shard runs under
         ⌈W/S⌉, and the merged `cnt` is the exact total the query spent
         (Σ per-shard NDC), which the features and EXPLAIN read. The spans
-        ("shard-search" per shard, "shard-merge") wrap host dispatches
-        that happen with tracing off too, with host-int attributes."""
+        ("shard-search" per shard, "shard-merge"; on a mesh one
+        "shard-search" with shard=-1 and path="mesh") wrap host
+        dispatches that happen with tracing off too, with host-int
+        attributes."""
         cfg = self._resolve(cfg)
         dev = self.device
         prog = self.compile(filt)
@@ -432,6 +472,13 @@ class ShardedSearchEngine:
         # and a budget-terminated query still shows cnt ≥ W to EXPLAIN
         sbud = ((w + (s - 1)) // s).to(torch.int32).contiguous()
         tr = as_tracer(tracer)
+        if self.mesh is not None:
+            pairwise, depth = merge_plan(s)
+            with tr.span("shard-search", trace_id, shard=-1, n_shards=s,
+                         pairwise=pairwise, depth=depth, path="mesh"):
+                gt = None if gt_dist is None else torch.as_tensor(
+                    gt_dist).to(dev, torch.float32)
+                return self._search_mesh(cfg, q, prog, sbud, state, gt)
         outs = []
         for i, eng in enumerate(self.shards):
             st = None if state is None else take_shard(state.shard, i)
@@ -446,6 +493,91 @@ class ShardedSearchEngine:
             stacked = stack_shards(outs)
             merged = merge_shard_states(stacked, self.offsets)
         return ShardedSearchState(shard=stacked, merged=merged)
+
+    # ------------------------------------------------------ mesh path ----
+    def _stacked_arrays(self) -> dict:
+        """The mesh's local shards on their devices: {(first shard, shard
+        count, device): [(vectors, (labels, values), neighbors, quant,
+        entry point) a local shard]} for each index coordinate and each
+        device of its column — placed once a distinct device (no copy on
+        the engine's own device) and kept."""
+        if self._stacked is None:
+            self._stacked = {}
+        grid = self.mesh.grid(BATCH_AXIS, INDEX_AXIS)
+        nloc = self.n_shards // grid.shape[1]
+        for lo in range(0, self.n_shards, nloc):
+            for dev in grid[:, lo // nloc]:
+                if (lo, nloc, dev) not in self._stacked:
+                    self._stacked[lo, nloc, dev] = [
+                        (*tree_to((e.base_vectors,
+                                   (e.label_attrs, e.value_attrs),
+                                   e.neighbors, e.quant), dev), int(ep))
+                        for e, ep in zip(self.shards[lo:lo + nloc],
+                                         self.entry_points[lo:lo + nloc])]
+        return self._stacked
+
+    def _search_mesh(self, cfg, q, prog, sbud, state, gt):
+        """The 2-D mesh path. Each data position takes a contiguous slice
+        of the batch (padded to a multiple of the data axis with inert
+        lanes); at each (data, index) position the local shards run
+        `run_search` on that slice, their pools merge on the global
+        position space (`merge_stacked(shard0=)`), and the index axis
+        joins the positions' pools by `butterfly_merge`; the per-shard
+        states and the merged view land on the mesh's first device."""
+        grid = self.mesh.grid(BATCH_AXIS, INDEX_AXIS)
+        ddata, dindex = grid.shape
+        s = self.n_shards
+        nloc = s // dindex
+        k, m = cfg.k, cfg.queue_size
+        cfg = dataclasses.replace(
+            cfg, degree=int(self.shards[0].neighbors.shape[1]))
+        compressed = cfg.precision != "float32"
+        stx = self._stacked_arrays()
+        first = grid[0, 0]
+
+        b = q.shape[0]
+        pad = (-b) % ddata
+        # pad lanes: 0 NDC budget, all-zero (match-nothing) program rows
+        q, prog, sbud, st_in, gt = pad_lanes(
+            (q, prog, sbud, None if state is None else state.shard, gt),
+            pad)
+        per = (b + pad) // ddata
+        rows = []
+        for di in range(ddata):
+            lo, hi = di * per, (di + 1) * per
+            st_row = slice_lanes(st_in, lo, hi)
+            outs, res_pools, cand_pools = [], [], []
+            for ii in range(dindex):
+                dev = grid[di, ii]
+                sq, sprog, sb, sgt = tree_to(
+                    slice_lanes((q, prog, sbud, gt), lo, hi), dev)
+                local = []
+                for jj, (base, attrs, nb, qt, ep) in enumerate(
+                        stx[ii * nloc, nloc, dev]):
+                    st = tree_to(take_shard(st_row, ii * nloc + jj), dev)
+                    local.append(run_search(
+                        cfg, sq, sprog, base, attrs, nb, sb, ep, state=st,
+                        gt_dist=sgt, quant=qt if compressed else None))
+                # the local merge on the global position space: shard0
+                # keys these pools into the concatenation of all S
+                shard0 = ii * nloc
+                res, cand = _merge_pools(
+                    stack_shards(local),
+                    self.offsets[shard0:shard0 + nloc], shard0)
+                res_pools.append(res)
+                cand_pools.append(cand)
+                outs += local
+            # every index position ends with the same global pools; the
+            # first one's travel to the first device
+            devs = list(grid[di])
+            rd, rp, _ = tree_to(butterfly_merge(res_pools, k, devs)[0], first)
+            cd, cp, _ = tree_to(butterfly_merge(cand_pools, m, devs)[0],
+                                first)
+            stacked = stack_shards([tree_to(o, first) for o in outs])
+            rows.append(ShardedSearchState(
+                shard=stacked, merged=_merged_from(stacked, rd, rp, cd, cp)))
+        out = concat_lanes(rows)
+        return slice_lanes(out, 0, b) if pad else out
 
     # ------------------------------------------------------------- scan ----
     def scan_stats(self, prog: FilterProgram, chunk: int = MATRIX_CHUNK):

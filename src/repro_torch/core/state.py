@@ -12,7 +12,8 @@ and the same 18 `SearchState` leaves, as torch tensors:
 
 Lane surgery (`take_lanes`, `put_lanes`) serves the persistent loop's
 lane compaction, `concat_lanes` the planner's merge of its per-plan
-parts, and `pad_lanes` inert lane padding. Shard surgery
+parts, `pad_lanes` inert lane padding, and `slice_lanes` / `tree_to` a
+mesh position's slice of the batch on its device. Shard surgery
 (`stack_shards`, `take_shard`) moves between per-shard states and the
 sharded engine's stacked carry, whose leaves hold the shard axis second
 ([B, S, ...]), so the lane helpers keep working on axis 0. Under a compressed precision ("int8",
@@ -220,6 +221,28 @@ def pad_lanes(tree, pad: int):
     if isinstance(tree, torch.Tensor):
         return torch.cat([tree, tree.new_zeros((pad, *tree.shape[1:]))])
     return _like(tree, [pad_lanes(a, pad) for a in tree])
+
+
+def slice_lanes(tree, lo: int, hi: int):
+    """Lanes lo … hi − 1 of every tensor of `tree`, each a fresh copy (a
+    search updates its carry in place and must write no other lane; a
+    kernel's buffers start where the allocator aligns them). None passes
+    through."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[lo:hi].clone()
+    return _like(tree, [slice_lanes(a, lo, hi) for a in tree])
+
+
+def tree_to(tree, device):
+    """Every tensor of `tree` on `device` (no copy for a tensor already
+    there; None passes through)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return _like(tree, [tree_to(a, device) for a in tree])
 
 
 def put_lanes(tree, sub, idx):

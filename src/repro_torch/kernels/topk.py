@@ -5,7 +5,10 @@ Counterpart of `repro/kernels/topk.py`'s `pack_payload`/`unpack_payload`
 and of the order its host merge (`bitonic_merge_sorted`, position lane)
 and the dense backend's stable argsort both give: entries ordered by
 (distance, position in `[old | new]`). The fused kernel (K1) sorts on the
-same pair, so all three agree on ties.
+same pair, so all three agree on ties. `bitonic_merge_phase` is the
+reference's compare-exchange network on (key, position) as torch ops,
+the pairwise pool merge of the mesh path (`distributed.merge`); it is
+jnp in the reference and no kernel here.
 
 `topm_merge` is K7, a wrapper over `csrc/topk.cu`, with its plain version
 `topm_merge_plain`. It replaces the TPU kernel
@@ -56,6 +59,39 @@ def merge_stable(dist: torch.Tensor, lanes: tuple, new_dist: torch.Tensor,
     out = tuple(torch.gather(torch.cat([a, b], dim=1), 1, order)
                 for a, b in zip(lanes, new_lanes))
     return torch.gather(d, 1, order), out
+
+
+def bitonic_merge_phase(keys: torch.Tensor, pos: torch.Tensor, lanes: tuple):
+    """One full bitonic merge phase (strides w/2 … 1, all ascending) over
+    a row-bitonic [B, w] block (w a power of two) under the lexicographic
+    total order (key, pos); `lanes` are extra [B, w] tensors riding the
+    same selects. Returns (keys, pos, lanes).
+
+    The reference's `repro/kernels/topk.py::bitonic_merge_phase` as torch
+    ops: a compare-exchange network that moves values and computes none.
+    With distinct positions in a row the order is total, which is what
+    makes the cross-shard merge (`distributed.merge`) independent of the
+    merge tree's shape, bit for bit."""
+    b, w = keys.shape
+    j = w // 2
+    while j >= 1:
+        shape = (b, w // (2 * j), 2, j)
+        kk, pp = keys.reshape(shape), pos.reshape(shape)
+        lo_k, hi_k = kk[:, :, 0], kk[:, :, 1]
+        lo_p, hi_p = pp[:, :, 0], pp[:, :, 1]
+        keep = (lo_k < hi_k) | ((lo_k == hi_k) & (lo_p <= hi_p))
+
+        def exchange(x):
+            x = x.reshape(shape)
+            lo, hi = x[:, :, 0], x[:, :, 1]
+            return torch.stack([torch.where(keep, lo, hi),
+                                torch.where(keep, hi, lo)],
+                               dim=2).reshape(b, w)
+
+        keys, pos = exchange(keys), exchange(pos)
+        lanes = tuple(exchange(x) for x in lanes)
+        j //= 2
+    return keys, pos, lanes
 
 
 def topm_merge_plain(dist: torch.Tensor, payload: torch.Tensor,

@@ -74,7 +74,8 @@ def build_world(corpus: int, train_queries: int, queue_size: int, k: int,
         graph = build_sharded_graph_index(ds.vectors, n_shards, degree=24,
                                           seed=seed, device=dev)
         engine = ShardedSearchEngine.build(ds, graph, backend=backend,
-                                           precision=precision, device=dev)
+                                           mesh=None, precision=precision,
+                                           device=dev)
     else:
         graph = build_graph_index(ds.vectors, degree=24, seed=seed,
                                   device=dev)

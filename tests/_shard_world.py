@@ -14,6 +14,7 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.core import SearchConfig as JConfig
 from repro.core import SearchEngine as JEngine
@@ -28,13 +29,25 @@ from _quant_grid import grid_index, grid_queries, on_grid
 from repro_torch.convert import engine_from_arrays, state_to_numpy
 from repro_torch.core import SearchConfig
 from repro_torch.core.sharded import ShardedSearchEngine
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.filters import FilterSpec
 from repro_torch.quant.tiering import as_vector_store
 
 CFG = SearchConfig(k=5, queue_size=32, pred_kind=0)
 
+#: the (data, index) shapes of the 2-D meshes held to the loop path
+MESH_SHAPES = ((1, 4), (2, 2), (4, 1))
+
 REF_BACKEND = {"dense": "dense", "persistent": "pallas_persistent",
                "fused": "pallas"}
+
+#: the reference backend `check_sharded_matches_reference` holds a port
+#: backend to in widen mode, where it differs from REF_BACKEND: the
+#: reference's persistent backend runs its multi-step kernel in post mode
+#: only, and in widen mode groups steps of its fused-step kernel into
+#: launches — the same kernel, one launch a step, is "pallas" (its
+#: compilations take half the time: no launch widths, no launch modes)
+REF_WIDEN_BACKEND = {"persistent": "fused"}
 
 
 def pspec(spec):
@@ -144,6 +157,31 @@ def port_sharded(n_shards: int, precision: str = "float32",
                       else as_vector_store(jds.vectors, tier, "cpu")))
 
 
+def cpu_mesh(*shape, names=("data", "index")) -> Mesh:
+    """A mesh of the CPU repeated at every position (the repeated device
+    is the port's stated departure: one device runs every position)."""
+    return Mesh(np.full(shape, torch.device("cpu"), dtype=object), names)
+
+
+def on_mesh(eng, shape):
+    """A copy of a port engine that searches on a CPU mesh of `shape`."""
+    names = ("data",) if len(shape) == 1 else ("data", "index")
+    return dataclasses.replace(eng, mesh=cpu_mesh(*shape, names=names))
+
+
+def ref_plain(backend: str = "dense") -> JEngine:
+    """The reference's unsharded engine over the plain graph
+    (mesh=None)."""
+    jds = dataset()
+    g = plain_graph()
+    return JEngine(
+        base_vectors=jnp.asarray(jds.vectors),
+        label_attrs=jnp.asarray(jds.labels_packed),
+        value_attrs=jnp.asarray(np.asarray(jds.value_matrix)),
+        neighbors=jnp.asarray(g.neighbors), entry_point=int(g.entry_point),
+        backend=REF_BACKEND[backend], mesh=None)
+
+
 def port_plain(precision: str = "float32", backend: str = "dense"):
     """The port's unsharded engine over the reference's plain graph."""
     jds = dataset()
@@ -201,24 +239,49 @@ def host_merge_res(states, offsets, k):
     return out_d, out_i
 
 
-def check_sharded_matches_reference(n_shards, precision, backend):
+def assert_port_sharded_equal(got, want, where):
+    """Every merged and stacked leaf of two port ShardedSearchStates,
+    dtype and bits."""
+    for part in ("merged", "shard"):
+        a, b = getattr(got, part), getattr(want, part)
+        for f, x, y in zip(a._fields, a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y), (where, part, f)
+
+
+def check_sharded_matches_reference(n_shards, precision, backend,
+                                    meshes=()):
     """The port's sharded search (probe, then resume; post and widen) ==
-    the reference's loop path in every merged and stacked field, and ==
-    independent per-shard searches + a host lexsort merge, with merged
-    counters the exact sums; under a codec the reranks are equal too."""
-    jeng = ref_sharded(n_shards, precision, backend)
+    the reference's loop path in every merged and stacked field (in widen
+    mode on `REF_WIDEN_BACKEND`), and == independent per-shard searches +
+    a host lexsort merge, with merged counters the exact sums; under a
+    codec the reranks are equal too.
+    The port's engine on each (data, index) CPU mesh of `meshes` runs the
+    same probes and resumes, held to the same reference states and to
+    the port's loop path, every leaf."""
     eng = port_sharded(n_shards, precision, backend)
+    meshed = {shape: on_mesh(eng, shape) for shape in meshes}
     wl = workload(9, 3, precision)
     spec = pspec(wl.spec)
     for mode in ("post", "widen"):
         cfg = dataclasses.replace(CFG, mode=mode)
         jc = jcfg(mode=mode)
+        jeng = ref_sharded(n_shards, precision, backend if mode == "post"
+                           else REF_WIDEN_BACKEND.get(backend, backend))
         jst = jeng.search(jc, wl.queries, wl.spec, 60)
         st = eng.search(cfg, wl.queries, spec, 60)
         assert_sharded_equal(st, jst, f"{mode} probe")
+        mst = {}
+        for shape, me in meshed.items():
+            mst[shape] = me.search(cfg, wl.queries, spec, 60)
+            assert_sharded_equal(mst[shape], jst, f"{mode} probe {shape}")
+            assert_port_sharded_equal(mst[shape], st, f"{mode} probe {shape}")
         jst = jeng.search(jc, wl.queries, wl.spec, 300, state=jst)
         st = eng.search(cfg, wl.queries, spec, 300, state=st)
         assert_sharded_equal(st, jst, f"{mode} resume")
+        for shape, me in meshed.items():
+            got = me.search(cfg, wl.queries, spec, 300, state=mst[shape])
+            assert_sharded_equal(got, jst, f"{mode} resume {shape}")
+            assert_port_sharded_equal(got, st, f"{mode} resume {shape}")
 
         parts = [sh.search(cfg, wl.queries, spec, -(-300 // n_shards))
                  for sh in eng.shards]

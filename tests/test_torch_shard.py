@@ -1,5 +1,6 @@
 """Index-axis sharding in the PyTorch port (`repro_torch.core.sharded`, the
-loop path), on the CPU, against the JAX reference.
+loop path, and at S = 4 the mesh path), on the CPU, against the JAX
+reference.
 
 Counterparts of the 12 tests of `tests/test_shard.py`:
 
@@ -22,7 +23,11 @@ Counterparts of the 12 tests of `tests/test_shard.py`:
   the reference's device tier (the reference's own host-tier test fails
   on its side and is not the yardstick);
 - a float32 traversal on a compressed sharded engine raises, as does a
-  mesh (the mesh path needs several GPUs);
+  mesh without the ("data", "index") axes; "auto" gives the loop path
+  on the CPU;
+- at S = 4 the port's engine on the 2-D CPU meshes (1, 4), (2, 2) and
+  (4, 1) equals the same reference states and the loop path in every
+  leaf (the mesh path's own tests are in `test_torch_mesh.py`);
 - e2e, planner and scheduler on a sharded engine: training data, e2e
   results, EXPLAIN shard sections and `summary()` dicts equal the
   reference's;
@@ -187,10 +192,14 @@ def test_merge_stacked_matches_host_lexsort(b, w, s, m, seed):
                                      (4, 8, 4, 12), (2, 6, 5, 30)])
 def test_merge_stacked_matches_reference(b, w, s, m):
     """The port's merge == the reference's `merge_stacked`: distance bits,
-    payloads and positions (a few shapes: each is a JAX compilation)."""
+    payloads and positions (a few shapes: each is a JAX compilation). The
+    reference's merge runs under `jax.jit`, one compilation a shape in
+    place of one a jnp op (≈12× faster here); its compare-exchange
+    network moves values and computes none, so the bits are eager's."""
     dists, pays = _pools(b, w, s, seed=b * 1000 + w * 100 + s * 10 + m)
     got = merge_stacked(torch.from_numpy(dists), torch.from_numpy(pays), m)
-    want = j_merge_stacked(jnp.asarray(dists), jnp.asarray(pays), m)
+    want = jax.jit(j_merge_stacked, static_argnames="m")(
+        jnp.asarray(dists), jnp.asarray(pays), m=m)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g.numpy().view(np.uint32),
                                       np.asarray(x).view(np.uint32))
@@ -205,8 +214,12 @@ def test_sharded_matches_reference(n_shards, precision, backend):
     """The port's sharded search (probe, then resume; post and widen) ==
     the reference's loop path in every merged and stacked field, and ==
     independent per-shard searches + a host lexsort merge, with merged
-    counters the exact sums."""
-    W.check_sharded_matches_reference(n_shards, precision, backend)
+    counters the exact sums. At S = 4 the port's engine on each 2-D CPU
+    mesh of `W.MESH_SHAPES` is held to the same reference states and to
+    the loop path, every leaf."""
+    W.check_sharded_matches_reference(
+        n_shards, precision, backend,
+        meshes=W.MESH_SHAPES if n_shards == 4 else ())
 
 
 def test_single_shard_engine_is_the_plain_engine():
@@ -356,8 +369,9 @@ def test_build_and_its_refusals():
     """`ShardedSearchEngine.build` over the port's own shard graphs: the
     codecs of every shard share their parameters (one sample), the shards
     of a float32 build view one tensor, and the reference's ValueErrors
-    (host tier at float32, a graph of another size) plus a mesh, which
-    waits for several GPUs, are refused."""
+    (host tier at float32, a graph of another size, a mesh without the
+    ("data", "index") axes) are refused; "auto" on the CPU is the loop
+    path, as on one device."""
     ds = make_dataset(n=256, dim=8, n_clusters=4, alphabet_size=16, seed=0)
     sg = build_sharded_graph_index(ds.vectors, 2, degree=8, seed=0,
                                    device="cpu")
@@ -381,7 +395,10 @@ def test_build_and_its_refusals():
             make_dataset(n=258, dim=8, n_clusters=4, alphabet_size=16,
                          seed=0), sg, device="cpu")
     with pytest.raises(ValueError, match="mesh"):
-        ShardedSearchEngine.build(ds, sg, device="cpu", mesh="auto")
+        ShardedSearchEngine.build(ds, sg, device="cpu",
+                                  mesh=W.cpu_mesh(2, names=("data",)))
+    assert eng.mesh is None and ShardedSearchEngine.build(
+        ds, sg, device="cpu", mesh="auto").mesh is None
     assert eng.tier == q.tier == "device" and eng.vector_store is None
     h = ShardedSearchEngine.build(ds, sg, device="cpu", precision="int8",
                                   tier="host",

@@ -1,9 +1,15 @@
 """The persistent half of `test_torch_shard.py`'s parity matrix: the port's
 sharded search on the "persistent" backend (kernel K5's plain version
-here) against the reference's loop path on "pallas_persistent" (its
-kernel in interpret mode), at S ∈ {1, 2, 4} × float32 / int8 / PQ, every
-merged and stacked field, post and widen, probe then resume; and against
-independent per-shard searches merged by a host lexsort.
+here) against the reference's loop path — in post mode on
+"pallas_persistent" (its multi-step kernel in interpret mode), in widen
+mode on "pallas" (the fused-step kernel that "pallas_persistent" groups
+into launches there; `_shard_world.REF_WIDEN_BACKEND`) — at S ∈ {1, 2,
+4} × float32 / int8 / PQ, every merged and stacked field, post and widen,
+probe then resume; and against independent per-shard searches merged by
+a host lexsort. (The S = 4 mesh checks against the reference ride on the
+dense half, `test_torch_shard.py`: a mesh runs the persistent backend
+through `run_search`'s per-step fused merge, which `test_torch_mesh.py`
+holds to the loop path.)
 
 Tolerance: none — the grid data (`tests/_shard_world.py`) make every
 distance exact in both packages.
